@@ -1,0 +1,103 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip without a CUDA device (this file imports no JAX,
+so it runs on a machine that has only PyTorch). Run on the GPU with
+``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``. Inputs are
+bf16; the plain version computes in fp32 from the same inputs, and the bound
+is 1e-2 max abs error (bf16 output rounding, and the kernel keeps
+unnormalised probabilities in fp32 where the plain version rounds the
+normalised ones).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cosmos_curate_tpu_torch.ops import kernels
+from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
+
+BOUND = 1e-2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _paged_case(seed, *, b, hk, g, d, nbl, bs, device):
+    rng = np.random.default_rng(seed)
+    n_blocks = b * nbl + 3
+    pool_k = rng.standard_normal((2, n_blocks, bs, hk, d)).astype(np.float32)
+    pool_v = rng.standard_normal((2, n_blocks, bs, hk, d)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, n_blocks))[: b * nbl].reshape(b, nbl).astype(np.int32)
+    to = lambda x: torch.from_numpy(x).to(device, torch.bfloat16)  # noqa: E731
+    return rng, to(pool_k), to(pool_v), torch.from_numpy(tables).to(device)
+
+
+def _err(got, want) -> float:
+    torch.cuda.synchronize()
+    return (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g", [(16, 2), (64, 2), (128, 6)])
+def test_paged_decode_kernel(dev, d, g):
+    rng, pk, pv, tables = _paged_case(0, b=4, hk=2, g=g, d=d, nbl=6, bs=16, device=dev)
+    q = torch.from_numpy(rng.standard_normal((4, 1, 2, g, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    kv_len = torch.tensor([1, 17, 50, 96], dtype=torch.int32, device=dev)
+    tables[0] = 0  # an idle row: garbage block, kv_len 1
+    n = kernels()["paged_decode"].launches
+    got = paged_attention(q, pk, pv, tables, kv_len - 1, kv_len, layer_index=1)
+    want = paged_attention_plain(
+        q.float(), pk.float(), pv.float(), tables, kv_len - 1, kv_len, layer_index=1, sm_scale=d**-0.5
+    )
+    assert kernels()["paged_decode"].launches == n + 1
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) <= BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(37, 64), (256, 64), (20, 16)])
+def test_paged_prefill_kernel_mid_context(dev, t, d):
+    rng, pk, pv, tables = _paged_case(1, b=2, hk=2, g=2, d=d, nbl=20, bs=16, device=dev)
+    q = torch.from_numpy(rng.standard_normal((2, t, 2, 2, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    write = torch.tensor([0, 40], dtype=torch.int32, device=dev)
+    got = paged_attention(q, pk, pv, tables, write, write + t, layer_index=0)
+    want = paged_attention_plain(
+        q.float(), pk.float(), pv.float(), tables, write, write + t, layer_index=0, sm_scale=d**-0.5
+    )
+    assert _err(got, want) <= BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,s,kv", [(64, 64, 38), (1024, 1024, 686), (100, 300, 250)])
+def test_contiguous_prefill_kernel(dev, t, s, kv):
+    rng = np.random.default_rng(2)
+
+    def mk(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+    q, k, v = mk(1, t, 8, 2, 64), mk(1, s, 8, 64), mk(1, s, 8, 64)
+    write = torch.full((1,), kv - min(t, kv), dtype=torch.int32, device=dev)
+    kv_len = torch.full((1,), kv, dtype=torch.int32, device=dev)
+    got = prefill_attention(q, k, v, write, kv_len)
+    want = chunk_attention_plain(q.float(), k.float(), v.float(), write, kv_len, 0.125)
+    assert _err(got, want) <= BOUND
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(1, 1, 1, 2, 64, device=dev)  # fp32: not a kernel dtype
+    pool = torch.zeros(1, 2, 16, 1, 64, device=dev, dtype=torch.bfloat16)
+    tables = torch.ones(1, 1, dtype=torch.int32, device=dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        paged_attention(q, pool, pool, tables, one - 1, one)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_attention(torch.zeros(1, 1, 1, 2, 32, device=dev, dtype=torch.bfloat16),
+                        pool[..., :32].contiguous(), pool[..., :32].contiguous(), tables, one - 1, one)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention(q.bfloat16(), pool, pool, tables.long(), one - 1, one)
