@@ -22,8 +22,10 @@ and prints one JSON line per phase:
    caption benchmark's base workload (8 requests, 4 random 224x224 frames,
    the default prompt or the 686-token long prompt as shared prefix, 64 new
    tokens); every kernel's launch counter must rise during that run;
-5. breakdown: 16 engine steps with both lanes decoding under torch.profiler
-   (device time by kernel, launches per step, the device's idle share);
+5. breakdown: with both lanes decoding, 16 engine steps without a profiler
+   (wall time per step), then 16 under torch.profiler tracing the device
+   only (device time by kernel, launches per step, and the device's idle
+   share of that traced window);
 6. forward: the engine's model on a small input with every kernel against
    the same forward with each kernel replaced by its plain version.
 
@@ -358,10 +360,10 @@ def drive_slice(dev, cfg, kv_lanes=((256, 4), (1024, 4))) -> tuple[dict, object,
 
 
 def profile_decode(engine, make_request, steps: int = 16) -> dict:
-    """Where a decode step's time goes: ``steps`` engine steps with both
-    lanes decoding, under torch.profiler. Reports device
-    busy time per step by kernel name, launches per step, and the device's
-    idle share of the window (times are inflated by the profiler)."""
+    """Where a decode step's time goes, with both lanes decoding: first
+    ``steps`` engine steps with no profiler (wall time per step), then
+    ``steps`` more under torch.profiler tracing the device only. The idle
+    share is one window's: 1 - device busy / wall of the traced window."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(8):
@@ -372,22 +374,30 @@ def profile_decode(engine, make_request, steps: int = 16) -> dict:
         engine.step()
     for _ in range(4):  # let the rest of the burst join the batch
         engine.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def window() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(steps):
             engine.step()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_wall_ms = window()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced_wall_ms = window()
+    assert all(lane.slots for lane in engine.lanes), "a lane drained inside the profiled window"
     engine.run_until_complete()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    assert busy_us > 0, "the profiler traced no device time"
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return dict(
         steps=steps,
-        wall_ms_per_step=wall_ms / steps,
+        wall_ms_per_step=plain_wall_ms / steps,
+        traced_wall_ms_per_step=traced_wall_ms / steps,
         device_busy_ms_per_step=busy_us / 1e3 / steps,
-        device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
+        device_idle_share=1.0 - busy_us / 1e3 / traced_wall_ms,
         kernel_launches_per_step=sum(e.count for e in kernels) / steps,
         top_kernels=[
             {"name": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / steps,

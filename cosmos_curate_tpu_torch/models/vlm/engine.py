@@ -25,7 +25,6 @@ slice: tensor-parallel serving (``mesh``) and the Qwen3 deepstack inputs.
 from __future__ import annotations
 
 import math
-import os
 import threading
 import time
 from collections import OrderedDict, deque
@@ -49,9 +48,17 @@ from cosmos_curate_tpu_torch.models.vlm.paged_kv import (
 # full sampling surface (top_p/min_p/penalties/min_tokens) lives in
 # models/vlm/sampling.py; re-exported here for the existing import paths
 from cosmos_curate_tpu_torch.models.vlm.sampling import SamplingConfig, sample_token
+from cosmos_curate_tpu_torch.ops._build import KernelError
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+# Device faults: a kernel that could not be built, refused its inputs or
+# failed to launch, or a CUDA error surfacing in a later op. The scheduler drops a request whose prep, claim or prefill
+# raises anything else, but these are never one request's fault (a CUDA
+# error is sticky, so every later request would fail the same way): they
+# propagate to the caller of step() / run_until_complete().
+_DEVICE_FAULTS = (KernelError, torch.AcceleratorError)
 
 
 @dataclass
@@ -277,29 +284,24 @@ class CaptionEngine:
         # interleaved with decode steps
         self.prefill_chunk = min(prefill_chunk, cfg.max_seq)
         self.tokenizer = tokenizer or default_caption_tokenizer()
-        # paged-attention path selection. "auto"/"kernel" run the paged
-        # programs (attention reads the pool through the block table —
-        # the CUDA kernels on the GPU, the plain version on the CPU);
-        # "gather" keeps the gather-view/scatter-back programs as the CPU
-        # parity reference. CURATE_PAGED_ATTENTION overrides the constructor.
-        env_mode = os.environ.get("CURATE_PAGED_ATTENTION")
-        mode = env_mode if env_mode is not None else paged_attention
-        if mode not in ("auto", "kernel", "gather"):
-            raise ValueError(
-                f"paged_attention must be auto|kernel|gather, got {mode!r}"
-            )
-        if mode == "gather" and self.device.type == "cuda":
+        # "auto" runs the paged programs: attention reads the pool through
+        # the block table (the CUDA kernels on the GPU, their plain versions
+        # on the CPU). "gather" keeps the gather-view/scatter-back programs
+        # as the CPU parity reference.
+        if paged_attention not in ("auto", "gather"):
+            raise ValueError(f"paged_attention must be auto|gather, got {paged_attention!r}")
+        if paged_attention == "gather" and self.device.type == "cuda":
             raise NotImplementedError(
                 "paged_attention='gather' decodes through the contiguous decode kernel, "
                 "not ported yet (ROADMAP queue B: ops/decode_attention.py)"
             )
-        self.paged_attention = mode
-        self._use_paged = mode != "gather"
+        self.paged_attention = paged_attention
+        self._use_paged = paged_attention == "auto"
         self.model: VLM | None = None  # built by setup() on self.device
         self.params = params
         self.waiting: list[CaptionRequest] = []
         # (length, n_slots) per decode-batch lane; default = one
-        # worst-case-length lane, the round-2 behavior
+        # worst-case-length lane
         spec = kv_lanes or ((cfg.max_seq, max_batch),)
         # every lane length must tile into whole blocks (the gathered view
         # must equal the lane length EXACTLY for shape parity with the
@@ -313,10 +315,6 @@ class CaptionEngine:
                 "block_size %d does not divide every KV lane length; using %d",
                 block_size, bs,
             )
-        # both sides of the fallback are surfaced (stats() / bench row) so
-        # bench comparisons across block sizes aren't apples-to-oranges
-        # when the gcd silently shrank the divisor
-        self.block_size_requested = int(block_size)
         self.block_size = bs
         base = 0
         self.lanes: list[_Lane] = []
@@ -358,13 +356,13 @@ class CaptionEngine:
         self._decode_rows = 0
         # per-phase accounting (seconds): host+vision prep, vision-tower
         # share of prep, prefill programs (incl. shared-prefix builds),
-        # decode is _decode_time above. Feeds stage_timer caption phases.
+        # decode is _decode_time above (phase_seconds / stats()).
         # _stats_lock guards every counter '+=': the prep thread (prep /
         # vision / prefix-build counters) and the step thread (prefill /
         # decode counters) would otherwise lose updates racing on the same
-        # attributes — and prefill_tokens is the acceptance metric.
+        # attributes.
         #
-        # CANONICAL LOCK ORDER (checked by `lint --concurrency`):
+        # LOCK ORDER:
         #   _lock (== _work_cv)  ->  _prefix_lock  ->  _stats_lock
         # _stats_lock is innermost and leaf-only: never acquire any other
         # engine lock while holding it.
@@ -390,10 +388,9 @@ class CaptionEngine:
         self._prefix_evictions = 0
         self._prefix_tokens_saved = 0
         # paged-KV accounting (all under _stats_lock): cumulative block
-        # reservations per admitted request (the kv_bytes_per_request bench
-        # field), the worst-case tokens the slot-row engine would have
-        # reserved for the same admissions, shared-prefix block references
-        # handed out (the zero-copy successor of insert_prefix dispatches),
+        # reservations per admitted request (kv_bytes_reserved_per_request),
+        # the worst-case tokens a slot-row engine would have reserved for
+        # the same admissions, shared-prefix block references handed out,
         # and copy-on-write tail duplications
         self._requests_admitted = 0
         self._kv_blocks_reserved = 0
@@ -402,16 +399,9 @@ class CaptionEngine:
         self._prefix_block_refs = 0
         self._kv_cow_copies = 0
         self._kv_blocks_used_peak = 0
-        # paged-attention accounting (under _stats_lock): decode steps
-        # served by the paged programs (no gathered working set — the
-        # structural assertion that the per-step copy is gone), bytes of
-        # contiguous KV view the gather programs would have materialized
-        # and scattered back for the same calls, and the tight wall time of
-        # the decode program call + sync (same site both paths, so
-        # kernel-vs-gather step time is directly comparable)
+        # decode steps served by the paged programs (under _stats_lock):
+        # structurally 0 in gather mode
         self._paged_kernel_steps = 0
-        self._kv_gather_bytes_avoided = 0
-        self._decode_attn_time = 0.0
         # cross-job fairness: least-recently-admitted owner goes first, and
         # no owner may hold more than its in-flight share of the slots
         # (owner_inflight_cap; None = ceil(total slots / active owners))
@@ -427,13 +417,16 @@ class CaptionEngine:
         # waiting requests while the caller's step() loop decodes — prep of
         # request N+1 overlaps decode of request N (the caption stage's
         # prep/decode stall was ~70% of its engine budget). Sync mode
-        # (default) preps inline at admission: the round-5 behavior,
-        # deterministic step() semantics for tests.
+        # (default) preps inline at admission: deterministic step()
+        # semantics for tests.
         self.async_prep = async_prep
         self._ready: "deque[_Prepared]" = deque()
         self._prep_inflight: CaptionRequest | None = None
         self._prep_thread: threading.Thread | None = None
         self._prep_stop = False
+        # the first device fault a step or the prep thread hit, re-raised
+        # by every later step() / run_until_complete() of any caller
+        self._device_fault: BaseException | None = None
         # admission linger: when EVERY lane is idle and a burst is still
         # prepping, opening a lane for the first ready request decodes it
         # solo (full-batch rows for one token). Hold admission up to this
@@ -679,6 +672,7 @@ class CaptionEngine:
             # add_request must be able to slip in between decode steps so
             # its requests actually join the continuous batch.
             with self._work_cv:
+                self._raise_device_fault()
                 if not self.has_work(owner):
                     mine = [r for r in self.completed if r.owner == owner]
                     self.completed = [r for r in self.completed if r.owner != owner]
@@ -770,17 +764,14 @@ class CaptionEngine:
     def prefix_block_refs(self) -> int:
         """Cumulative shared-prefix block references handed to admitted
         requests — each one is a whole block of prefix K/V served with ZERO
-        device copies (the metric that replaced insert_prefix dispatches)."""
+        device copies."""
         return self._prefix_block_refs
 
     @property
     def prefix_copy_dispatches(self) -> int:
         """Whole-prefix device-copy dispatches at admission. Structurally
-        zero since the paged pool: admitted requests REFERENCE prefix
-        blocks through their tables instead of copying them into slot rows
-        (the reference's earlier insert_prefix path is gone). Kept as an
-        explicit counter so the bench/smoke contract 'zero prefix
-        device-copy dispatches' is asserted, not assumed."""
+        zero with the paged pool: admitted requests REFERENCE prefix blocks
+        through their tables instead of copying them into slot rows."""
         return 0
 
     @property
@@ -789,53 +780,20 @@ class CaptionEngine:
         tail block (ONE block each — not a prefix copy)."""
         return self._kv_cow_copies
 
-    # -- paged-attention accounting --------------------------------------
-    def _gather_view_bytes(self, rows: int, length: int) -> int:
-        """Bytes of contiguous KV working set the gather programs would
-        materialize for one program call over ``rows`` block tables of
-        ``length`` gathered positions (K + V, all layers)."""
-        cfg = self.cfg
-        itemsize = 2 if self._pool_k is None else self._pool_k.dtype.itemsize
-        return 2 * cfg.n_layers * rows * length * cfg.n_kv_heads * cfg.head_dim * itemsize
-
     @property
     def paged_kernel_steps(self) -> int:
-        """Decode steps served by the paged-attention programs — attention
-        read the pool through the block table; NO contiguous working-set
-        copy was built or scattered back. Structurally zero under
-        ``paged_attention="gather"``; > 0 is the smoke contract that the
-        kernel path was actually taken."""
+        """Decode steps served by the paged-attention programs (attention
+        read the pool through the block table). Structurally zero under
+        ``paged_attention="gather"``."""
         return self._paged_kernel_steps
 
-    @property
-    def kv_gather_bytes_avoided(self) -> int:
-        """Cumulative bytes of per-call contiguous KV working set the
-        gather programs would have materialized (and scattered back) for
-        the prefill/decode calls the paged path served instead."""
-        return self._kv_gather_bytes_avoided
-
-    @property
-    def decode_attention_s(self) -> float:
-        """Tight wall time of decode program calls + host sync, identical
-        measurement site for the paged and gather paths — the
-        kernel-vs-gather comparison the bench caption_attention section
-        reports. (Also contained in phase decode_s, which this mirrors at
-        the program-call granularity.)"""
-        return self._decode_attn_time
-
     def stats(self) -> dict:
-        """One-call snapshot of the serving counters (bench row / smoke
-        surface). Includes both sides of the block-size fallback: the
-        constructor-requested size and the gcd-shrunk divisor actually
-        used, so cross-run bench comparisons can detect a silent shrink."""
+        """One-call snapshot of the serving counters."""
         with self._stats_lock:
             return {
                 "paged_attention": self.paged_attention,
                 "kv_block_size": self.block_size,
-                "kv_block_size_requested": self.block_size_requested,
                 "paged_kernel_steps": self._paged_kernel_steps,
-                "kv_gather_bytes_avoided": self._kv_gather_bytes_avoided,
-                "decode_attention_s": self._decode_attn_time,
                 "decode_tokens": self._decode_tokens,
                 "decode_s": self._decode_time,
                 "prefill_tokens": self._prefill_tokens,
@@ -852,8 +810,8 @@ class CaptionEngine:
     @property
     def kv_bytes_reserved_per_request(self) -> float:
         """Mean KV bytes reserved per admitted request (shared references
-        counted at full block size — still strictly below the old
-        worst-case row whenever prompt + max_new undershoots the lane)."""
+        counted at full block size — strictly below the lane's worst-case
+        row whenever prompt + max_new undershoots the lane)."""
         if not self._requests_admitted:
             return 0.0
         return self._kv_blocks_reserved * self.kv_block_bytes / self._requests_admitted
@@ -880,7 +838,7 @@ class CaptionEngine:
 
     def owner_stats(self) -> dict:
         """Per-owner queue/in-flight/served gauges, keyed by str(owner) —
-        the cross-job accounting surface (metrics exporter + run report)."""
+        the cross-job accounting surface."""
         with self._lock:
             out: dict[str, dict] = {}
 
@@ -948,8 +906,6 @@ class CaptionEngine:
             self._prefix_block_refs = 0
             self._kv_cow_copies = 0
             self._paged_kernel_steps = 0
-            self._kv_gather_bytes_avoided = 0
-            self._decode_attn_time = 0.0
             self._kv_blocks_used_peak = self._allocator.used_blocks
             self._interleaved_steps = 0
             self._owner_decode_tokens.clear()
@@ -1007,23 +963,41 @@ class CaptionEngine:
         if not self._built:
             raise RuntimeError("call setup() first")
         with self._work_cv:
-            self._admit()
-            # cross-job signal: this step's active slots span 2+ owners —
-            # several jobs are decoding in ONE continuous batch
-            step_owners = {
-                s.request.owner for l in self.lanes for s in l.slots.values()
-            }
-            if len(step_owners) > 1:
-                with self._stats_lock:
-                    self._interleaved_steps += 1
-            for lane in self.lanes:
-                if lane.pending:
-                    self._prefill_chunk_step(lane)
-                    while lane.pending and not any(l.slots for l in self.lanes):
-                        self._prefill_chunk_step(lane)
-                if lane.slots:
-                    self._decode_once(lane)
+            self._raise_device_fault()
+            try:
+                self._step()
+            except _DEVICE_FAULTS as e:
+                # the pool may hold claims of requests that never started:
+                # the engine stays failed
+                self._device_fault = e
+                raise
             self._work_cv.notify_all()  # ready-queue space may have freed
+
+    # holds-lock: _lock
+    def _step(self) -> None:
+        self._admit()
+        # cross-job signal: this step's active slots span 2+ owners —
+        # several jobs are decoding in ONE continuous batch
+        step_owners = {
+            s.request.owner for l in self.lanes for s in l.slots.values()
+        }
+        if len(step_owners) > 1:
+            with self._stats_lock:
+                self._interleaved_steps += 1
+        for lane in self.lanes:
+            if lane.pending:
+                self._prefill_chunk_step(lane)
+                while lane.pending and not any(l.slots for l in self.lanes):
+                    self._prefill_chunk_step(lane)
+            if lane.slots:
+                self._decode_once(lane)
+
+    def _raise_device_fault(self) -> None:
+        """Re-raise the device fault a step or the prep thread hit: after
+        one, every step() / run_until_complete() raises it. Lock held by
+        caller."""
+        if self._device_fault is not None:
+            raise self._device_fault
 
     # -- request prep (sync inline, or the background overlap thread) ---
     def _start_prep_thread(self) -> None:
@@ -1058,7 +1032,14 @@ class CaptionEngine:
                     return
                 req = self._pop_waiting_fair()
                 self._prep_inflight = req
-            prep = self._safe_prepare(req)  # no lock: overlaps decode
+            try:
+                prep = self._safe_prepare(req)  # no lock: overlaps decode
+            except _DEVICE_FAULTS as e:
+                with self._work_cv:
+                    self._prep_inflight = None
+                    self._device_fault = e
+                    self._work_cv.notify_all()
+                return
             with self._work_cv:
                 self._prep_inflight = None
                 if prep is not None:
@@ -1132,6 +1113,8 @@ class CaptionEngine:
         t0 = time.monotonic()
         try:
             return self._prepare(req)
+        except _DEVICE_FAULTS:
+            raise
         except Exception:
             logger.exception("prefill prep failed for %s; dropping", req.request_id)
             return None
@@ -1364,6 +1347,8 @@ class CaptionEngine:
                 # free blocks (prep kept, not redone)
                 self._ready.appendleft(prep)
                 break
+            except _DEVICE_FAULTS:
+                raise
             except Exception:
                 logger.exception(
                     "KV block claim failed for %s; dropping", req.request_id
@@ -1403,6 +1388,8 @@ class CaptionEngine:
                 lane.reserved.discard(slot_idx)
             try:
                 self._prefill_group(lane, bucket, items)
+            except _DEVICE_FAULTS:
+                raise
             except Exception:
                 if len(items) == 1:
                     logger.exception(
@@ -1418,6 +1405,8 @@ class CaptionEngine:
                 for item in items:
                     try:
                         self._prefill_group(lane, bucket, [item])
+                    except _DEVICE_FAULTS:
+                        raise
                     except Exception:
                         logger.exception(
                             "prefill failed for %s; dropping", item[1].request_id
@@ -1650,7 +1639,7 @@ class CaptionEngine:
         """Reserve a request's KV blocks and build its block-table row.
 
         Shared-prefix full blocks are REFERENCED (incref — zero device
-        copies, the successor of the deleted insert_prefix path); a
+        copies); a
         partially-filled shared tail block is copy-on-write duplicated into
         the request's first private block; the rest of
         ``ceil(need / block_size)`` blocks are fresh private allocations.
@@ -1759,11 +1748,9 @@ class CaptionEngine:
         self, req: CaptionRequest
     ) -> tuple[np.ndarray | None, float | None]:
         """An over-budget multimodal prompt re-samples FEWER frames instead
-        of silently slicing the vision block (VERDICT r3: tail-keep on a
-        frames-heavy request dropped leading vision tokens mid-grid,
-        producing a grammatically-valid but semantically-corrupt prompt;
-        the reference's windowing guarantees prompts fit,
-        windowing_utils.py:53). Raises when even one frame cannot fit —
+        of silently slicing the vision block (tail-keep on a frames-heavy
+        request would drop leading vision tokens mid-grid, producing a
+        grammatically-valid but semantically-corrupt prompt). Raises when even one frame cannot fit —
         the caller's text leaves no room for vision.
 
         Returns (frames, effective_fps): re-sampling spreads fewer frames
@@ -1833,10 +1820,6 @@ class CaptionEngine:
         with self._stats_lock:
             self._prefill_time += time.monotonic() - t0
             self._prefill_tokens += int(sum(it[3] for it in items))
-            if self._use_paged:
-                self._kv_gather_bytes_avoided += self._gather_view_bytes(
-                    len(tables), lane.length
-                )
         for j, (slot_idx, req, _emb, t_valid, _rope, next_rope, base) in enumerate(items):
             self._start_slot(lane, slot_idx, req, base + t_valid, next_rope, logits_np[j])
 
@@ -1917,7 +1900,7 @@ class CaptionEngine:
                 # final partial chunk: shift back so the C-length buffer
                 # ends exactly at the prompt end. The overlapped rows
                 # rewrite identical K/V (same embeds, same rope, correct
-                # causal mask), and dynamic_update_slice stays in bounds
+                # causal mask), and the chunk's write stays in bounds
                 # for shared-prefix bases > 0 and for lane lengths that are
                 # not a multiple of the chunk size.
                 start = p.t_valid - C
@@ -1952,10 +1935,6 @@ class CaptionEngine:
         with self._stats_lock:
             self._prefill_time += time.monotonic() - t0
             self._prefill_tokens += new_tokens
-            if self._use_paged:
-                self._kv_gather_bytes_avoided += self._gather_view_bytes(
-                    len(tables), lane.length
-                )
 
     # holds-lock: _lock
     def _decode_once(self, lane: _Lane) -> None:
@@ -1979,17 +1958,13 @@ class CaptionEngine:
         t0 = time.monotonic()
         # greedy ids come back in ONE host sync for the whole batch
         greedy_np, logits = self._decode(lane.table, tokens, positions, rope_positions)
-        dt = time.monotonic() - t0  # program call + sync: same site, both paths
+        dt = time.monotonic() - t0
         with self._stats_lock:
             self._decode_time += dt
-            self._decode_attn_time += dt
             self._decode_tokens += len(lane.slots)
             self._decode_rows += lane.n_slots
             if self._use_paged:
                 self._paged_kernel_steps += 1
-                self._kv_gather_bytes_avoided += self._gather_view_bytes(
-                    lane.n_slots, lane.length
-                )
             for slot in lane.slots.values():
                 owner = slot.request.owner
                 self._owner_decode_tokens[owner] = (

@@ -32,6 +32,20 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, refused its inputs, or
+    failed to launch. Callers let it propagate: it is never one request's
+    fault."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """A kernel wrapper refused its tensors (device, dtype, shape, layout)."""
+
+
+class KernelLaunchError(KernelError):
+    """A kernel launch returned a nonzero ``cudaGetLastError``."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -39,7 +53,7 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    raise KernelError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
 def _library_path(name: str) -> Path:
@@ -65,7 +79,7 @@ def _finish_build(out: Path, tmp: Path, proc: subprocess.Popen) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {out.name} (exit {proc.returncode}):\n{log}")
+        raise KernelError(f"nvcc failed for {out.name} (exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
 
 
@@ -77,10 +91,10 @@ def build_all(names: tuple[str, ...] = ("paged_attention", "prefill_attention"))
         for out, tmp, proc in started:
             try:
                 _finish_build(out, tmp, proc)
-            except RuntimeError as e:
+            except KernelError as e:
                 errors.append(str(e))
         if errors:
-            raise RuntimeError("\n".join(errors))
+            raise KernelError("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -123,6 +137,6 @@ class CudaKernel:
     def launch(self, *args) -> None:
         rc = self._resolve()(*args)
         if rc != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: cudaError {rc}")
+            raise KernelLaunchError(f"{self.symbol} launch failed: cudaError {rc}")
         with self._count_lock:
             self.launches += 1

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from cosmos_curate_tpu_torch.ops._build import CudaKernel
+from cosmos_curate_tpu_torch.ops._build import CudaKernel, KernelInputError
 from cosmos_curate_tpu_torch.ops.prefill_attention import (
     MAX_PREFILL_ROWS,
     check_kernel_inputs,
@@ -77,13 +77,13 @@ def paged_attention(
     b, t, hk, g, d = q.shape
     n_layers, nb, bs = pool_k.shape[:3]
     if pool_v.shape != pool_k.shape or pool_k.shape[3] != hk:
-        raise ValueError(f"paged_attention: pool {tuple(pool_k.shape)} vs q {tuple(q.shape)}")
+        raise KernelInputError(f"paged_attention: pool {tuple(pool_k.shape)} vs q {tuple(q.shape)}")
     if not 0 <= layer_index < n_layers:
-        raise ValueError(f"paged_attention: layer_index {layer_index} outside [0, {n_layers})")
+        raise KernelInputError(f"paged_attention: layer_index {layer_index} outside [0, {n_layers})")
     if tables.dim() != 2 or tables.shape[0] != b:
-        raise ValueError("paged_attention: tables must be [B, nbl]")
+        raise KernelInputError("paged_attention: tables must be [B, nbl]")
     if write_index.shape != (b,) or kv_len.shape != (b,):
-        raise ValueError("paged_attention: write_index/kv_len must be [B]")
+        raise KernelInputError("paged_attention: write_index/kv_len must be [B]")
     check_kernel_inputs(
         "paged_attention",
         q,

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from cosmos_curate_tpu_torch.ops._build import CudaKernel
+from cosmos_curate_tpu_torch.ops._build import CudaKernel, KernelInputError
 
 _NEG_INF = -1e30
 # head dims the CUDA kernels are instantiated for
@@ -62,25 +62,25 @@ def check_kernel_inputs(name: str, q, kv, ints, *, max_g: int) -> None:
     K/V, a supported head dim and at most ``max_g`` grouped heads."""
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got {dev}")
+        raise KernelInputError(f"{name}: the CUDA kernel needs CUDA tensors, got {dev}")
     d, g = q.shape[-1], q.shape[-2]
     if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+        raise KernelInputError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     if not 1 <= g <= max_g:
-        raise ValueError(f"{name}: {g} grouped heads, the kernel takes 1..{max_g}")
+        raise KernelInputError(f"{name}: {g} grouped heads, the kernel takes 1..{max_g}")
     for label, x in (("q", q), *kv):
         if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: {label} must be bfloat16, got {x.dtype}")
+            raise KernelInputError(f"{name}: {label} must be bfloat16, got {x.dtype}")
         if x.device != dev or not x.is_contiguous():
-            raise ValueError(f"{name}: {label} must be contiguous on {dev}")
+            raise KernelInputError(f"{name}: {label} must be contiguous on {dev}")
         if x.shape[-1] != d:
-            raise ValueError(f"{name}: {label} head dim {x.shape[-1]} != {d}")
+            raise KernelInputError(f"{name}: {label} head dim {x.shape[-1]} != {d}")
     for label, x in kv:
         if x.data_ptr() % 16:
-            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+            raise KernelInputError(f"{name}: {label} must be 16-byte aligned")
     for label, x in ints:
         if x.dtype != torch.int32 or x.device != dev or not x.is_contiguous():
-            raise ValueError(f"{name}: {label} must be contiguous int32 on {dev}")
+            raise KernelInputError(f"{name}: {label} must be contiguous int32 on {dev}")
 
 
 def prefill_attention(q, k_cache, v_cache, write_index, kv_len, *, sm_scale=None):
@@ -95,9 +95,9 @@ def prefill_attention(q, k_cache, v_cache, write_index, kv_len, *, sm_scale=None
         return chunk_attention_plain(q, k_cache, v_cache, write_index, kv_len, sm_scale)
     b, t, hk, g, d = q.shape
     if k_cache.shape != v_cache.shape or k_cache.shape[0] != b or k_cache.shape[2] != hk:
-        raise ValueError(f"prefill_attention: cache {tuple(k_cache.shape)} vs q {tuple(q.shape)}")
+        raise KernelInputError(f"prefill_attention: cache {tuple(k_cache.shape)} vs q {tuple(q.shape)}")
     if write_index.shape != (b,) or kv_len.shape != (b,):
-        raise ValueError("prefill_attention: write_index/kv_len must be [B]")
+        raise KernelInputError("prefill_attention: write_index/kv_len must be [B]")
     check_kernel_inputs(
         "prefill_attention",
         q,

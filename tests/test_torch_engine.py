@@ -181,5 +181,6 @@ def test_pool_fully_free_after_drain_and_shutdown():
 def test_engine_refuses_mesh_and_unknown_mode():
     with pytest.raises(NotImplementedError, match="mesh"):
         CaptionEngine(VLM_TINY_TEST, device="cpu", mesh=object())
-    with pytest.raises(ValueError, match="auto\\|kernel\\|gather"):
-        CaptionEngine(VLM_TINY_TEST, device="cpu", paged_attention="bogus")
+    for mode in ("bogus", "kernel"):
+        with pytest.raises(ValueError, match="auto\\|gather"):
+            CaptionEngine(VLM_TINY_TEST, device="cpu", paged_attention=mode)

@@ -15,7 +15,9 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
+import cosmos_curate_tpu_torch.models.vlm.model as vlm_model
 from cosmos_curate_tpu_torch.models.tokenizer import ByteTokenizer
 from cosmos_curate_tpu_torch.models.vlm import (
     CaptionEngine,
@@ -23,6 +25,7 @@ from cosmos_curate_tpu_torch.models.vlm import (
     SamplingConfig,
     VLM_TINY_TEST,
 )
+from cosmos_curate_tpu_torch.ops._build import KernelInputError, KernelLaunchError
 
 TOK = ByteTokenizer()
 PREFIX = "system: you are a terse captioner. user:"
@@ -310,3 +313,45 @@ def test_async_prep_matches_sync_and_packs_the_burst(full):
     finally:
         eng.shutdown()
     assert eng.kv_blocks_used == 0
+
+
+@pytest.mark.parametrize(
+    "op, when, fault, async_prep",
+    [
+        # a paged prefill group: the scheduler would otherwise retry each
+        # request alone and drop it
+        ("paged_attention", "prefill", KernelLaunchError, False),
+        ("paged_attention", "decode", KernelLaunchError, False),
+        ("paged_attention", "prefill", KernelInputError, False),
+        ("paged_attention", "prefill", torch.AcceleratorError, False),
+        # the shared-prefix build runs inside request prep, inline or on the
+        # prep thread
+        ("prefill_attention", "prefix", KernelLaunchError, False),
+        ("prefill_attention", "prefix", KernelLaunchError, True),
+    ],
+)
+def test_device_faults_propagate_instead_of_dropping_requests(monkeypatch, op, when, fault, async_prep):
+    """A kernel that fails on the card fails the caller's drive: the
+    scheduler's per-request drop handlers must not turn it into missing
+    results and log lines."""
+    real = getattr(vlm_model, op)
+
+    def failing(q, *args, **kw):
+        if when != "decode" or q.shape[1] == 1:
+            raise fault(f"{op}: injected device fault")
+        return real(q, *args, **kw)
+
+    monkeypatch.setattr(vlm_model, op, failing)
+    eng = _engine(async_prep=async_prep)
+    try:
+        for i in range(2):
+            eng.add_request(_req(f"f{i}", text=f"clip {i}", frames=0))
+        with pytest.raises(fault, match="injected device fault"):
+            eng.run_until_complete()
+        assert not eng.completed
+        with pytest.raises(fault):  # the engine stays failed
+            eng.step()
+        with pytest.raises(fault):
+            eng.run_until_complete()
+    finally:
+        eng.shutdown()
