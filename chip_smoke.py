@@ -18,16 +18,36 @@ and prints one JSON line per phase:
    ``scaled_dot_product_attention`` call on the equivalent gathered /
    contiguous tensors (a yardstick only; it excludes the gather, and the port
    never calls it);
-4. slice: ``CaptionEngine(VLM_BASE)`` with seeded random weights answers the
+4. embed: ``ClipEmbeddingStage(variant="video")`` at ``VIDEO_EMBED_BASE``
+   with seeded random weights embeds the main path's shapes (8 stage calls
+   of 8 tasks x 4 clips x 8 random uint8 224x224 frames, 32 clips per call
+   in micro-batches of ``EMBED_MICRO_BATCH`` clips) after a warm-up call:
+   clips/s, the pipeline's per-dispatch copy-in / compute / copy-out times,
+   peak memory and flash launches; every clip must hold a finite unit-norm
+   embedding, within ``EMBED_BOUND`` of the same stage with the flash kernel
+   swapped for its plain version, while the plain version with one key
+   tile dropped (the first, or the ragged last) must land beyond that bound.
+   Then clips/s of ``VideoEmbedder.encode_clips`` on the same calls at
+   micro-batches of 32, 16 and 8 clips, over ``SWEEP_ROUNDS`` rounds in
+   rotating order;
+5. slice: ``CaptionEngine(VLM_BASE)`` with seeded random weights answers the
    caption benchmark's base workload (8 requests, 4 random 224x224 frames,
    the default prompt or the 686-token long prompt as shared prefix, 64 new
-   tokens); every kernel's launch counter must rise during that run;
-5. breakdown: with both lanes decoding, 16 engine steps without a profiler
-   (wall time per step), then 16 under torch.profiler tracing the device
-   only (device time by kernel, launches per step, and the device's idle
-   share of that traced window);
-6. forward: the engine's model on a small input with every kernel against
+   tokens) through the paged kernels;
+6. gather: the same workload through ``CaptionEngine(VLM_BASE,
+   paged_attention="gather")``, whose decode steps run the contiguous decode
+   kernel and whose prefills run the contiguous prefill kernel; the paged
+   kernels must not launch there;
+7. breakdown: with both lanes of the paged engine decoding, 16 engine steps
+   without a profiler (wall time per step), then 16 under torch.profiler
+   tracing the device only (device time by kernel, launches per step, and
+   the device's idle share of that traced window);
+8. forward: the engine's model on a small input with every kernel against
    the same forward with each kernel replaced by its plain version.
+
+Every path's run zeroes the launch counters just before it and reads them
+just after; each kernel must have launched on the path that uses it
+(``KERNEL_PATH``).
 
 Then the ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script exits
@@ -36,6 +56,7 @@ non-zero and prints no result. Without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -48,6 +69,12 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 BOUND = 1e-2  # kernel vs plain version, max abs error (bf16 output)
+# embed stage with the flash kernel vs with its plain version, max abs error
+# of unit-norm 768-d embeddings: above the 1.2e-3 sound runs read, below
+# what a kernel that drops one key tile gives (PERF.md)
+EMBED_BOUND = 3e-3
+FLASH_TILE = 64  # keys per tile of csrc/flash_attention.cu
+SWEEP_ROUNDS = 6  # rounds of the embed phase's micro-batch sweep
 FORWARD_BOUND = 5e-2  # 12-layer logits, kernels vs plain versions, bf16
 SEED = 0
 
@@ -56,12 +83,39 @@ REPLACES = {
     "paged_decode": "cosmos_curate_tpu/ops/paged_attention.py:210",
     "paged_prefill": "cosmos_curate_tpu/ops/paged_attention.py:264",
     "prefill": "cosmos_curate_tpu/ops/prefill_attention.py:146",
+    "decode": "cosmos_curate_tpu/ops/decode_attention.py:112",
+    "flash": "cosmos_curate_tpu/ops/flash_attention.py:125",
 }
 SOURCES = {
     "paged_decode": "cosmos_curate_tpu_torch/csrc/paged_attention.cu",
     "paged_prefill": "cosmos_curate_tpu_torch/csrc/paged_attention.cu",
     "prefill": "cosmos_curate_tpu_torch/csrc/prefill_attention.cu",
+    "decode": "cosmos_curate_tpu_torch/csrc/decode_attention.cu",
+    "flash": "cosmos_curate_tpu_torch/csrc/flash_attention.cu",
 }
+# the path whose run counts each kernel's launches
+KERNEL_PATH = {
+    "paged_decode": "slice",
+    "paged_prefill": "slice",
+    "prefill": "slice",
+    "decode": "gather",
+    "flash": "embed",
+}
+# embed phase: stage calls timed, clips per task (4 one-second clips of
+# bench.py's videos), so each call is one 32-clip dispatch
+EMBED_CALLS = 8
+EMBED_CLIPS_PER_TASK = 4
+# flash shapes timed: ViT-B/16 at 224^2 over the embed phase's 16-clip x
+# 8-frame dispatch (the row of the kernels line) and over 32 clips, the
+# base pooler over 16 clips, a pooler at head dim 96 over 32 clips, and a
+# causal ViT-B/16-at-768^2 length
+FLASH_CASES = (
+    ("vit_b16_224", (128, 12, 197, 64), False),
+    ("vit_b16_224_32_clips", (256, 12, 197, 64), False),
+    ("pooler", (16, 8, 9, 64), False),
+    ("pooler_d96", (32, 8, 9, 96), False),
+    ("causal_2305", (1, 16, 2305, 64), True),
+)
 
 
 def emit(obj) -> None:
@@ -137,6 +191,8 @@ def sdpa_inputs(q, k, v, write, kv_len):
 
 def check_kernels(timer, dev) -> dict:
     from cosmos_curate_tpu_torch.ops import kernels
+    from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
     from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
 
@@ -222,6 +278,61 @@ def check_kernels(timer, dev) -> dict:
         library_ms=timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)),
     )
     assert err <= BOUND, f"prefill: max abs err {err} > {BOUND}"
+
+    # contiguous decode: the gather engine's long lane, 4 slots, random
+    # lengths, one row at 1
+    b, s = 4, 1024
+    kv = rng.integers(64, s + 1, b)
+    kv[-1] = 1
+    q, k, v = bf16(b, hk, g, d), bf16(b, s, hk, d), bf16(b, s, hk, d)
+    kl = i32(kv)
+
+    def run():
+        return decode_attention(q, k, v, kl)
+
+    got = run()
+    want = decode_attention_plain(q.float(), k.float(), v.float(), kl, sm_scale=d**-0.5)
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    qs, ks, vs, mask = sdpa_inputs(q[:, None], k, v, kl - 1, kl)
+    n_bytes, flops = attention_work((b, 1, hk, g, d), kv - 1, kv, hk, d)
+    bms, by = bound_ms(n_bytes, flops)
+    results["decode"] = dict(
+        shape=dict(B=b, S=s, Hkv=hk, G=g, D=d, kv_len=kv.tolist()),
+        max_abs_err=err,
+        kernel_ms=timer(run),
+        plain_ms=timer(lambda: decode_attention_plain(q, k, v, kl, sm_scale=d**-0.5)),
+        bound_ms=bms,
+        bound_by=by,
+        library_ms=timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+    )
+    assert err <= BOUND, f"decode: max abs err {err} > {BOUND}"
+
+    flash = {}
+    for label, shape, causal in FLASH_CASES:
+        q, k, v = bf16(*shape), bf16(*shape), bf16(*shape)
+
+        def run():
+            return flash_attention(q, k, v, causal=causal)
+
+        got = run()
+        want = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        fb, fh, fs, fd = shape
+        pairs = fs * (fs + 1) // 2 if causal else fs * fs
+        bms, by = bound_ms(4 * 2 * fb * fh * fs * fd, 4.0 * fd * fb * fh * pairs)
+        flash[label] = dict(
+            shape=dict(B=fb, H=fh, S=fs, D=fd, causal=causal),
+            max_abs_err=err,
+            kernel_ms=timer(run),
+            plain_ms=timer(lambda: flash_attention_plain(q, k, v, causal=causal)),
+            bound_ms=bms,
+            bound_by=by,
+            library_ms=timer(lambda: sdpa(q, k, v, is_causal=causal)),
+        )
+        assert err <= BOUND, f"flash {label}: max abs err {err} > {BOUND}"
+    results["flash"] = {**flash[FLASH_CASES[0][0]], "cases": flash}
     assert set(results) == set(kernels())
     return results
 
@@ -229,9 +340,11 @@ def check_kernels(timer, dev) -> dict:
 def check_forward(model, dev) -> dict:
     """The engine's model with its kernels vs the same forward with each
     kernel swapped for its plain version (paged prefill + decode on a
-    fragmented pool, and a contiguous prefix build)."""
+    fragmented pool, a contiguous prefix build and a contiguous decode step
+    on top of it)."""
     import cosmos_curate_tpu_torch.models.vlm.model as vlm_model
     from cosmos_curate_tpu_torch.models.vlm.model import init_cache
+    from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention_plain
     from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention_plain
     from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain
 
@@ -257,10 +370,11 @@ def check_forward(model, dev) -> dict:
             ck, cv = init_cache(cfg, 1, length=t, device=dev)
             zero = torch.zeros(1, dtype=torch.int32, device=dev)
             con, _, _ = model(embeds[:1], ck, cv, pos[:1], zero, zero + 50)
-        return pre.float(), dec.float(), con.float()
+            cdec, _, _ = model(embeds[:1, :1], ck, cv, pos[:1, 50:51], zero + 50, zero + 51)
+        return pre.float(), dec.float(), con.float(), cdec.float()
 
     got = run()
-    saved = vlm_model.paged_attention, vlm_model.prefill_attention
+    saved = vlm_model.paged_attention, vlm_model.prefill_attention, vlm_model.decode_attention
     try:
         vlm_model.paged_attention = lambda q, pk, pv, tb, wi, kl, *, layer_index=0: paged_attention_plain(
             q, pk, pv, tb, wi, kl, layer_index=layer_index, sm_scale=q.shape[-1] ** -0.5
@@ -268,26 +382,213 @@ def check_forward(model, dev) -> dict:
         vlm_model.prefill_attention = lambda q, k, v, wi, kl: chunk_attention_plain(
             q, k, v, wi, kl, q.shape[-1] ** -0.5
         )
+        vlm_model.decode_attention = lambda q, k, v, kl: decode_attention_plain(
+            q, k, v, kl, sm_scale=q.shape[-1] ** -0.5
+        )
         want = run()
     finally:
-        vlm_model.paged_attention, vlm_model.prefill_attention = saved
+        vlm_model.paged_attention, vlm_model.prefill_attention, vlm_model.decode_attention = saved
     out = {}
-    for name, a, w in zip(("paged_prefill", "paged_decode", "contiguous_prefill"), got, want):
+    names = ("paged_prefill", "paged_decode", "contiguous_prefill", "contiguous_decode")
+    for name, a, w in zip(names, got, want, strict=True):
         assert a.shape[-1] == cfg.vocab and torch.isfinite(a).all(), name
         out[name] = (a - w).abs().max().item()
         assert out[name] <= FORWARD_BOUND, f"forward {name}: {out[name]} > {FORWARD_BOUND}"
     return out
 
 
-def drive_slice(dev, cfg, kv_lanes=((256, 4), (1024, 4))) -> tuple[dict, object, object]:
+def drive_embed(dev) -> dict:
+    """The main path's embed leg at bench.py's shapes: ClipEmbeddingStage
+    (variant "video", VIDEO_EMBED_BASE, seeded) over EMBED_CALLS stage calls
+    of EMBED_STAGE_TASK_BATCH tasks x EMBED_CLIPS_PER_TASK clips x 8 random
+    uint8 224x224 frames (extraction at 8 fps over 1 s clips)."""
+    import cosmos_curate_tpu_torch.models.layers as layers
+    from cosmos_curate_tpu_torch.core.stage import WorkerMetadata
+    from cosmos_curate_tpu_torch.data.model import Clip, FrameExtractionSignature, SplitPipeTask, Video
+    from cosmos_curate_tpu_torch.models.embedder import EMBED_MICRO_BATCH, VIDEO_EMBED_BASE
+    from cosmos_curate_tpu_torch.ops import kernels
+    from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention_plain
+    from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import (
+        EMBED_STAGE_TASK_BATCH,
+        ClipEmbeddingStage,
+    )
+
+    cfg = VIDEO_EMBED_BASE
+    extraction = FrameExtractionSignature("fps", 8.0)
+    key = extraction.key()
+    size = cfg.vit.image_size
+    rng = np.random.default_rng(SEED + 2)
+
+    def make_tasks(call: int) -> list:
+        tasks = []
+        for t in range(EMBED_STAGE_TASK_BATCH):
+            name = f"video-{call}-{t}"
+            clips = [
+                Clip(
+                    source_video=name,
+                    span=(float(i), float(i + 1)),
+                    extracted_frames={
+                        key: rng.integers(0, 256, (cfg.num_frames, size, size, 3), dtype=np.uint8)
+                    },
+                )
+                for i in range(EMBED_CLIPS_PER_TASK)
+            ]
+            tasks.append(SplitPipeTask(video=Video(path=f"{name}.mp4", clips=clips)))
+        return tasks
+
+    t0 = time.monotonic()
+    stage = ClipEmbeddingStage(variant="video", extraction=extraction, device=dev)
+    stage.setup(WorkerMetadata(stage_name="embed"))
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    batches = [make_tasks(c) for c in range(EMBED_CALLS + 1)]
+    stage.process_data(batches[0])  # warm-up (cuBLAS handles, allocator)
+    torch.cuda.synchronize()
+
+    pipeline = stage.model.device_pipeline
+    pipeline.records.clear()
+    ks = kernels()
+    for k in ks.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    for tasks in batches[1:]:
+        stage.process_data(tasks)
+    torch.cuda.synchronize()
+    elapsed = time.monotonic() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    records = list(pipeline.records)
+
+    clips = [c for tasks in batches[1:] for t in tasks for c in t.video.clips]
+    for c in clips:
+        emb = c.embeddings[stage.model_name]
+        assert emb.shape == (cfg.output_dim,) and np.isfinite(emb).all(), "bad embedding"
+        assert abs(float(np.linalg.norm(emb)) - 1.0) < 1e-3, "embedding not unit norm"
+    n_attn = cfg.vit.layers + cfg.temporal_layers
+    assert launches["flash"] == n_attn * len(records), f"flash launches {launches['flash']} != {n_attn} x {len(records)}"
+    # the kernels phase timed flash at this path's ViT dispatch shape
+    assert {r.padded_rows * cfg.num_frames for r in records} == {FLASH_CASES[0][1][0]}, "flash case off the path"
+
+    # the same stage with the flash kernel swapped for its plain version,
+    # and for that version with one key tile dropped: what a kernel that
+    # skipped the tile would give, which the bound must tell apart
+    first = batches[1]
+    with_kernel = [c.embeddings[stage.model_name].copy() for t in first for c in t.video.clips]
+
+    def dropping(lo: int, hi: int):
+        def attn(q, k, v, *, causal=False):
+            s = q.shape[2]
+            if s <= FLASH_TILE:
+                return flash_attention_plain(q, k, v, causal=causal)
+            keep = torch.cat([torch.arange(0, lo), torch.arange(min(hi, s), s)]).to(q.device)
+            return flash_attention_plain(q, k[:, :, keep], v[:, :, keep], causal=causal)
+
+        return attn
+
+    s_vit = cfg.vit.num_patches + 1  # with the class token
+    last = (s_vit - 1) // FLASH_TILE * FLASH_TILE
+    errs = {}
+    for label, attn in (("plain", flash_attention_plain), ("first_tile_dropped", dropping(0, FLASH_TILE)),
+                        ("last_tile_dropped", dropping(last, s_vit))):
+        saved = layers.flash_attention
+        try:
+            layers.flash_attention = attn
+            stage.process_data(first)
+        finally:
+            layers.flash_attention = saved
+        got = [c.embeddings[stage.model_name] for t in first for c in t.video.clips]
+        errs[label] = max(float(np.abs(a - b).max()) for a, b in zip(with_kernel, got))
+    plain_err = errs["plain"]
+    assert plain_err <= EMBED_BOUND, f"embed: kernel vs plain flash {plain_err} > {EMBED_BOUND}"
+
+    n_disp = len(records)
+    return dict(
+        breakdown=profile_window(lambda: stage.process_data(batches[1]), 2, "stage call"),
+        config={"vit_width": cfg.vit.width, "vit_layers": cfg.vit.layers, "vit_heads": cfg.vit.heads,
+                "image_size": size, "num_frames": cfg.num_frames, "temporal_layers": cfg.temporal_layers,
+                "temporal_heads": cfg.temporal_heads, "output_dim": cfg.output_dim},
+        stage_calls=EMBED_CALLS,
+        clips=len(clips),
+        dispatches=n_disp,
+        elapsed_s=elapsed,
+        clips_per_s=len(clips) / elapsed,
+        wall_ms_per_dispatch=1e3 * elapsed / n_disp,
+        h2d_ms_per_dispatch=1e3 * sum(r.h2d_s for r in records) / n_disp,
+        compute_ms_per_dispatch=1e3 * sum(r.compute_s for r in records) / n_disp,
+        d2h_ms_per_dispatch=1e3 * sum(r.d2h_s for r in records) / n_disp,
+        gap_ms_per_dispatch=1e3 * sum(r.gap_s for r in records) / n_disp,
+        rows_per_dispatch=[r.rows for r in records],
+        max_abs_err_vs_plain_flash=plain_err,
+        embed_bound=EMBED_BOUND,
+        max_abs_err_vs_plain_flash_with_a_tile_dropped={k: v for k, v in errs.items() if k != "plain"},
+        micro_batch=EMBED_MICRO_BATCH,
+        micro_batch_sweep=sweep_micro_batch(batches, key, dev),
+        setup_s=setup_s,
+        launches=launches,
+        peak_memory_bytes=peak,
+    )
+
+
+def sweep_micro_batch(batches, key: str, dev, rounds: int = SWEEP_ROUNDS) -> dict:
+    """clips/s of VideoEmbedder.encode_clips (VIDEO_EMBED_BASE, seeded) over
+    the embed phase's calls (32 clips each, handed over as a list) at
+    micro-batches of 32, 16 and 8 clips. ``rounds`` rounds, each in another
+    order; per setting, every reading and the median."""
+    import cosmos_curate_tpu_torch.models.embedder as embedder
+
+    calls = [[c.extracted_frames[key] for t in tasks for c in t.video.clips] for tasks in batches[1:]]
+    settings = {"rows_32": 32, "rows_16": 16, "rows_8": 8}
+    embedders = {}
+    saved = embedder.EMBED_MICRO_BATCH
+    try:
+        for label, cap in settings.items():
+            embedder.EMBED_MICRO_BATCH = cap  # read by setup()
+            emb = embedder.VideoEmbedder(embedder.VIDEO_EMBED_BASE, device=dev)
+            emb.setup(seed=SEED)
+            embedders[label] = emb
+    finally:
+        embedder.EMBED_MICRO_BATCH = saved
+
+    def one_pass(label: str) -> tuple[float, float]:
+        emb = embedders[label]
+        emb.device_pipeline.records.clear()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for clips in calls:
+            emb.encode_clips(clips)
+        torch.cuda.synchronize()
+        elapsed = time.monotonic() - t0
+        compute_s = sum(r.compute_s for r in emb.device_pipeline.records)
+        return sum(map(len, calls)) / elapsed, 1e3 * compute_s / len(calls)
+
+    labels = list(settings)
+    for label in labels:  # warm-up: cuBLAS handles, pinned host blocks
+        embedders[label].encode_clips(calls[0])
+    readings = {label: [] for label in labels}
+    for r in range(rounds):
+        order = labels[r % len(labels):] + labels[: r % len(labels)]
+        for label in order if r % 2 == 0 else reversed(order):
+            readings[label].append(one_pass(label))
+    return {
+        label: {"clips_per_s": [c for c, _ in rs], "median_clips_per_s": statistics.median(c for c, _ in rs),
+                "compute_ms_per_call": [m for _, m in rs], "dispatches_per_call": -(-len(calls[0]) // settings[label])}
+        for label, rs in readings.items()
+    }
+
+
+def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))) -> tuple[dict, object, object, dict]:
     """The caption benchmark's base workload through CaptionEngine (its
-    lanes: half the slots at 256 positions, half at max_seq)."""
+    lanes: half the slots at 256 positions, half at max_seq). Returns the
+    record, the engine, the request factory and request id -> text."""
     from cosmos_curate_tpu_torch.models.prompts import get_caption_prompt
     from cosmos_curate_tpu_torch.models.vlm import CaptionEngine, CaptionRequest, SamplingConfig
     from cosmos_curate_tpu_torch.ops import kernels
 
     t0 = time.monotonic()
-    engine = CaptionEngine(cfg, max_batch=8, kv_lanes=kv_lanes, async_prep=True, device=dev)
+    engine = CaptionEngine(
+        cfg, max_batch=8, kv_lanes=kv_lanes, async_prep=True, paged_attention=paged_attention, device=dev
+    )
     engine.setup(seed=SEED)
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
@@ -319,6 +620,10 @@ def drive_slice(dev, cfg, kv_lanes=((256, 4), (1024, 4))) -> tuple[dict, object,
     ks = kernels()
     for k in ks.values():
         k.launches = 0
+    # earlier phases' models are held by reference cycles (an embedder and
+    # its pipeline's bound forward); free them so the peak is this drive's
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
     n_requests = 8
     t0 = time.monotonic()
     for i in range(n_requests):
@@ -331,11 +636,12 @@ def drive_slice(dev, cfg, kv_lanes=((256, 4), (1024, 4))) -> tuple[dict, object,
     assert len(results) == n_requests, f"{len(results)} of {n_requests} requests answered"
     assert all(r.num_output_tokens > 0 for r in results), "a request produced no tokens"
     assert torch.isfinite(engine._pool_k.float()).all() and torch.isfinite(engine._pool_v.float()).all()
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
     stats = engine.stats()
     out_tokens = sum(r.num_output_tokens for r in results)
+    # one decode-kernel launch per layer per lane step
+    decode_steps = launches["paged_decode" if paged_attention == "auto" else "decode"] // cfg.n_layers
     record = dict(
+        paged_attention=paged_attention,
         config={"dim": cfg.dim, "n_layers": cfg.n_layers, "n_heads": cfg.n_heads,
                 "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim, "vocab": cfg.vocab,
                 "vision_width": cfg.vision.width, "vision_layers": cfg.vision.layers},
@@ -345,8 +651,8 @@ def drive_slice(dev, cfg, kv_lanes=((256, 4), (1024, 4))) -> tuple[dict, object,
         elapsed_s=elapsed,
         end_to_end_tok_s=out_tokens / elapsed,
         decode_tok_s=engine.tokens_per_second,
-        decode_steps=stats["paged_kernel_steps"],
-        decode_ms_per_step=1e3 * stats["decode_s"] / max(1, stats["paged_kernel_steps"]),
+        decode_steps=decode_steps,
+        decode_ms_per_step=1e3 * stats["decode_s"] / max(1, decode_steps),
         prefill_s=stats["prefill_s"],
         prefill_tokens=stats["prefill_tokens"],
         prefix_cache_misses=engine.prefix_cache_misses,
@@ -356,7 +662,60 @@ def drive_slice(dev, cfg, kv_lanes=((256, 4), (1024, 4))) -> tuple[dict, object,
         launches=launches,
         peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
     )
-    return record, engine, make_request
+    return record, engine, make_request, {r.request_id: r.text for r in results}
+
+
+def agreement(a: dict, b: dict) -> dict:
+    """How far two engines' greedy outputs for the same requests agree:
+    identical texts, and the common prefix as a share of the first's text."""
+    shares = []
+    for rid, text in a.items():
+        other = b[rid]
+        n = next((i for i, (x, y) in enumerate(zip(text, other)) if x != y), min(len(text), len(other)))
+        shares.append(n / max(1, len(text)))
+    return {
+        "identical": sum(a[rid] == b[rid] for rid in a),
+        "requests": len(a),
+        "mean_common_prefix_share": sum(shares) / len(shares),
+    }
+
+
+def profile_window(run, steps: int, unit: str) -> dict:
+    """``run`` ``steps`` times untraced (wall time), then ``steps`` times
+    under torch.profiler tracing the device only:
+    device busy time, launches and top kernels per ``unit``, and the
+    device's idle share of the traced window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def window() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_wall_ms = window()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced_wall_ms = window()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    assert busy_us > 0, "the profiler traced no device time"
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return {
+        "unit": unit,
+        "steps": steps,
+        "wall_ms_per_step": plain_wall_ms / steps,
+        "traced_wall_ms_per_step": traced_wall_ms / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_idle_share": 1.0 - busy_us / 1e3 / traced_wall_ms,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+        "top_kernels": [
+            {"name": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / steps,
+             "calls_per_step": e.count / steps}
+            for e in top
+        ],
+    }
 
 
 def profile_decode(engine, make_request, steps: int = 16) -> dict:
@@ -364,8 +723,6 @@ def profile_decode(engine, make_request, steps: int = 16) -> dict:
     ``steps`` engine steps with no profiler (wall time per step), then
     ``steps`` more under torch.profiler tracing the device only. The idle
     share is one window's: 1 - device busy / wall of the traced window."""
-    from torch.profiler import ProfilerActivity, profile
-
     for i in range(8):
         engine.add_request(make_request(f"profile-{i}", i))
     deadline = time.monotonic() + 120
@@ -374,37 +731,10 @@ def profile_decode(engine, make_request, steps: int = 16) -> dict:
         engine.step()
     for _ in range(4):  # let the rest of the burst join the batch
         engine.step()
-
-    def window() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    plain_wall_ms = window()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced_wall_ms = window()
+    out = profile_window(engine.step, steps, "engine step")
     assert all(lane.slots for lane in engine.lanes), "a lane drained inside the profiled window"
     engine.run_until_complete()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    assert busy_us > 0, "the profiler traced no device time"
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    return dict(
-        steps=steps,
-        wall_ms_per_step=plain_wall_ms / steps,
-        traced_wall_ms_per_step=traced_wall_ms / steps,
-        device_busy_ms_per_step=busy_us / 1e3 / steps,
-        device_idle_share=1.0 - busy_us / 1e3 / traced_wall_ms,
-        kernel_launches_per_step=sum(e.count for e in kernels) / steps,
-        top_kernels=[
-            {"name": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / steps,
-             "calls_per_step": e.count / steps}
-            for e in top
-        ],
-    )
+    return out
 
 
 def main() -> int:
@@ -428,10 +758,16 @@ def main() -> int:
     timer = Timer(dev)
     checks = check_kernels(timer, dev)
     emit({"phase": "kernels", "bound": BOUND, "results": checks,
-          "library": "scaled_dot_product_attention on K/V already gathered to contiguous "
-                     "[B, Hkv, S, D] with a boolean mask; the gather is not timed"})
+          "library": "scaled_dot_product_attention: on K/V already gathered to contiguous "
+                     "[B, Hkv, S, D] with a boolean mask for the cache kernels (the gather is "
+                     "not timed), on the same [B, H, S, D] q/k/v for flash"})
 
-    record, engine, make_request = drive_slice(dev, VLM_BASE)
+    embed = drive_embed(dev)
+    emit({"phase": "embed", **embed})
+    for label, err in embed["max_abs_err_vs_plain_flash_with_a_tile_dropped"].items():
+        assert err > EMBED_BOUND, f"embed: the bound {EMBED_BOUND} does not catch {label} ({err})"
+
+    record, engine, make_request, paged_texts = drive_slice(dev, VLM_BASE)
     emit({"phase": "slice", **record})
 
     emit({"phase": "breakdown", **profile_decode(engine, make_request)})
@@ -439,13 +775,32 @@ def main() -> int:
 
     forward = check_forward(engine.model, dev)
     emit({"phase": "forward", "max_abs_logit_diff": forward, "bound": FORWARD_BOUND})
+    del engine
+
+    gather, gather_engine, _, gather_texts = drive_slice(dev, VLM_BASE, paged_attention="gather")
+    gather_engine.shutdown()
+    del gather_engine
+    # the same seeded weights and requests; decode numerics differ (fp32
+    # probabilities in the decode kernel, bf16 in the paged kernels' mirror
+    # of the reference), so agreement is reported, not asserted
+    emit({"phase": "gather", **gather,
+          "paged": {k: record[k] for k in ("end_to_end_tok_s", "decode_tok_s", "decode_ms_per_step")},
+          "agreement_with_paged": agreement(paged_texts, gather_texts)})
+    for name in ("paged_decode", "paged_prefill"):
+        assert gather["launches"][name] == 0, f"the gather engine launched {name}"
+
+    launches = {"embed": embed["launches"], "slice": record["launches"], "gather": gather["launches"]}
+    for path, counts in launches.items():
+        for name, n in counts.items():
+            if KERNEL_PATH[name] == path or (path == "gather" and name == "prefill"):
+                assert n > 0, f"kernel {name} was not launched on the {path} path"
 
     rows = []
     for name in kernels():
         c = checks[name]
         rows.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=record["launches"][name], max_abs_err=c["max_abs_err"], ms=c["kernel_ms"],
+            launches=launches[KERNEL_PATH[name]][name], max_abs_err=c["max_abs_err"], ms=c["kernel_ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"],
         ))

@@ -16,6 +16,12 @@
 // Tiles at or past min(kv_len, last causal position + 1) are never loaded,
 // the same skip the TPU kernels make with pl.when.
 //
+// DECODE replays the TPU's contiguous decode kernel instead of the
+// reference model's attention lines: one token per row (T = 1), no causal
+// term (the token is the newest key, so kv_len is its only limit, and
+// write_index is not read), and q * sm_scale kept in fp32 where the chunk
+// path rounds it to bf16.
+//
 // The K/V addressing is a policy: PagedKV resolves logical row p through
 // the block table (pool block table[b][p / bs], offset p % bs), so pool
 // pages are read in place; ContiguousKV reads row p of a [B, S, Hkv, D]
@@ -78,7 +84,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // q, out: [B, T, Hkv, G, D] bf16. Grid (ceil(T / block_q), Hkv, B), NT threads.
-template <int D, int TILE_K, int MAX_ROWS, int NT, class KV>
+template <int D, int TILE_K, int MAX_ROWS, int NT, class KV, bool DECODE>
 __global__ void __launch_bounds__(NT) chunk_attention_kernel(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out, KV kv,
     const int* __restrict__ write_index, const int* __restrict__ kv_len, int T, int G,
@@ -101,18 +107,20 @@ __global__ void __launch_bounds__(NT) chunk_attention_kernel(
   const int t0 = blockIdx.x * block_q;
   const int n_t = min(block_q, T - t0);
   const int rows = n_t * G;  // <= MAX_ROWS (checked by the launcher)
-  const int write = write_index[b];
+  const int write = DECODE ? 0 : write_index[b];
   // keys this CTA can see: written (< kv_len), causal for its last query,
   // and inside the table / cache
-  const int limit = min(min(kv_len[b], write + t0 + n_t), kv.rows());
+  const int limit = DECODE ? min(kv_len[b], kv.rows())
+                           : min(min(kv_len[b], write + t0 + n_t), kv.rows());
 
-  // queries, scaled in the working dtype first (bf16), as the plain version
+  // queries, scaled in the working dtype first (bf16) as the plain version,
+  // or in fp32 as the TPU decode kernel
   for (int i = tid; i < rows * D; i += NT) {
     const int r = i / D, d = i % D;
     const int t = t0 + r / G, g = r % G;
     const int64_t off = ((((int64_t)b * T + t) * hkv + h) * G + g) * D + d;
     const float x = __bfloat162float(q[off]) * sm_scale;
-    q_s[i] = __bfloat162float(__float2bfloat16(x));
+    q_s[i] = DECODE ? x : __bfloat162float(__float2bfloat16(x));
   }
   for (int r = tid; r < rows; r += NT) {
     m_s[r] = kNegInf;
@@ -151,7 +159,7 @@ __global__ void __launch_bounds__(NT) chunk_attention_kernel(
       const int r = i / TILE_K, j = i % TILE_K;
       const int p = k0 + j;
       float s = kNegInf;
-      if (p < limit && p <= write + t0 + r / G) {
+      if (p < limit && (DECODE || p <= write + t0 + r / G)) {
         const float* qr = q_s + r * D;
         const float* kj = k_s + j * (D + 1);
         float dot = 0.f;
@@ -216,12 +224,13 @@ __global__ void __launch_bounds__(NT) chunk_attention_kernel(
 // Launch one instantiation: raise the dynamic shared-memory cap once per
 // device (the attribute is per device), then launch on the caller's stream.
 // Returns cudaGetLastError().
-template <int D, int TILE_K, int MAX_ROWS, int NT, class KV>
+template <int D, int TILE_K, int MAX_ROWS, int NT, bool DECODE = false, class KV>
 int launch_chunk_attention(const void* q, void* out, KV kv, const int* write_index,
                            const int* kv_len, int B, int T, int Hkv, int G, float sm_scale,
                            cudaStream_t stream) {
   if (G < 1 || G > MAX_ROWS || T < 1 || B < 1 || Hkv < 1) return (int)cudaErrorInvalidValue;
-  auto kernel = chunk_attention_kernel<D, TILE_K, MAX_ROWS, NT, KV>;
+  if (DECODE && T != 1) return (int)cudaErrorInvalidValue;
+  auto kernel = chunk_attention_kernel<D, TILE_K, MAX_ROWS, NT, KV, DECODE>;
   constexpr size_t smem = sizeof(float) * chunk_smem_floats<D, TILE_K, MAX_ROWS>();
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);

@@ -9,7 +9,11 @@ The port names its modules after the flax ones, so the map is mechanical:
 - Conv ``kernel`` HWIO -> ``Conv2d.weight`` OIHW;
 - ``Embed.embedding`` -> ``Embedding.weight``;
 - LayerNorm / RMSNorm ``scale`` -> ``weight`` (``bias`` stays ``bias``);
-- raw params (``cls``, ``pos_embed``) keep their names.
+- raw params (``cls``, ``pos_embed``, the pooler's ``query`` and
+  ``time_embed``) keep their names;
+- other module names carry over as they are: the video embedder's
+  ``vit/...`` and ``pooler/t{i}/...`` become ``vit....`` and
+  ``pooler.t{i}....``, because the port's pooler names its blocks ``t{i}``.
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts; boxed
 leaves (flax's partitioning metadata) are unboxed through their ``value``.

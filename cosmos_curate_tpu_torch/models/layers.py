@@ -15,11 +15,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# The TPU package sends encoder self-attention at or above this length to its
-# Pallas flash kernel; that kernel is not ported yet (ROADMAP queue B,
-# flash_attention), so the port refuses such lengths on the GPU instead of
-# silently running the plain O(S^2) path.
-FLASH_MIN_SEQ = 2048
+from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention
+
+
+def _use_flash(x, mask) -> bool:
+    """Mask-free self-attention on the GPU goes through the flash kernel at
+    every length (no TPU-derived length gate carries over); the CPU keeps
+    the einsum lines, which is what the JAX package runs off-TPU."""
+    return mask is None and x.device.type == "cuda"
 
 
 class Linear(nn.Linear):
@@ -80,9 +83,11 @@ _ACTIVATIONS = {"gelu": gelu, "quick_gelu": quick_gelu}
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with the reference's precision sequence:
-    logits rounded to ``dtype`` before the fp32 softmax, probabilities cast
-    back to ``dtype`` for the value product."""
+    """Multi-head self-attention. The einsum path has the reference's
+    precision sequence: logits rounded to ``dtype`` before the fp32
+    softmax, probabilities cast back to ``dtype`` for the value product.
+    The flash path (``_use_flash``) has the flash kernel's: fp32 logits,
+    softmax and value product."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, dtype=torch.bfloat16, causal: bool = False):
         super().__init__()
@@ -98,14 +103,15 @@ class Attention(nn.Module):
 
     def forward(self, x, mask=None):
         b, s, _ = x.shape
-        if x.device.type == "cuda" and mask is None and s >= FLASH_MIN_SEQ:
-            raise NotImplementedError(
-                f"self-attention over {s} >= {FLASH_MIN_SEQ} tokens needs the flash "
-                "kernel, not ported yet (ROADMAP queue B: ops/flash_attention.py)"
-            )
         q = self.q(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k(x).reshape(b, s, self.num_heads, self.head_dim)
         v = self.v(x).reshape(b, s, self.num_heads, self.head_dim)
+        if _use_flash(x, mask):
+            # [B, S, H, D] -> [B, H, S, D] views: the kernel reads strides
+            out = flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=self.causal
+            ).transpose(1, 2)
+            return self.out(out.reshape(b, s, self.num_heads * self.head_dim))
         scale = self.head_dim**-0.5
         logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).float()
         if self.causal:

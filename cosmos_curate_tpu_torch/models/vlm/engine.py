@@ -13,9 +13,12 @@ prefill group, prefill chunk and decode step runs ``VLM.paged_forward``,
 whose attention is the hand-written paged kernels on the GPU
 (ops/paged_attention.py); shared-prefix builds run the contiguous forward,
 whose T > 1 attention is the contiguous prefill kernel
-(ops/prefill_attention.py). ``paged_attention="gather"`` keeps the
-gather-view / scatter-back programs as the CPU parity reference; on the GPU
-it needs the contiguous decode kernel, which is not ported yet, and raises.
+(ops/prefill_attention.py). ``paged_attention="gather"`` runs the
+gather-view / scatter-back programs: each step copies the rows' blocks into
+contiguous caches and runs the contiguous forward, whose attention is the
+prefill kernel for T > 1 and the decode kernel (ops/decode_attention.py)
+for T = 1 on the GPU. On the CPU both families run the plain versions and
+give bit-equal tokens, which makes gather the paged path's parity reference.
 
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; it never moves to the CPU on its own. Not ported in this
@@ -286,15 +289,11 @@ class CaptionEngine:
         self.tokenizer = tokenizer or default_caption_tokenizer()
         # "auto" runs the paged programs: attention reads the pool through
         # the block table (the CUDA kernels on the GPU, their plain versions
-        # on the CPU). "gather" keeps the gather-view/scatter-back programs
-        # as the CPU parity reference.
+        # on the CPU). "gather" runs the gather-view/scatter-back programs
+        # over contiguous caches (the contiguous prefill and decode kernels
+        # on the GPU).
         if paged_attention not in ("auto", "gather"):
             raise ValueError(f"paged_attention must be auto|gather, got {paged_attention!r}")
-        if paged_attention == "gather" and self.device.type == "cuda":
-            raise NotImplementedError(
-                "paged_attention='gather' decodes through the contiguous decode kernel, "
-                "not ported yet (ROADMAP queue B: ops/decode_attention.py)"
-            )
         self.paged_attention = paged_attention
         self._use_paged = paged_attention == "auto"
         self.model: VLM | None = None  # built by setup() on self.device

@@ -29,6 +29,7 @@ from torch import nn
 from cosmos_curate_tpu_torch.models.layers import Linear
 from cosmos_curate_tpu_torch.models.vit import VIT_B_16, VIT_TINY_TEST, ViT, ViTConfig, preprocess_frames
 from cosmos_curate_tpu_torch.models.vlm.paged_kv import paged_update, paged_write_plan
+from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention
 from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention
 from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
 
@@ -184,6 +185,13 @@ class RMSNorm(nn.Module):
         return (normed * self.weight).to(x.dtype)
 
 
+def _use_decode_kernel(x) -> bool:
+    """A contiguous one-token step on the GPU goes through the decode
+    kernel at every cache length (no TPU-derived length gate carries over);
+    the CPU keeps the einsum lines, the JAX package's path off-TPU."""
+    return x.device.type == "cuda"
+
+
 def write_rows(cache, chunk, write_index) -> None:
     """``cache[b, i : i + T] = chunk[b]`` for every row, in place, with
     ``dynamic_update_slice``'s clamp: a start past ``S - T`` moves back so
@@ -248,11 +256,8 @@ class DecoderLayer(nn.Module):
             write_rows(cache_v, v, write_index)
             if t > 1:
                 attn = prefill_attention(qg, cache_k, cache_v, write_index, kv_len)
-            elif x.device.type == "cuda":
-                raise NotImplementedError(
-                    "contiguous decode needs the decode_attention kernel, not ported yet "
-                    "(ROADMAP queue B: ops/decode_attention.py); use the paged engine"
-                )
+            elif _use_decode_kernel(x):
+                attn = decode_attention(qg[:, 0], cache_k, cache_v, kv_len)[:, None]
             else:
                 attn = chunk_attention_plain(qg, cache_k, cache_v, write_index, kv_len, dh**-0.5)
         x = x + self.o(attn.to(self.dtype).reshape(b, t, h * dh))

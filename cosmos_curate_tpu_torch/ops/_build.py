@@ -83,8 +83,10 @@ def _finish_build(out: Path, tmp: Path, proc: subprocess.Popen) -> None:
     os.replace(tmp, out)
 
 
-def build_all(names: tuple[str, ...] = ("paged_attention", "prefill_attention")) -> None:
-    """Compile every named kernel source in parallel (no-op where built)."""
+def build_all() -> None:
+    """Compile every kernel library (one per ``csrc/*.cu``) in parallel; a
+    no-op for those already built."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
     with _lock:
         started = [b for b in (_start_build(n) for n in names) if b is not None]
         errors = []

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from cosmos_curate_tpu_torch.ops import kernels
+from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
 from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
 
@@ -89,6 +91,62 @@ def test_contiguous_prefill_kernel(dev, t, s, kv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,g,s", [(64, 2, 1024), (16, 4, 100), (128, 6, 300)])
+def test_contiguous_decode_kernel(dev, d, g, s):
+    rng = np.random.default_rng(3)
+
+    def mk(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+    q, k, v = mk(4, 2, g, d), mk(4, s, 2, d), mk(4, s, 2, d)
+    kv_len = torch.tensor([1, s // 3, s - 1, s], dtype=torch.int32, device=dev)
+    n = kernels()["decode"].launches
+    got = decode_attention(q, k, v, kv_len)
+    want = decode_attention_plain(q.float(), k.float(), v.float(), kv_len, sm_scale=d**-0.5)
+    assert kernels()["decode"].launches == n + 1
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) <= BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,causal",
+    [
+        ((8, 12, 197, 64), False),  # ViT-B/16 at 224^2: ragged
+        ((32, 8, 9, 64), False),  # the base pooler: one mostly-padded tile
+        ((32, 8, 9, 96), False),
+        ((2, 3, 130, 16), True),
+        ((1, 4, 300, 64), True),
+        ((2, 2, 64, 16), False),
+    ],
+)
+def test_flash_kernel(dev, shape, causal):
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    n = kernels()["flash"].launches
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+    assert kernels()["flash"].launches == n + 1
+    assert _err(got, want) <= BOUND
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_views(dev):
+    """layers.Attention hands [B, S, H, D] projections over as transposed
+    views; the output takes q's layout."""
+    rng = np.random.default_rng(5)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((4, 197, 12, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+        for _ in range(3)
+    )
+    views = [x.transpose(1, 2) for x in (q, k, v)]
+    got = flash_attention(*views)
+    assert got.stride() == views[0].stride()
+    want = flash_attention_plain(*(x.float() for x in views))
+    assert _err(got, want) <= BOUND
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 1, 1, 2, 64, device=dev)  # fp32: not a kernel dtype
     pool = torch.zeros(1, 2, 16, 1, 64, device=dev, dtype=torch.bfloat16)
@@ -101,3 +159,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                         pool[..., :32].contiguous(), pool[..., :32].contiguous(), tables, one - 1, one)
     with pytest.raises(ValueError, match="int32"):
         paged_attention(q.bfloat16(), pool, pool, tables.long(), one - 1, one)
+    x = torch.zeros(1, 2, 9, 64, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(x, x, x)
+    padded = torch.zeros(1, 2, 9, 65, device=dev, dtype=torch.bfloat16)[..., :64]  # row stride 65
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention(padded, padded, padded)

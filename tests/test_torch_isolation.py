@@ -34,7 +34,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 32
 
 
 def test_engine_defaults_to_the_gpu():
@@ -46,3 +46,23 @@ def test_engine_defaults_to_the_gpu():
         pytest.skip("a CUDA device is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CaptionEngine(VLM_TINY_TEST)
+
+
+@pytest.mark.parametrize("entry", ["embedder", "stage"])
+def test_embed_leg_defaults_to_the_gpu(entry):
+    import torch
+
+    from cosmos_curate_tpu_torch.models.embedder import VIDEO_EMBED_TINY_TEST, VideoEmbedder
+    from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import ClipEmbeddingStage
+
+    def make(**kw):
+        if entry == "embedder":
+            return VideoEmbedder(VIDEO_EMBED_TINY_TEST, **kw).device
+        return ClipEmbeddingStage(video_cfg=VIDEO_EMBED_TINY_TEST, **kw).model.device
+
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert make(device="cpu").type == "cpu"

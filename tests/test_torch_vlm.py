@@ -159,6 +159,45 @@ def test_forward_logits_and_cache_match(config):
     _close(tcv, jv)
 
 
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_contiguous_decode_route_matches_jax_decode_kernel(config, monkeypatch):
+    """Contiguous T = 1 with the decode route forced on both sides: the JAX
+    model's Pallas decode kernel (``CURATE_FLASH_DECODE=1``, interpret mode)
+    against the port's decode wrapper, whose CPU path is the plain version
+    of its CUDA kernel. Rows see 6 and 31 of 32 cache positions."""
+    monkeypatch.setenv("CURATE_FLASH_DECODE", "1")
+    calls = []
+    real = tmodel.decode_attention
+
+    def spy(q, k, v, kv_len):
+        calls.append(tuple(q.shape))
+        return real(q, k, v, kv_len)
+
+    monkeypatch.setattr(tmodel, "decode_attention", spy)
+    monkeypatch.setattr(tmodel, "_use_decode_kernel", lambda x: True)
+    jcfg, tcfg = CONFIGS[config]
+    jm, params = _jax_vlm_params(jcfg)
+    tm = _port_vlm(tcfg, params)
+    rng = np.random.default_rng(9)
+    b, s = 2, 32
+    embeds = rng.standard_normal((b, 1, jcfg.dim)).astype(np.float32)
+    shape = (jcfg.n_layers, b, s, jcfg.n_kv_heads, jcfg.head_dim)
+    ck = rng.standard_normal(shape).astype(np.float32)
+    cv = rng.standard_normal(shape).astype(np.float32)
+    write = np.asarray([5, 30], np.int32)
+    kv_len = write + 1
+    pos = write[:, None].copy()
+    jl, jk, jv = jm.apply(params, *(jnp.asarray(x) for x in (embeds, ck, cv, pos, write, kv_len)))
+    tck, tcv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    with torch.no_grad():
+        tl, _, _ = tm(torch.from_numpy(embeds), tck, tcv, *(torch.from_numpy(x) for x in (pos, write, kv_len)))
+    group = jcfg.n_heads // jcfg.n_kv_heads
+    assert calls == [(b, jcfg.n_kv_heads, group, jcfg.head_dim)] * jcfg.n_layers
+    _close(tl, jl)
+    _close(tck, jk)
+    _close(tcv, jv)
+
+
 def _paged_inputs(jcfg, rng, *, b, t, nbl, bs, write):
     n_blocks = b * nbl + 3
     shape = (jcfg.n_layers, n_blocks, bs, jcfg.n_kv_heads, jcfg.head_dim)
