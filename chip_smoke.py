@@ -9,15 +9,20 @@ and prints one JSON line per phase:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build: seconds to compile every kernel (one ``nvcc`` per source, in
-   parallel);
+   parallel), and the HGMMA / UTMALDG / FFMA counts of the tensor-core
+   kernels' SASS (each must hold wgmma and TMA loads);
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    caption engine gives it at ``VLM_BASE`` width (bf16 inputs, the plain
    version in fp32 on the same inputs, bound 1e-2 max abs error), timed with
    CUDA events (median of 30 launches after warm-up, L2 flushed between
-   launches), beside the card's least time for the same work and one
+   launches, the host kept ahead of the device), beside the card's least
+   time for the same work and one
    ``scaled_dot_product_attention`` call on the equivalent gathered /
    contiguous tensors (a yardstick only; it excludes the gather, and the port
-   never calls it);
+   never calls it), with ``bound_share`` (bound / kernel time) and
+   ``vs_library`` (kernel time / SDPA time). A ``card_state`` line before
+   and after the phase reads the SM clock, its maximum, the power draw and
+   the temperature, so a slow card and a slow kernel can be told apart;
 4. embed: ``ClipEmbeddingStage(variant="video")`` at ``VIDEO_EMBED_BASE``
    with seeded random weights embeds the main path's shapes (8 stage calls
    of 8 tasks x 4 clips x 8 random uint8 224x224 frames, 32 clips per call
@@ -38,6 +43,12 @@ and prints one JSON line per phase:
    paged_attention="gather")``, whose decode steps run the contiguous decode
    kernel and whose prefills run the contiguous prefill kernel; the paged
    kernels must not launch there;
+   witness: for each request the two engines answer differently, the first
+   differing step and both engines' top-2 logits there, and which engine
+   five more gather drives side with: with the prefill kernel again, with
+   the kernel held against its plain version on every call the engine
+   makes (within 1e-2), with its plain version in its place, with the plain
+   version in fp32, and with it at the kernel's stated precision;
 7. breakdown: with both lanes of the paged engine decoding, 16 engine steps
    without a profiler (wall time per step), then 16 under torch.profiler
    tracing the device only (device time by kernel, launches per step, and
@@ -58,6 +69,8 @@ from __future__ import annotations
 
 import gc
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -73,7 +86,6 @@ BOUND = 1e-2  # kernel vs plain version, max abs error (bf16 output)
 # of unit-norm 768-d embeddings: above the 1.2e-3 sound runs read, below
 # what a kernel that drops one key tile gives (PERF.md)
 EMBED_BOUND = 3e-3
-FLASH_TILE = 64  # keys per tile of csrc/flash_attention.cu
 SWEEP_ROUNDS = 6  # rounds of the embed phase's micro-batch sweep
 FORWARD_BOUND = 5e-2  # 12-layer logits, kernels vs plain versions, bf16
 SEED = 0
@@ -107,19 +119,60 @@ EMBED_CALLS = 8
 EMBED_CLIPS_PER_TASK = 4
 # flash shapes timed: ViT-B/16 at 224^2 over the embed phase's 16-clip x
 # 8-frame dispatch (the row of the kernels line) and over 32 clips, the
-# base pooler over 16 clips, a pooler at head dim 96 over 32 clips, and a
-# causal ViT-B/16-at-768^2 length
+# base pooler over 16 clips, and a causal ViT-B/16-at-768^2 length
 FLASH_CASES = (
     ("vit_b16_224", (128, 12, 197, 64), False),
     ("vit_b16_224_32_clips", (256, 12, 197, 64), False),
     ("pooler", (16, 8, 9, 64), False),
-    ("pooler_d96", (32, 8, 9, 96), False),
     ("causal_2305", (1, 16, 2305, 64), True),
 )
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def sass_counts() -> dict:
+    """Instructions of the tensor-core kernels' built libraries, from
+    ``cuobjdump -sass``: HGMMA (wgmma), UTMALDG (TMA tile loads) and FFMA
+    (fp32 FMAs on the CUDA cores)."""
+    from cosmos_curate_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name in ("flash_attention", "prefill_attention"):
+        sass = subprocess.run(
+            [tool, "-sass", str(_build._library_path(name))], capture_output=True, text=True, check=True, timeout=120
+        ).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "FFMA")}
+        assert counts[name]["HGMMA"] > 0 and counts[name]["UTMALDG"] > 0, f"{name}: no wgmma / TMA in its SASS"
+    return counts
+
+
+def flash_key_tile() -> int:
+    """Keys per tile of the flash kernel: ``kBK`` of its tensor-core body,
+    read from the source, so the dropped-tile controls drop one real tile."""
+    from cosmos_curate_tpu_torch.ops import _build
+
+    header = (_build.CSRC / "tc_attention.cuh").read_text()
+    return int(re.search(r"constexpr int kBK = (\d+);", header).group(1))
+
+
+def gpu_state() -> dict:
+    """The card's SM clock, its maximum, power draw and temperature now."""
+    keys = ("clocks.sm", "clocks.max.sm", "power.draw", "temperature.gpu")
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(keys)}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return dict(zip(keys, (v.strip() for v in out.stdout.strip().splitlines()[0].split(","))))
+
+
+def with_shares(result: dict) -> dict:
+    """A kernel's timing record with its share of the bound (bound / kernel
+    time) and its time over the library call's."""
+    return {**result, "bound_share": result["bound_ms"] / result["kernel_ms"],
+            "vs_library": result["kernel_ms"] / result["library_ms"]}
 
 
 def card_line() -> str:
@@ -131,7 +184,10 @@ def card_line() -> str:
 
 
 class Timer:
-    """Median CUDA-event time of one call, L2 flushed before each launch."""
+    """Median CUDA-event time of one call, L2 flushed before each launch.
+    The device spins for ~0.5 ms after the flush, so the host has enqueued
+    the call before its start event fires: the time is the device's, not
+    the host's wrapper and launch overhead."""
 
     def __init__(self, device) -> None:
         self._flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)
@@ -142,6 +198,7 @@ class Timer:
         times = []
         for _ in range(iters):
             self._flush.zero_()
+            torch.cuda._sleep(1_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -332,6 +389,8 @@ def check_kernels(timer, dev) -> dict:
             library_ms=timer(lambda: sdpa(q, k, v, is_causal=causal)),
         )
         assert err <= BOUND, f"flash {label}: max abs err {err} > {BOUND}"
+    flash = {label: with_shares(r) for label, r in flash.items()}
+    results = {name: with_shares(r) for name, r in results.items()}
     results["flash"] = {**flash[FLASH_CASES[0][0]], "cases": flash}
     assert set(results) == set(kernels())
     return results
@@ -476,10 +535,12 @@ def drive_embed(dev) -> dict:
     first = batches[1]
     with_kernel = [c.embeddings[stage.model_name].copy() for t in first for c in t.video.clips]
 
+    tile = flash_key_tile()
+
     def dropping(lo: int, hi: int):
         def attn(q, k, v, *, causal=False):
             s = q.shape[2]
-            if s <= FLASH_TILE:
+            if s <= tile:
                 return flash_attention_plain(q, k, v, causal=causal)
             keep = torch.cat([torch.arange(0, lo), torch.arange(min(hi, s), s)]).to(q.device)
             return flash_attention_plain(q, k[:, :, keep], v[:, :, keep], causal=causal)
@@ -487,9 +548,9 @@ def drive_embed(dev) -> dict:
         return attn
 
     s_vit = cfg.vit.num_patches + 1  # with the class token
-    last = (s_vit - 1) // FLASH_TILE * FLASH_TILE
+    last = (s_vit - 1) // tile * tile
     errs = {}
-    for label, attn in (("plain", flash_attention_plain), ("first_tile_dropped", dropping(0, FLASH_TILE)),
+    for label, attn in (("plain", flash_attention_plain), ("first_tile_dropped", dropping(0, tile)),
                         ("last_tile_dropped", dropping(last, s_vit))):
         saved = layers.flash_attention
         try:
@@ -577,10 +638,40 @@ def sweep_micro_batch(batches, key: str, dev, rounds: int = SWEEP_ROUNDS) -> dic
     }
 
 
-def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))) -> tuple[dict, object, object, dict]:
+def record_greedy(engine):
+    """Record each request's greedy choices in ``engine``, step by step,
+    from the first token's logits and each decode step's: request id ->
+    step -> (the id the engine chose, that step's fp32 logits). Returns the
+    record and a function that gives the engine its own methods back."""
+    steps: dict[str, dict[int, tuple[int, np.ndarray]]] = {}
+    start_slot, decode = engine._start_slot, engine._decode
+
+    def first(lane, slot_idx, req, t_valid, next_rope, logits_row):
+        row = np.asarray(logits_row, np.float32)
+        steps.setdefault(req.request_id, {})[0] = (int(np.argmax(row)), row)  # sample_token's greedy choice
+        return start_slot(lane, slot_idx, req, t_valid, next_rope, logits_row)
+
+    def step(tables, tokens, positions, rope_positions):
+        greedy, logits = decode(tables, tokens, positions, rope_positions)
+        lane = next(lane for lane in engine.lanes if lane.table is tables)
+        rows = logits.float().cpu().numpy()
+        for i, slot in lane.slots.items():
+            steps.setdefault(slot.request.request_id, {})[len(slot.generated)] = (int(greedy[i]), rows[i])
+        return greedy, logits
+
+    engine._start_slot, engine._decode = first, step
+
+    def restore() -> None:
+        del engine._start_slot, engine._decode
+
+    return steps, restore
+
+
+def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))) -> tuple:
     """The caption benchmark's base workload through CaptionEngine (its
     lanes: half the slots at 256 positions, half at max_seq). Returns the
-    record, the engine, the request factory and request id -> text."""
+    record, the engine, the request factory, request id -> text, and each
+    request's greedy choices (``record_greedy``)."""
     from cosmos_curate_tpu_torch.models.prompts import get_caption_prompt
     from cosmos_curate_tpu_torch.models.vlm import CaptionEngine, CaptionRequest, SamplingConfig
     from cosmos_curate_tpu_torch.ops import kernels
@@ -625,6 +716,7 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
     gc.collect()
     torch.cuda.reset_peak_memory_stats(dev)
     n_requests = 8
+    greedy, restore = record_greedy(engine)
     t0 = time.monotonic()
     for i in range(n_requests):
         engine.add_request(make_request(f"r{i}", i))
@@ -632,6 +724,7 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
     torch.cuda.synchronize()
     elapsed = time.monotonic() - t0
     launches = {name: k.launches for name, k in ks.items()}
+    restore()
 
     assert len(results) == n_requests, f"{len(results)} of {n_requests} requests answered"
     assert all(r.num_output_tokens > 0 for r in results), "a request produced no tokens"
@@ -662,7 +755,7 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
         launches=launches,
         peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
     )
-    return record, engine, make_request, {r.request_id: r.text for r in results}
+    return record, engine, make_request, {r.request_id: r.text for r in results}, greedy
 
 
 def agreement(a: dict, b: dict) -> dict:
@@ -678,6 +771,117 @@ def agreement(a: dict, b: dict) -> dict:
         "requests": len(a),
         "mean_common_prefix_share": sum(shares) / len(shares),
     }
+
+
+def witness_prefill(dev, cfg, paged: dict, gather: dict) -> dict:
+    """Which engine the requests that the paged and gather engines answer
+    differently side with. Five more gather drives: with the contiguous
+    prefill kernel again (a rerun), with the kernel held against its plain
+    version in fp32 on every call the engine makes (the kernel's output goes
+    on; each call's max abs error, over the call's largest output, must stay
+    within ``BOUND``; the plain version in bf16 is held the same way), with the
+    plain version in its place (the reference's rounding: bf16
+    probabilities), with the plain version in fp32, and with it at the
+    kernel's stated precision (q * scale rounded to bf16, the rest in
+    fp32). ``paged`` and ``gather`` are the first drives' greedy records.
+    For each differing request: the first differing step, and in every run
+    the choice there, the runner-up, the gap between their logits and the
+    logit of the paged engine's choice minus the gather engine's; then
+    which engine each witness's whole answer matches, and how many answers
+    each pair of runs shares."""
+    import cosmos_curate_tpu_torch.models.vlm.model as vlm_model
+    from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain
+
+    def plain(q, k, v, wi, kl):
+        return chunk_attention_plain(q, k, v, wi, kl, q.shape[-1] ** -0.5)
+
+    def plain_fp32(q, k, v, wi, kl):
+        return chunk_attention_plain(q.float(), k.float(), v.float(), wi, kl, q.shape[-1] ** -0.5).to(q.dtype)
+
+    def plain_as_kernel(q, k, v, wi, kl):
+        q_scaled = (q * q.shape[-1] ** -0.5).float()  # rounded to q's bf16 first
+        return chunk_attention_plain(q_scaled, k.float(), v.float(), wi, kl, 1.0).to(q.dtype)
+
+    saved = vlm_model.prefill_attention
+    # per call: the kernel's and the bf16 plain version's max abs error
+    # against the fp32 plain version, its largest |output|, (B, T), and
+    # whether rows past kv_len were computed
+    checked = []
+
+    def kernel_checked(q, k, v, wi, kl):
+        out = saved(q, k, v, wi, kl)
+        want = chunk_attention_plain(q.float(), k.float(), v.float(), wi, kl, q.shape[-1] ** -0.5)
+        errs = [(x.float() - want).abs().max().item() for x in (out, plain(q, k, v, wi, kl))]
+        padded = bool((wi + q.shape[1] > kl).any())
+        checked.append((*errs, want.abs().max().item(), tuple(q.shape[:2]), padded))
+        return out
+
+    runs = {"paged": paged, "gather": gather}
+    for label, attn in (("gather_rerun", saved), ("gather_kernel_checked", kernel_checked),
+                        ("gather_plain_prefill", plain),
+                        ("gather_plain_prefill_fp32", plain_fp32),
+                        ("gather_plain_prefill_as_kernel", plain_as_kernel)):
+        try:
+            vlm_model.prefill_attention = attn
+            _, engine, _, _, runs[label] = drive_slice(dev, cfg, paged_attention="gather")
+            engine.shutdown()
+            del engine
+        finally:
+            vlm_model.prefill_attention = saved
+    tokens = {label: {rid: [s[i][0] for i in sorted(s)] for rid, s in run.items()} for label, run in runs.items()}
+
+    def gap(choice: int, row: np.ndarray) -> tuple[int, float]:
+        """The runner-up to ``choice`` and how far its logit is below."""
+        others = row.copy()
+        others[choice] = -np.inf
+        return int(np.argmax(others)), float(row[choice] - others.max())
+
+    witnesses = [label for label in runs if label not in ("paged", "gather")]
+    gather_gaps = [gap(c, row)[1] for s in gather.values() for c, row in s.values()]
+    differing = []
+    for rid in sorted(tokens["paged"]):
+        a, b = tokens["paged"][rid], tokens["gather"][rid]
+        if a == b:
+            continue
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        at_step = {}
+        for label, run in runs.items():
+            if k in run[rid] and k < min(len(a), len(b)):
+                choice, row = run[rid][k]
+                runner_up, g = gap(choice, row)
+                at_step[label] = {"choice": choice, "runner_up": runner_up, "gap": g,
+                                  "paged_minus_gather_choice": float(row[a[k]] - row[b[k]])}
+        differing.append({
+            "request": rid,
+            "first_differing_step": k,
+            "at_step": at_step,
+            "gather_steps_with_a_smaller_gap": sum(g < at_step["gather"]["gap"] for g in gather_gaps)
+            if "gather" in at_step else None,
+            "gather_steps": len(gather_gaps),
+            "sides_with": {label: "paged" if tokens[label][rid] == a else "gather" if tokens[label][rid] == b
+                           else "neither" for label in witnesses},
+        })
+    labels = list(runs)
+    identical = {
+        f"{x} | {y}": sum(tokens[x][rid] == tokens[y][rid] for rid in tokens[x])
+        for i, x in enumerate(labels) for y in labels[i + 1:]
+    }
+    rel = max(e / m for e, _, m, _, _ in checked)
+    assert rel <= BOUND, f"prefill kernel vs plain on the engine's inputs: {rel} of the largest output > {BOUND}"
+    kernel_on_engine_inputs = {
+        "calls": len(checked),
+        "max_abs_err": max(c[0] for c in checked),
+        "max_rel_err": rel,
+        "bound_rel": BOUND,
+        "plain_bf16_max_abs_err": max(c[1] for c in checked),
+        "plain_bf16_max_rel_err": max(c[1] / c[2] for c in checked),
+        "max_abs_output": max(c[2] for c in checked),
+        "batch_and_length": sorted({c[3] for c in checked}),
+        "calls_with_rows_past_kv_len": sum(c[4] for c in checked),
+        "max_abs_err_with_rows_past_kv_len": max((c[0] for c in checked if c[4]), default=None),
+    }
+    return {"differing": differing, "identical_tokens": identical, "requests": len(tokens["paged"]),
+            "kernel_on_engine_inputs": kernel_on_engine_inputs}
 
 
 def profile_window(run, steps: int, unit: str) -> dict:
@@ -753,10 +957,12 @@ def main() -> int:
 
     t0 = time.monotonic()
     _build.build_all()
-    emit({"phase": "build", "seconds": time.monotonic() - t0})
+    emit({"phase": "build", "seconds": time.monotonic() - t0, "sass": sass_counts()})
 
     timer = Timer(dev)
+    emit({"phase": "card_state", "at": "before kernels", **gpu_state()})
     checks = check_kernels(timer, dev)
+    emit({"phase": "card_state", "at": "after kernels", **gpu_state()})
     emit({"phase": "kernels", "bound": BOUND, "results": checks,
           "library": "scaled_dot_product_attention: on K/V already gathered to contiguous "
                      "[B, Hkv, S, D] with a boolean mask for the cache kernels (the gather is "
@@ -767,7 +973,7 @@ def main() -> int:
     for label, err in embed["max_abs_err_vs_plain_flash_with_a_tile_dropped"].items():
         assert err > EMBED_BOUND, f"embed: the bound {EMBED_BOUND} does not catch {label} ({err})"
 
-    record, engine, make_request, paged_texts = drive_slice(dev, VLM_BASE)
+    record, engine, make_request, paged_texts, paged_greedy = drive_slice(dev, VLM_BASE)
     emit({"phase": "slice", **record})
 
     emit({"phase": "breakdown", **profile_decode(engine, make_request)})
@@ -777,7 +983,7 @@ def main() -> int:
     emit({"phase": "forward", "max_abs_logit_diff": forward, "bound": FORWARD_BOUND})
     del engine
 
-    gather, gather_engine, _, gather_texts = drive_slice(dev, VLM_BASE, paged_attention="gather")
+    gather, gather_engine, _, gather_texts, gather_greedy = drive_slice(dev, VLM_BASE, paged_attention="gather")
     gather_engine.shutdown()
     del gather_engine
     # the same seeded weights and requests; decode numerics differ (fp32
@@ -788,6 +994,7 @@ def main() -> int:
           "agreement_with_paged": agreement(paged_texts, gather_texts)})
     for name in ("paged_decode", "paged_prefill"):
         assert gather["launches"][name] == 0, f"the gather engine launched {name}"
+    emit({"phase": "witness", **witness_prefill(dev, VLM_BASE, paged_greedy, gather_greedy)})
 
     launches = {"embed": embed["launches"], "slice": record["launches"], "gather": gather["launches"]}
     for path, counts in launches.items():
@@ -802,7 +1009,7 @@ def main() -> int:
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches[KERNEL_PATH[name]][name], max_abs_err=c["max_abs_err"], ms=c["kernel_ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-            library_ms=c["library_ms"],
+            library_ms=c["library_ms"], bound_share=c["bound_share"], vs_library=c["vs_library"],
         ))
     emit({"kernels": rows})
     print(card, flush=True)

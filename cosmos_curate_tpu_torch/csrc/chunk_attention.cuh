@@ -1,5 +1,7 @@
-// Shared device body of the port's attention kernels: a chunk of grouped
-// (GQA) queries against K/V rows with an fp32 online softmax.
+// Shared device body of the port's paged decode, paged prefill and
+// contiguous decode kernels: a chunk of grouped (GQA) queries against K/V
+// rows with an fp32 online softmax. (Contiguous prefill and flash run on the
+// tensor-core body, tc_attention.cuh.)
 //
 // One CTA owns one (q-tile, kv head, batch row). Its query rows are
 // `block_q` consecutive tokens x G grouped heads (row r = token r / G,
@@ -28,7 +30,8 @@
 // cache. Everything else is shared.
 //
 // Scores and P.V run on the CUDA cores in fp32 (two shared-memory reads per
-// FMA); tensor cores (wgmma), TMA staging and split-KV decode are later work.
+// FMA). Moving paged prefill onto tc_attention.cuh (a paged TMA policy) and
+// split-KV decode are later work.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -4,275 +4,158 @@
 // _flash_kernel. The TPU kernel ran a (batch x heads, q tiles, kv tiles)
 // grid whose innermost kv dimension ran in order and carried m / l / acc in
 // VMEM scratch. Hopper CTAs run in parallel and carry nothing, so here one
-// CTA owns one (batch x head, 64-row query tile) and loops over the 64-row
-// key tiles itself, keeping the online-softmax state in registers:
-//   1. stage q * sm_scale (fp32) transposed in shared memory, once;
-//   2. per key tile: stage K transposed and V as fp32 (16-byte loads, rows
-//      at or past S zero-filled), then S = q k^T on a 16 x 16 thread grid,
-//      each thread a 4 x 4 register tile (two float4 shared reads per 16
-//      FMAs);
-//   3. keys at or past S, and with `causal` keys after the query, are
-//      masked to -1e30; the row max and sum reduce over the 16 lanes that
-//      share a row; m, l and the rescale live in registers;
-//   4. acc = acc * alpha + P V, P through shared memory, each thread owning
-//      4 query rows x D/16 head dims.
-// With `causal`, key tiles above the diagonal are never loaded, and query
-// rows at or past S are never stored. Precision is the TPU kernel's: fp32
-// q * scale, fp32 logits and softmax, fp32 P V, acc / max(l, 1e-30).
+// CTA owns 64 query rows of one (batch, head) and walks the 64-key tiles
+// itself on the tensor-core body of tc_attention.cuh: a producer warp
+// stages Q once and K / V tile by tile with TMA, and one consumer
+// warpgroup runs S = Q K^T and O += P V as wgmma, with the online softmax
+// in registers. The CTAs of one (batch, head) launch side by side, so its
+// keys come from L2 after the first CTA's loads, and four CTAs per SM hide
+// each other's load and epilogue latency.
+//
+// The policy (FlashCta): q / k / v are read through their strides (a
+// [B, S, H, D] projection transposed to [B, H, S, D] is not copied; the
+// tensor maps order s, h and b by stride), G = 1, keys at or past S are
+// masked, and with `causal` keys after the query; key tiles above the
+// diagonal are never loaded, query rows at or past S never stored, and the
+// heaviest (last) query tiles launch first.
+//
+// Precision: the TPU kernel's fp32 scores times sm_scale and fp32 softmax;
+// P is rounded to bf16 for the P V product (the TPU kernel and the plain
+// version keep it in fp32), and O is divided by max(l, 1e-30) in fp32.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 4 * S^2 * D
 // flops per (batch, head) against 8 * S * D bytes of bf16 q / k / v / out,
 // S / 2 flops per byte: bound by bytes below S ~ 590 (the ViT's 197 tokens,
-// the pooler's 9), by the operations above. This version computes on the
-// CUDA cores in fp32 (67 TFLOP/s at most) from shared memory; wgmma with
-// TMA staging is the step towards either bound.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// the pooler's 9), by the operations above. The first version of this
+// kernel computed on the CUDA cores in fp32 (67 TFLOP/s at most) from
+// shared memory with synchronous loads; this one runs on the tensor cores
+// with its loads overlapped by the TMA ring, so the bytes can bound it.
+#include "tc_attention.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 x 16: ty owns query rows 4ty.., tx key columns 4tx..
-constexpr int kPLd = kBK + 4;  // P row stride in floats: float4 aligned, rows 4 apart in banks
-constexpr float kNegInf = -1e30f;
+// CTAs per SM the register budget is sized for: on the H100 four beat
+// three, and one warpgroup per CTA beat two sharing each K / V tile (PERF.md)
+constexpr int kMinBlocks = 4;
+constexpr int kRows = tca::kRows;
+
+struct FlashParams {
+  __nv_bfloat16* out;
+  long long ob, oh, os;   // out strides (elements); d is contiguous
+  int H, S;
+  int dim_s, dim_h, dim_b;  // tensor-map dimension (1..3) of s, h and b
+  float scale;              // sm_scale * log2(e), on the fp32 scores
+};
+
+template <bool CAUSAL>
+struct FlashCta {
+  using Params = FlashParams;
+  static constexpr bool kScaleQ = false;
+  static constexpr bool kSplitP = false;
+  const Params& p;
+  int b, h, q0, key_end, q_rows;
+
+  // a 1-d grid, query tiles fastest: the tiles sharing a (batch, head)'s
+  // keys run side by side, each (batch, head) heaviest (last) tile first
+  __device__ explicit FlashCta(const Params& prm) : p(prm), q_rows(kRows) {
+    const int n_qt = (p.S + kRows - 1) / kRows;
+    const int bh = blockIdx.x / n_qt;
+    b = bh / p.H;
+    h = bh % p.H;
+    q0 = (n_qt - 1 - blockIdx.x % n_qt) * kRows;
+    key_end = CAUSAL ? min(p.S, q0 + kRows) : p.S;
+  }
+  __device__ float q_scale() const { return 1.f; }
+  __device__ float score_scale() const { return p.scale; }
+
+  // coordinates (d0, row, h, b), placed in the tensor map's dimension order
+  __device__ void load(const CUtensorMap* map, uint32_t dst, uint32_t bar, int d0, int row) const {
+    const int c1 = p.dim_s == 1 ? row : p.dim_h == 1 ? h : b;
+    const int c2 = p.dim_s == 2 ? row : p.dim_h == 2 ? h : b;
+    const int c3 = p.dim_s == 3 ? row : p.dim_h == 3 ? h : b;
+    tca::tma_load_4d(dst, map, bar, d0, c1, c2, c3);
+  }
+  __device__ void load_q(const CUtensorMap* map, uint32_t dst, uint32_t bar, int d0) const {
+    load(map, dst, bar, d0, q0);
+  }
+  __device__ void load_kv(const CUtensorMap* map, uint32_t dst, uint32_t bar, int d0, int key0) const {
+    load(map, dst, bar, d0, key0);
+  }
+  __device__ tca::Row row(int r) const {
+    const int s = q0 + r;
+    const int kmax = CAUSAL ? min(s, p.S - 1) : p.S - 1;
+    return {kmax, s < p.S ? p.out + b * p.ob + h * p.oh + s * p.os : nullptr};
+  }
+};
 
 template <int D>
-constexpr int smem_floats() {
-  // q^T [D][kBQ], K^T [D][kBK], V [kBK][D], P [kBQ][kPLd]
-  return D * kBQ + D * kBK + kBK * D + kBQ * kPLd;
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// N consecutive floats from shared memory, in the widest aligned loads
-template <int N>
-__device__ __forceinline__ void load_floats(const float* src, float (&dst)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int e = 0; e < N; e += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(src + e);
-      dst[e] = t.x, dst[e + 1] = t.y, dst[e + 2] = t.z, dst[e + 3] = t.w;
-    }
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int e = 0; e < N; e += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(src + e);
-      dst[e] = t.x, dst[e + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < N; ++e) dst[e] = src[e];
-  }
-}
-
-// Rows [row0, row0 + kBK) of one (batch, head) plane, 16 bytes at a time, as
-// fp32: transposed into dst[d * ld + r] or row-major dst[r * D + d]. Rows at
-// or past S are zero.
-template <int D, bool TRANSPOSE>
-__device__ __forceinline__ void stage_rows(const __nv_bfloat16* plane, long long row_stride,
-                                           int row0, int S, float scale, float* dst, int ld) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < kBK * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S) raw = *reinterpret_cast<const uint4*>(plane + (row0 + r) * row_stride + c);
-    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float f = __bfloat162float(x[e]) * scale;
-      if constexpr (TRANSPOSE) {
-        dst[(c + e) * ld + r] = f;
-      } else {
-        dst[r * D + c + e] = f;
-      }
-    }
-  }
-}
-
-// q / k / v share strides (elements) over (b, h, s); d is contiguous. out has
-// its own. Grid: one CTA per (q tile, b * H + h), q tiles fastest.
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads) flash_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int H, int S,
-    long long sb, long long sh, long long ss, long long ob, long long oh, long long os,
-    float sm_scale) {
-  static_assert(kBQ == kBK && kBQ == 64, "the 16 x 16 thread grid covers 64 x 64 tiles");
-  static_assert(D % 16 == 0, "16 threads split the head dim");
-  constexpr int VD = D / 16;  // head dims per thread in P V
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;
-  float* kT = qT + D * kBQ;
-  float* vs = kT + D * kBK;
-  float* ps = vs + kBK * D;
-
-  const int n_qt = (S + kBQ - 1) / kBQ;
-  const int q_tile = blockIdx.x % n_qt;
-  const int bh = blockIdx.x / n_qt;
-  const int b = bh / H, h = bh % H;
-  const int q0 = q_tile * kBQ;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long in_off = b * sb + h * sh;
-
-  stage_rows<D, true>(q + in_off, ss, q0, S, sm_scale, qT, kBQ);
-
-  float m[4], l[4], acc[4][VD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VD; ++e) acc[i][e] = 0.f;
-  }
-
-  // keys this tile can see: all of S, or with causal up to its last query
-  const int k_end = CAUSAL ? min(S, q0 + kBQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done with kT / vs / ps
-    stage_rows<D, true>(k + in_off, ss, k0, S, 1.f, kT, kBK);
-    stage_rows<D, false>(v + in_off, ss, k0, S, 1.f, vs, 0);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qT + d * kBQ + 4 * ty);
-      const float4 c = *reinterpret_cast<const float4*>(kT + d * kBK + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = q0 + 4 * ty + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = k0 + 4 * tx + j;
-        const bool seen = k_pos < S && (!CAUSAL || k_pos <= q_pos);
-        s[i][j] = seen ? s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < VD; ++e) acc[i][e] *= alpha;
-      *reinterpret_cast<float4*>(ps + (4 * ty + i) * kPLd + 4 * tx) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
-      float p[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 t = *reinterpret_cast<const float4*>(ps + (4 * ty + i) * kPLd + j);
-        p[i][0] = t.x, p[i][1] = t.y, p[i][2] = t.z, p[i][3] = t.w;
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float vv[VD];
-        load_floats<VD>(vs + (j + jj) * D + tx * VD, vv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < VD; ++e) acc[i][e] = fmaf(p[i][jj], vv[e], acc[i][e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    if (r < S) {
-      __nv_bfloat16* dst = out + b * ob + h * oh + r * os + tx * VD;
-      const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-      for (int e = 0; e < VD; ++e) dst[e] = __float2bfloat16(acc[i][e] / denom);
-    }
-  }
-}
-
-template <int D, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int S,
-           long long sb, long long sh, long long ss, long long ob, long long oh, long long os,
-           float sm_scale, cudaStream_t stream) {
-  auto kernel = flash_kernel<D, CAUSAL>;
-  constexpr size_t smem = sizeof(float) * smem_floats<D>();
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-  static unsigned long long configured = 0;  // one bit per device
-  if (!(configured & (1ull << device))) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured |= 1ull << device;
-  }
-  const long long ctas = (long long)B * H * ((S + kBQ - 1) / kBQ);
-  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)ctas, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, S, sb, sh, ss,
-      ob, oh, os, sm_scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_d(int causal, const void* q, const void* k, const void* v, void* out, int B, int H,
+int launch_d(bool causal, const void* q, const void* k, const void* v, void* out, int B, int H,
              int S, long long sb, long long sh, long long ss, long long ob, long long oh,
              long long os, float sm_scale, cudaStream_t stream) {
-  return causal ? launch<D, true>(q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, sm_scale, stream)
-                : launch<D, false>(q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, sm_scale, stream);
+  using Pn = tca::Panels<D>;
+  // s, h and b in ascending stride for the tensor maps; a size-1 dim goes
+  // last with a stride that follows from the one before it
+  struct Dim {
+    long long stride;
+    long long size;
+    int which;  // 0: s, 1: h, 2: b
+  } dims[3] = {{ss, S, 0}, {sh, H, 1}, {sb, B, 2}};
+  auto key = [](const Dim& d) { return d.size == 1 ? (1ll << 62) : d.stride; };
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && key(dims[j]) < key(dims[j - 1]); --j) {
+      const Dim t = dims[j];
+      dims[j] = dims[j - 1];
+      dims[j - 1] = t;
+    }
+  cuuint64_t gdim[4] = {(cuuint64_t)D, 0, 0, 0}, gstride[3];
+  cuuint32_t box_q[4] = {Pn::kW, 1, 1, 1}, box_kv[4] = {Pn::kW, 1, 1, 1};
+  FlashParams p{static_cast<__nv_bfloat16*>(out), ob, oh, os, H, S, 0, 0, 0, sm_scale * tca::kLog2e};
+  long long prev_bytes = 2ll * D;
+  for (int i = 0; i < 3; ++i) {
+    const Dim& d = dims[i];
+    gdim[i + 1] = (cuuint64_t)d.size;
+    const long long bytes = d.size == 1 ? prev_bytes : 2 * d.stride;
+    gstride[i] = (cuuint64_t)bytes;
+    prev_bytes = bytes * d.size;
+    if (d.which == 0) {
+      p.dim_s = i + 1;
+      box_q[i + 1] = kRows;
+      box_kv[i + 1] = tca::kBK;
+    } else if (d.which == 1) {
+      p.dim_h = i + 1;
+    } else {
+      p.dim_b = i + 1;
+    }
+  }
+  CUtensorMap mq, mk, mv;
+  int rc = tca::encode_map(&mq, q, 4, gdim, gstride, box_q, Pn::kRowBytes);
+  if (rc == 0) rc = tca::encode_map(&mk, k, 4, gdim, gstride, box_kv, Pn::kRowBytes);
+  if (rc == 0) rc = tca::encode_map(&mv, v, 4, gdim, gstride, box_kv, Pn::kRowBytes);
+  if (rc != 0) return rc;
+  const dim3 grid((unsigned)((long long)B * H * ((S + kRows - 1) / kRows)));
+  return causal ? tca::launch<FlashCta<true>, D, kMinBlocks>(mq, mk, mv, p, grid, stream)
+                : tca::launch<FlashCta<false>, D, kMinBlocks>(mq, mk, mv, p, grid, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q / k / v: bf16 [B, H, S, D] with strides (sb, sh, ss) in elements and a
-// contiguous head dim; out: bf16 with strides (ob, oh, os).
+// q / k / v: bf16 [B, H, S, D] with strides (sb, sh, ss) in elements,
+// multiples of 8, and a contiguous head dim; out: bf16 with strides
+// (ob, oh, os). Returns a cudaError_t, or 10000 + the CUresult of a tensor
+// map libcuda refused.
 int cct_flash(const void* q, const void* k, const void* v, void* out, int B, int H, int S, int D,
               long long sb, long long sh, long long ss, long long ob, long long oh, long long os,
               int causal, float sm_scale, void* stream) {
   if (B < 1 || H < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if ((long long)B * H * ((S + kRows - 1) / kRows) > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
       return launch_d<16>(causal, q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, sm_scale, st);
     case 64:
       return launch_d<64>(causal, q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, sm_scale, st);
-    case 96:
-      return launch_d<96>(causal, q, k, v, out, B, H, S, sb, sh, ss, ob, oh, os, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -86,8 +86,9 @@ class Attention(nn.Module):
     """Multi-head self-attention. The einsum path has the reference's
     precision sequence: logits rounded to ``dtype`` before the fp32
     softmax, probabilities cast back to ``dtype`` for the value product.
-    The flash path (``_use_flash``) has the flash kernel's: fp32 logits,
-    softmax and value product."""
+    The flash path (``_use_flash``) has the flash kernel's: fp32 logits and
+    softmax, probabilities rounded to bf16 for the value product, which
+    accumulates in fp32 (the plain version on the CPU keeps them in fp32)."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, dtype=torch.bfloat16, causal: bool = False):
         super().__init__()

@@ -5,8 +5,9 @@ with an online softmax, keys past the sequence masked, and an optional
 causal mask whose key tiles above the diagonal are never loaded.
 
 On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
-``csrc/flash_attention.cu`` (bf16; the head dims in ``FLASH_HEAD_DIMS``). It
-reads q / k / v through their strides, so a ``[B, S, H, D]`` projection
+``csrc/flash_attention.cu`` (bf16; the head dims in ``FLASH_HEAD_DIMS``;
+tensor cores, with P rounded to bf16 for the value product). It reads
+q / k / v through their strides, so a ``[B, S, H, D]`` projection
 transposed to ``[B, H, S, D]`` is not copied, and the output takes q's
 layout. On a CPU tensor it runs :func:`flash_attention_plain`.
 """
@@ -20,9 +21,9 @@ import torch
 from cosmos_curate_tpu_torch.ops._build import CudaKernel, KernelInputError
 
 _NEG_INF = -1e30
-# head dims the CUDA kernel is instantiated for: the tiny test configs, ViT-B/16
-# and its pooler, and a pooler over ViT-L/14's 768-d projection (8 heads)
-FLASH_HEAD_DIMS = (16, 64, 96)
+# head dims the CUDA kernel is instantiated for: the tiny test configs, and
+# ViT-B/16 and its pooler
+FLASH_HEAD_DIMS = (16, 64)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -6,10 +6,10 @@ query t sits at absolute position ``write_index + t``, sees keys at or
 before it and below ``kv_len``. The same function serves the first chunk
 (``write_index = 0``) and later chunks of a chunked prefill.
 
-On a CUDA tensor :func:`prefill_attention` launches the hand-written kernel
-``csrc/prefill_attention.cu`` (bf16 only). On a CPU tensor it runs
-:func:`chunk_attention_plain`, which replays the reference model's attention
-lines (``DecoderLayer``'s XLA path) op for op.
+On a CUDA tensor :func:`prefill_attention` launches the hand-written
+tensor-core kernel ``csrc/prefill_attention.cu`` (bf16 only). On a CPU
+tensor it runs :func:`chunk_attention_plain`, which replays the reference
+model's attention lines (``DecoderLayer``'s XLA path) op for op.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ from cosmos_curate_tpu_torch.ops._build import CudaKernel, KernelInputError
 _NEG_INF = -1e30
 # head dims the CUDA kernels are instantiated for
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
-# query rows (tokens x grouped heads) one prefill CTA holds
+# grouped heads the prefill wrappers take: the query rows (tokens x grouped
+# heads) one paged-prefill CTA holds
 MAX_PREFILL_ROWS = 128
 
 _P = ctypes.c_void_p

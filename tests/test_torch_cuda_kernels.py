@@ -4,9 +4,9 @@ Marked ``cuda``: they skip without a CUDA device (this file imports no JAX,
 so it runs on a machine that has only PyTorch). Run on the GPU with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``. Inputs are
 bf16; the plain version computes in fp32 from the same inputs, and the bound
-is 1e-2 max abs error (bf16 output rounding, and the kernel keeps
-unnormalised probabilities in fp32 where the plain version rounds the
-normalised ones).
+is 1e-2 max abs error (bf16 output rounding; the kernels round
+unnormalised probabilities to bf16, or keep them in fp32, where the plain
+versions round the normalised ones or keep them in fp32).
 """
 
 import numpy as np
@@ -74,20 +74,50 @@ def test_paged_prefill_kernel_mid_context(dev, t, d):
     assert _err(got, want) <= BOUND
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("t,s,kv", [(64, 64, 38), (1024, 1024, 686), (100, 300, 250)])
-def test_contiguous_prefill_kernel(dev, t, s, kv):
-    rng = np.random.default_rng(2)
+def _prefill_check(dev, seed, *, t, s, hk, g, d, write, kv_len):
+    rng = np.random.default_rng(seed)
+    b = len(write)
 
     def mk(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
 
-    q, k, v = mk(1, t, 8, 2, 64), mk(1, s, 8, 64), mk(1, s, 8, 64)
-    write = torch.full((1,), kv - min(t, kv), dtype=torch.int32, device=dev)
-    kv_len = torch.full((1,), kv, dtype=torch.int32, device=dev)
-    got = prefill_attention(q, k, v, write, kv_len)
-    want = chunk_attention_plain(q.float(), k.float(), v.float(), write, kv_len, 0.125)
+    q, k, v = mk(b, t, hk, g, d), mk(b, s, hk, d), mk(b, s, hk, d)
+    wi = torch.tensor(write, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    n = kernels()["prefill"].launches
+    got = prefill_attention(q, k, v, wi, kl)
+    want = chunk_attention_plain(q.float(), k.float(), v.float(), wi, kl, d**-0.5)
+    assert kernels()["prefill"].launches == n + 1
+    assert torch.isfinite(got.float()).all()
     assert _err(got, want) <= BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,s,kv", [(64, 64, 38), (1024, 1024, 686), (100, 300, 250)])
+def test_contiguous_prefill_kernel(dev, t, s, kv):
+    """G = 2 (the caption LM's grouping), the write at kv_len - T."""
+    _prefill_check(dev, 2, t=t, s=s, hk=8, g=2, d=64, write=[kv - min(t, kv)], kv_len=[kv])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "t,g,d,write,kv_len",
+    [
+        (50, 6, 128, [0], [50]),  # 10 tokens x 6 heads: 60 of a tile's 64 rows
+        (33, 6, 128, [17], [40]),  # past kv_len at write 17: padded prefix rows
+        (37, 2, 16, [0], [37]),  # T not a multiple of the 32-token tile
+        (64, 96, 64, [5], [69]),  # G > 64: the groups split over two CTAs
+    ],
+)
+def test_contiguous_prefill_kernel_tiles(dev, t, g, d, write, kv_len):
+    _prefill_check(dev, 6, t=t, s=128, hk=2, g=g, d=d, write=write, kv_len=kv_len)
+
+
+@pytest.mark.cuda
+def test_contiguous_prefill_kernel_rows_differ(dev):
+    """B = 3 with its own write / kv_len per row: a first chunk, a later
+    chunk, and a chunk whose tail is padding past kv_len."""
+    _prefill_check(dev, 7, t=70, s=256, hk=2, g=2, d=64, write=[0, 100, 30], kv_len=[70, 170, 61])
 
 
 @pytest.mark.cuda
@@ -112,12 +142,17 @@ def test_contiguous_decode_kernel(dev, d, g, s):
 @pytest.mark.parametrize(
     "shape,causal",
     [
-        ((8, 12, 197, 64), False),  # ViT-B/16 at 224^2: ragged
+        ((8, 12, 197, 64), False),  # ViT-B/16 at 224^2: a ragged last key tile
         ((32, 8, 9, 64), False),  # the base pooler: one mostly-padded tile
-        ((32, 8, 9, 96), False),
+        ((2, 3, 1, 64), False),
+        ((2, 3, 63, 64), False),
+        ((2, 3, 64, 64), False),
+        ((2, 3, 65, 64), False),
+        ((2, 3, 129, 16), False),  # one row past two 64-row query tiles
+        ((2, 2, 64, 16), False),
         ((2, 3, 130, 16), True),
         ((1, 4, 300, 64), True),
-        ((2, 2, 64, 16), False),
+        ((1, 2, 2305, 64), True),  # ViT-B/16 at 768^2
     ],
 )
 def test_flash_kernel(dev, shape, causal):
@@ -127,6 +162,7 @@ def test_flash_kernel(dev, shape, causal):
     got = flash_attention(q, k, v, causal=causal)
     want = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
     assert kernels()["flash"].launches == n + 1
+    assert torch.isfinite(got.float()).all()
     assert _err(got, want) <= BOUND
 
 
@@ -140,7 +176,9 @@ def test_flash_kernel_reads_strided_views(dev):
         for _ in range(3)
     )
     views = [x.transpose(1, 2) for x in (q, k, v)]
+    n = kernels()["flash"].launches
     got = flash_attention(*views)
+    assert kernels()["flash"].launches == n + 1
     assert got.stride() == views[0].stride()
     want = flash_attention_plain(*(x.float() for x in views))
     assert _err(got, want) <= BOUND
