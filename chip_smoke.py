@@ -10,10 +10,12 @@ and prints one JSON line per phase:
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build: seconds to compile every kernel (one ``nvcc`` per source, in
    parallel), and the HGMMA / UTMALDG / FFMA counts of the tensor-core
-   kernels' SASS (each must hold wgmma and TMA loads);
+   kernels' SASS (flash, prefill, paged: each must hold wgmma and TMA loads);
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    caption engine gives it at ``VLM_BASE`` width (bf16 inputs, the plain
-   version in fp32 on the same inputs, bound 1e-2 max abs error), timed with
+   version in fp32 on the same inputs, bound 1e-2 max abs error; paged
+   decode at both lanes' table widths, 1024 and 256 keys; paged prefill
+   also bit-equal to the contiguous prefill kernel on the gathered rows), timed with
    CUDA events (median of 30 launches after warm-up, L2 flushed between
    launches, the host kept ahead of the device), beside the card's least
    time for the same work and one
@@ -45,10 +47,15 @@ and prints one JSON line per phase:
    kernels must not launch there;
    witness: for each request the two engines answer differently, the first
    differing step and both engines' top-2 logits there, and which engine
-   five more gather drives side with: with the prefill kernel again, with
-   the kernel held against its plain version on every call the engine
-   makes (within 1e-2), with its plain version in its place, with the plain
-   version in fp32, and with it at the kernel's stated precision;
+   six more drives side with: a paged drive with both paged kernels held
+   against their fp32 plain versions on every call (within 1e-2 of the
+   call's largest output), and gather drives with the prefill kernel
+   again, with the kernel held the same way, with its plain version in its
+   place, with the plain version in fp32, and with it at the kernel's
+   stated precision. That paged drive counts its paged calls by shape and
+   snapshots each prefill shape's first call (inputs, pool layer, output);
+   paged prefill is then checked and timed at the (B, T) it sent most, on
+   that snapshot (``paged_prefill_at_drive_shape``);
 7. breakdown: with both lanes of the paged engine decoding, 16 engine steps
    without a profiler (wall time per step), then 16 under torch.profiler
    tracing the device only (device time by kernel, launches per step, and
@@ -67,6 +74,7 @@ non-zero and prints no result. Without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import re
@@ -140,7 +148,7 @@ def sass_counts() -> dict:
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
-    for name in ("flash_attention", "prefill_attention"):
+    for name in ("flash_attention", "prefill_attention", "paged_attention"):
         sass = subprocess.run(
             [tool, "-sass", str(_build._library_path(name))], capture_output=True, text=True, check=True, timeout=120
         ).stdout
@@ -255,7 +263,7 @@ def check_kernels(timer, dev) -> dict:
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(SEED)
-    hk, g, d, bs, nbl = 8, 2, 64, 16, 64
+    hk, g, d, bs = 8, 2, 64, 16
 
     def bf16(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
@@ -265,7 +273,7 @@ def check_kernels(timer, dev) -> dict:
 
     results = {}
 
-    def paged_case(name, b, t, write, kv_len, idle_row=False):
+    def paged_case(name, b, t, write, kv_len, nbl, idle_row=False):
         n_blocks = b * nbl + 1
         pk, pv = bf16(2, n_blocks, bs, hk, d), bf16(2, n_blocks, bs, hk, d)
         tables = rng.permutation(np.arange(1, n_blocks))[: b * nbl].reshape(b, nbl)
@@ -287,12 +295,17 @@ def check_kernels(timer, dev) -> dict:
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all(), f"{name}: non-finite output"
         err = (got.float() - want).abs().max().item()
+        assert err <= BOUND, f"{name}: max abs err {err} > {BOUND}"
         gk = pk[1][tb.long()].reshape(b, nbl * bs, hk, d)
         gv = pv[1][tb.long()].reshape(b, nbl * bs, hk, d)
+        if t > 1:  # one body, one geometry: bit-equal to cct_prefill on the gathered rows
+            assert torch.equal(got, prefill_attention(q, gk.contiguous(), gv.contiguous(), wi, kl)), (
+                f"{name}: not bit-equal to the contiguous prefill kernel on gathered rows"
+            )
         qs, ks, vs, mask = sdpa_inputs(q, gk, gv, wi, kl)
         n_bytes, flops = attention_work(q.shape, np.asarray(write), np.asarray(kv_len), hk, d)
         bms, by = bound_ms(n_bytes, flops)
-        results[name] = dict(
+        return dict(
             shape=dict(B=b, T=t, Hkv=hk, G=g, D=d, bs=bs, nbl=nbl),
             max_abs_err=err,
             kernel_ms=timer(run),
@@ -300,15 +313,19 @@ def check_kernels(timer, dev) -> dict:
             bound_ms=bms,
             bound_by=by,
             library_ms=timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+            bit_equal_to_prefill=t > 1 or None,
         )
-        assert err <= BOUND, f"{name}: max abs err {err} > {BOUND}"
 
-    # decode: one lane of 4 slots, random lengths, the last row idle
-    kv = rng.integers(64, nbl * bs, 4)
-    kv[-1] = 1
-    paged_case("paged_decode", 4, 1, kv - 1, kv, idle_row=True)
+    # decode: each lane of 4 slots (1024 and 256 keys), random lengths, the
+    # last row idle; the long lane is the kernels line's row
+    decode = {}
+    for label, nbl in (("lane_1024", 64), ("lane_256", 16)):
+        kv = rng.integers(64, nbl * bs, 4)
+        kv[-1] = 1
+        decode[label] = with_shares(paged_case(f"paged_decode {label}", 4, 1, kv - 1, kv, nbl, idle_row=True))
+    results["paged_decode"] = {**decode["lane_1024"], "cases": decode}
     # paged prefill: a 256-token chunk, one fresh row and one mid-context row
-    paged_case("paged_prefill", 2, 256, np.array([0, 300]), np.array([256, 556]))
+    results["paged_prefill"] = paged_case("paged_prefill", 2, 256, np.array([0, 300]), np.array([256, 556]), 64)
 
     # contiguous prefill: the long prompt's shared-prefix build, S = T = 1024
     s, t, kv_len = 1024, 1024, 686
@@ -390,7 +407,7 @@ def check_kernels(timer, dev) -> dict:
         )
         assert err <= BOUND, f"flash {label}: max abs err {err} > {BOUND}"
     flash = {label: with_shares(r) for label, r in flash.items()}
-    results = {name: with_shares(r) for name, r in results.items()}
+    results = {name: r if "cases" in r else with_shares(r) for name, r in results.items()}
     results["flash"] = {**flash[FLASH_CASES[0][0]], "cases": flash}
     assert set(results) == set(kernels())
     return results
@@ -758,6 +775,53 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
     return record, engine, make_request, {r.request_id: r.text for r in results}, greedy
 
 
+def check_drive_prefill(timer, first: tuple) -> dict:
+    """Paged prefill on a drive's call, from the snapshot the witness's
+    paged drive took of it (q, the call's pool layer as it stood, tables,
+    write, kv_len, and the kernel's output there): run again it gives that
+    output bit for bit, stays within ``BOUND`` of its fp32 plain version,
+    equals ``cct_prefill`` on the gathered rows bit for bit, and is timed
+    beside its bound, plain version and SDPA."""
+    from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+    from cosmos_curate_tpu_torch.ops.prefill_attention import prefill_attention
+
+    q, pk, pv, tb, wi, kl, seen = first
+    b, t, hk, g, d = q.shape
+    bs, width = pk.shape[2], tb.shape[1] * pk.shape[2]
+
+    def run():
+        return paged_attention(q, pk, pv, tb, wi, kl)
+
+    def plain():
+        return paged_attention_plain(q, pk, pv, tb, wi, kl, layer_index=0, sm_scale=d**-0.5)
+
+    got = run()
+    assert torch.equal(got, seen), "paged prefill at the drive's shape: another output than in the drive"
+    want = paged_attention_plain(q.float(), pk, pv, tb, wi, kl, layer_index=0, sm_scale=d**-0.5)
+    err = (got.float() - want).abs().max().item()
+    assert torch.isfinite(got.float()).all() and err <= BOUND, f"paged prefill at the drive's shape: {err}"
+    gk = pk[0][tb.long()].reshape(b, width, hk, d)
+    gv = pv[0][tb.long()].reshape(b, width, hk, d)
+    assert torch.equal(got, prefill_attention(q, gk.contiguous(), gv.contiguous(), wi, kl)), (
+        "paged prefill at the drive's shape: not bit-equal to the contiguous prefill kernel"
+    )
+    write, kv_len = wi.cpu().numpy(), kl.cpu().numpy()
+    qs, ks, vs, mask = sdpa_inputs(q, gk, gv, wi, kl)
+    bms, by = bound_ms(*attention_work(q.shape, write, kv_len, hk, d))
+    return with_shares(dict(
+        shape=dict(B=b, T=t, Hkv=hk, G=g, D=d, bs=bs, nbl=tb.shape[1], write=write.tolist(),
+                   kv_len=kv_len.tolist()),
+        max_abs_err=err,
+        kernel_ms=timer(run),
+        plain_ms=timer(plain),
+        bound_ms=bms,
+        bound_by=by,
+        library_ms=timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        bit_equal_to_prefill=True,
+    ))
+
+
 def agreement(a: dict, b: dict) -> dict:
     """How far two engines' greedy outputs for the same requests agree:
     identical texts, and the common prefix as a share of the first's text."""
@@ -773,7 +837,7 @@ def agreement(a: dict, b: dict) -> dict:
     }
 
 
-def witness_prefill(dev, cfg, paged: dict, gather: dict) -> dict:
+def witness_prefill(dev, cfg, paged: dict, gather: dict, timer) -> dict:
     """Which engine the requests that the paged and gather engines answer
     differently side with. Five more gather drives: with the contiguous
     prefill kernel again (a rerun), with the kernel held against its plain
@@ -788,8 +852,14 @@ def witness_prefill(dev, cfg, paged: dict, gather: dict) -> dict:
     the choice there, the runner-up, the gap between their logits and the
     logit of the paged engine's choice minus the gather engine's; then
     which engine each witness's whole answer matches, and how many answers
-    each pair of runs shares."""
+    each pair of runs shares. The paged drive (both paged kernels held
+    against their fp32 plain versions on every call) also counts its calls
+    by (B, T) for prefill and (B, table width) for decode, and snapshots each
+    prefill shape's first call; paged prefill at the most frequent shape is
+    checked and timed on its snapshot (``check_drive_prefill``) and
+    returned under ``paged_prefill_at_drive_shape``."""
     import cosmos_curate_tpu_torch.models.vlm.model as vlm_model
+    from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention_plain
     from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain
 
     def plain(q, k, v, wi, kl):
@@ -816,7 +886,36 @@ def witness_prefill(dev, cfg, paged: dict, gather: dict) -> dict:
         checked.append((*errs, want.abs().max().item(), tuple(q.shape[:2]), padded))
         return out
 
+    # the paged drive's own calls: each kernel output against its fp32 plain
+    # version (kept on the device per call: no host sync in the drive)
+    saved_paged = vlm_model.paged_attention
+    paged_checked = {"paged_prefill": [], "paged_decode": []}
+    # calls per (B, T) / (B, table width), all layers; each prefill shape's
+    # first call, its pool layer cloned (device copies: no host sync)
+    paged_shapes = {"paged_prefill": collections.Counter(), "paged_decode": collections.Counter()}
+    first_prefill = {}
+
+    def paged_kernel_checked(q, pk, pv, tb, wi, kl, *, layer_index=0):
+        out = saved_paged(q, pk, pv, tb, wi, kl, layer_index=layer_index)
+        want = paged_attention_plain(q.float(), pk, pv, tb, wi, kl, layer_index=layer_index,
+                                     sm_scale=q.shape[-1] ** -0.5)
+        kind = "paged_prefill" if q.shape[1] > 1 else "paged_decode"
+        paged_checked[kind].append(torch.stack([(out.float() - want).abs().max(), want.abs().max()]))
+        shape = (q.shape[0], q.shape[1] if q.shape[1] > 1 else tb.shape[1] * pk.shape[2])
+        paged_shapes[kind][shape] += 1
+        if kind == "paged_prefill" and shape not in first_prefill:
+            layer = slice(layer_index, layer_index + 1)
+            first_prefill[shape] = tuple(x.clone() for x in (q, pk[layer], pv[layer], tb, wi, kl, out))
+        return out
+
     runs = {"paged": paged, "gather": gather}
+    try:
+        vlm_model.paged_attention = paged_kernel_checked
+        _, engine, _, _, runs["paged_kernel_checked"] = drive_slice(dev, cfg)
+        engine.shutdown()
+        del engine
+    finally:
+        vlm_model.paged_attention = saved_paged
     for label, attn in (("gather_rerun", saved), ("gather_kernel_checked", kernel_checked),
                         ("gather_plain_prefill", plain),
                         ("gather_plain_prefill_fp32", plain_fp32),
@@ -880,8 +979,23 @@ def witness_prefill(dev, cfg, paged: dict, gather: dict) -> dict:
         "calls_with_rows_past_kv_len": sum(c[4] for c in checked),
         "max_abs_err_with_rows_past_kv_len": max((c[0] for c in checked if c[4]), default=None),
     }
+    for kind, rows in paged_checked.items():
+        errs = torch.stack(rows).cpu().numpy()  # [calls, (max abs err, max |output|)]
+        rel_kind = float((errs[:, 0] / errs[:, 1]).max())
+        assert rel_kind <= BOUND, f"{kind} kernel vs plain on the engine's inputs: {rel_kind} > {BOUND}"
+        kernel_on_engine_inputs[kind] = {
+            "calls": len(rows),
+            "max_abs_err": float(errs[:, 0].max()),
+            "max_rel_err": rel_kind,
+            "bound_rel": BOUND,
+            "max_abs_output": float(errs[:, 1].max()),
+            "calls_by_batch_and_length": {f"B={b} {'T' if kind == 'paged_prefill' else 'width'}={n}": c
+                                          for (b, n), c in paged_shapes[kind].most_common()},
+        }
+    (b, t), n = paged_shapes["paged_prefill"].most_common(1)[0]
+    drive_prefill = {**check_drive_prefill(timer, first_prefill.pop((b, t))), "drive_calls": n}
     return {"differing": differing, "identical_tokens": identical, "requests": len(tokens["paged"]),
-            "kernel_on_engine_inputs": kernel_on_engine_inputs}
+            "kernel_on_engine_inputs": kernel_on_engine_inputs, "paged_prefill_at_drive_shape": drive_prefill}
 
 
 def profile_window(run, steps: int, unit: str) -> dict:
@@ -994,7 +1108,11 @@ def main() -> int:
           "agreement_with_paged": agreement(paged_texts, gather_texts)})
     for name in ("paged_decode", "paged_prefill"):
         assert gather["launches"][name] == 0, f"the gather engine launched {name}"
-    emit({"phase": "witness", **witness_prefill(dev, VLM_BASE, paged_greedy, gather_greedy)})
+    witness = witness_prefill(dev, VLM_BASE, paged_greedy, gather_greedy, timer)
+    drive_prefill = witness.pop("paged_prefill_at_drive_shape")
+    emit({"phase": "witness", **witness})
+    emit({"phase": "paged_prefill_at_drive_shape", **drive_prefill})
+    checks["paged_prefill"]["cases"] = {"chunk_256": dict(checks["paged_prefill"]), "drive_mode": drive_prefill}
 
     launches = {"embed": embed["launches"], "slice": record["launches"], "gather": gather["launches"]}
     for path, counts in launches.items():

@@ -1,37 +1,26 @@
-// Shared device body of the port's paged decode, paged prefill and
-// contiguous decode kernels: a chunk of grouped (GQA) queries against K/V
-// rows with an fp32 online softmax. (Contiguous prefill and flash run on the
+// Device body of the port's contiguous decode kernel (cct_decode,
+// csrc/decode_attention.cu): one token per row of grouped (GQA) queries
+// against a [B, S, Hkv, D] cache with an fp32 online softmax. (Paged decode
+// runs on split_decode.cuh; the prefill and flash kernels on the
 // tensor-core body, tc_attention.cuh.)
 //
-// One CTA owns one (q-tile, kv head, batch row). Its query rows are
-// `block_q` consecutive tokens x G grouped heads (row r = token r / G,
-// group r % G), so every K/V byte a CTA stages serves all G heads of the
-// group. The CTA walks the K/V rows it can see in TILE_K-row tiles:
+// One CTA owns one (row, kv head). Its query rows are the G grouped heads,
+// so every K/V byte it stages serves all of them. The CTA walks the keys
+// below kv_len in TILE_K-row tiles:
 //   1. stage the tile's K and V rows in shared memory as fp32 (16-byte
-//      loads; rows at or past the visible limit are zero-filled);
-//   2. scores S[r][j] = q_r . k_j, masked to -1e30 where the key is past
-//      kv_len or after the query's absolute position write_index + t;
+//      loads; rows at or past kv_len are zero-filled);
+//   2. scores S[g][j] = q_g . k_j, masked to -1e30 past kv_len;
 //   3. online softmax, one warp per row: m, l and the rescale factor live
 //      in shared memory;
 //   4. acc = acc * alpha + P V, each thread owning fixed (row, dim)
 //      accumulators in registers.
-// Tiles at or past min(kv_len, last causal position + 1) are never loaded,
-// the same skip the TPU kernels make with pl.when.
-//
-// DECODE replays the TPU's contiguous decode kernel instead of the
-// reference model's attention lines: one token per row (T = 1), no causal
-// term (the token is the newest key, so kv_len is its only limit, and
-// write_index is not read), and q * sm_scale kept in fp32 where the chunk
-// path rounds it to bf16.
-//
-// The K/V addressing is a policy: PagedKV resolves logical row p through
-// the block table (pool block table[b][p / bs], offset p % bs), so pool
-// pages are read in place; ContiguousKV reads row p of a [B, S, Hkv, D]
-// cache. Everything else is shared.
+// Tiles at or past kv_len are never loaded, the skip the TPU kernel makes
+// with pl.when. Precision is the TPU decode kernel's: q * sm_scale in fp32,
+// fp32 scores, P and P V, acc / max(l, 1e-30).
 //
 // Scores and P.V run on the CUDA cores in fp32 (two shared-memory reads per
-// FMA). Moving paged prefill onto tc_attention.cuh (a paged TMA policy) and
-// split-KV decode are later work.
+// FMA), one CTA per (row, kv head): split_decode.cuh's split-KV body is the
+// next step for this kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,20 +30,6 @@
 namespace cct {
 
 constexpr float kNegInf = -1e30f;
-
-struct PagedKV {
-  const __nv_bfloat16* k;  // this layer's pool [NB, bs, Hkv, D]
-  const __nv_bfloat16* v;
-  const int* tables;       // [B, nbl] pool block ids
-  int nbl;
-  int bs;
-  int hkv;
-  __device__ __forceinline__ int rows() const { return nbl * bs; }
-  __device__ __forceinline__ int64_t row_offset(int b, int p, int h, int d) const {
-    const int blk = tables[(int64_t)b * nbl + p / bs];
-    return (((int64_t)blk * bs + p % bs) * hkv + h) * d;
-  }
-};
 
 struct ContiguousKV {
   const __nv_bfloat16* k;  // [B, S, Hkv, D]
@@ -86,12 +61,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// q, out: [B, T, Hkv, G, D] bf16. Grid (ceil(T / block_q), Hkv, B), NT threads.
-template <int D, int TILE_K, int MAX_ROWS, int NT, class KV, bool DECODE>
+// q, out: [B, Hkv, G, D] bf16. Grid (1, Hkv, B), NT threads.
+template <int D, int TILE_K, int MAX_ROWS, int NT, class KV>
 __global__ void __launch_bounds__(NT) chunk_attention_kernel(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out, KV kv,
-    const int* __restrict__ write_index, const int* __restrict__ kv_len, int T, int G,
-    int block_q, float sm_scale) {
+    const int* __restrict__ kv_len, int G, float sm_scale) {
   static_assert(D % 8 == 0, "16-byte K/V loads need D % 8 == 0");
   static_assert(TILE_K % 32 == 0 && NT % 32 == 0, "warp-shaped tiles");
   extern __shared__ float smem[];
@@ -107,24 +81,13 @@ __global__ void __launch_bounds__(NT) chunk_attention_kernel(
   const int b = blockIdx.z;
   const int hkv = gridDim.y;
   const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * block_q;
-  const int n_t = min(block_q, T - t0);
-  const int rows = n_t * G;  // <= MAX_ROWS (checked by the launcher)
-  const int write = DECODE ? 0 : write_index[b];
-  // keys this CTA can see: written (< kv_len), causal for its last query,
-  // and inside the table / cache
-  const int limit = DECODE ? min(kv_len[b], kv.rows())
-                           : min(min(kv_len[b], write + t0 + n_t), kv.rows());
+  const int rows = G;  // <= MAX_ROWS (checked by the launcher)
+  // keys this CTA can see: written (< kv_len) and inside the cache
+  const int limit = min(kv_len[b], kv.rows());
+  const int64_t row0 = ((int64_t)b * hkv + h) * G * D;
 
-  // queries, scaled in the working dtype first (bf16) as the plain version,
-  // or in fp32 as the TPU decode kernel
-  for (int i = tid; i < rows * D; i += NT) {
-    const int r = i / D, d = i % D;
-    const int t = t0 + r / G, g = r % G;
-    const int64_t off = ((((int64_t)b * T + t) * hkv + h) * G + g) * D + d;
-    const float x = __bfloat162float(q[off]) * sm_scale;
-    q_s[i] = DECODE ? x : __bfloat162float(__float2bfloat16(x));
-  }
+  // queries, scaled in fp32 as the TPU decode kernel
+  for (int i = tid; i < rows * D; i += NT) q_s[i] = __bfloat162float(q[row0 + i]) * sm_scale;
   for (int r = tid; r < rows; r += NT) {
     m_s[r] = kNegInf;
     l_s[r] = 0.f;
@@ -162,7 +125,7 @@ __global__ void __launch_bounds__(NT) chunk_attention_kernel(
       const int r = i / TILE_K, j = i % TILE_K;
       const int p = k0 + j;
       float s = kNegInf;
-      if (p < limit && (DECODE || p <= write + t0 + r / G)) {
+      if (p < limit) {
         const float* qr = q_s + r * D;
         const float* kj = k_s + j * (D + 1);
         float dot = 0.f;
@@ -216,10 +179,7 @@ __global__ void __launch_bounds__(NT) chunk_attention_kernel(
   for (int a = 0; a < ACC; ++a) {
     const int i = tid + a * NT;
     if (i < rows * D) {
-      const int r = i / D, d = i % D;
-      const int t = t0 + r / G, g = r % G;
-      const int64_t off = ((((int64_t)b * T + t) * hkv + h) * G + g) * D + d;
-      out[off] = __float2bfloat16(acc[a] / fmaxf(l_s[r], 1e-30f));
+      out[row0 + i] = __float2bfloat16(acc[a] / fmaxf(l_s[i / D], 1e-30f));
     }
   }
 }
@@ -227,13 +187,11 @@ __global__ void __launch_bounds__(NT) chunk_attention_kernel(
 // Launch one instantiation: raise the dynamic shared-memory cap once per
 // device (the attribute is per device), then launch on the caller's stream.
 // Returns cudaGetLastError().
-template <int D, int TILE_K, int MAX_ROWS, int NT, bool DECODE = false, class KV>
-int launch_chunk_attention(const void* q, void* out, KV kv, const int* write_index,
-                           const int* kv_len, int B, int T, int Hkv, int G, float sm_scale,
-                           cudaStream_t stream) {
-  if (G < 1 || G > MAX_ROWS || T < 1 || B < 1 || Hkv < 1) return (int)cudaErrorInvalidValue;
-  if (DECODE && T != 1) return (int)cudaErrorInvalidValue;
-  auto kernel = chunk_attention_kernel<D, TILE_K, MAX_ROWS, NT, KV, DECODE>;
+template <int D, int TILE_K, int MAX_ROWS, int NT, class KV>
+int launch_chunk_attention(const void* q, void* out, KV kv, const int* kv_len, int B, int Hkv,
+                           int G, float sm_scale, cudaStream_t stream) {
+  if (G < 1 || G > MAX_ROWS || B < 1 || Hkv < 1) return (int)cudaErrorInvalidValue;
+  auto kernel = chunk_attention_kernel<D, TILE_K, MAX_ROWS, NT, KV>;
   constexpr size_t smem = sizeof(float) * chunk_smem_floats<D, TILE_K, MAX_ROWS>();
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -245,11 +203,9 @@ int launch_chunk_attention(const void* q, void* out, KV kv, const int* write_ind
     if (err != cudaSuccess) return (int)err;
     configured |= 1ull << device;
   }
-  const int block_q = MAX_ROWS / G;
-  dim3 grid((T + block_q - 1) / block_q, Hkv, B);
-  kernel<<<grid, NT, smem, stream>>>(static_cast<const __nv_bfloat16*>(q),
-                                     static_cast<__nv_bfloat16*>(out), kv, write_index, kv_len,
-                                     T, G, block_q, sm_scale);
+  kernel<<<dim3(1, Hkv, B), NT, smem, stream>>>(static_cast<const __nv_bfloat16*>(q),
+                                                static_cast<__nv_bfloat16*>(out), kv, kv_len, G,
+                                                sm_scale);
   return (int)cudaGetLastError();
 }
 

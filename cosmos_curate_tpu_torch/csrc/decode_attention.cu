@@ -6,15 +6,15 @@
 // kv_len and ran a (row, kv head, kv block) grid that skipped blocks at or
 // past kv_len, carrying m / l / acc in VMEM across the sequential kv axis.
 // Here one CTA per (row, kv head) walks the K/V tiles below kv_len itself:
-// the ContiguousKV policy of chunk_attention.cuh in its DECODE mode, whose
-// query rows are the G grouped heads, so each K/V byte is read once for
-// all of them. Precision is the TPU kernel's: q * sm_scale in fp32, fp32
+// the ContiguousKV policy of chunk_attention.cuh, whose query rows are the
+// G grouped heads, so each K/V byte is read once for all of them. Precision is the TPU kernel's: q * sm_scale in fp32, fp32
 // logits, P and P V, acc / max(l, 1e-30).
 //
 // Bound on an H100 SXM (3.35 TB/s): 4 * G * D flops per visible key against
 // 4 * D bytes of K and V, so it is bound by bytes, sum over rows of
 // kv_len * Hkv * D * 4 / 3.35 TB/s. At the gather engine's B = 4 lane slots
-// the launch is only B * Hkv = 32 CTAs on 132 SMs; split-KV would fill it.
+// the launch is only B * Hkv = 32 CTAs on 132 SMs; the split-KV body of
+// paged decode (split_decode.cuh) would fill it.
 #include "chunk_attention.cuh"
 
 namespace {
@@ -36,14 +36,14 @@ int cct_decode(const void* q, const void* k, const void* v, const int* kv_len, v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return cct::launch_chunk_attention<16, kTileK, kRows, kThreads, true>(
-          q, out, kv, nullptr, kv_len, B, 1, Hkv, G, sm_scale, st);
+      return cct::launch_chunk_attention<16, kTileK, kRows, kThreads>(q, out, kv, kv_len, B, Hkv,
+                                                                    G, sm_scale, st);
     case 64:
-      return cct::launch_chunk_attention<64, kTileK, kRows, kThreads, true>(
-          q, out, kv, nullptr, kv_len, B, 1, Hkv, G, sm_scale, st);
+      return cct::launch_chunk_attention<64, kTileK, kRows, kThreads>(q, out, kv, kv_len, B, Hkv,
+                                                                    G, sm_scale, st);
     case 128:
-      return cct::launch_chunk_attention<128, kTileK, kRows, kThreads, true>(
-          q, out, kv, nullptr, kv_len, B, 1, Hkv, G, sm_scale, st);
+      return cct::launch_chunk_attention<128, kTileK, kRows, kThreads>(q, out, kv, kv_len, B, Hkv,
+                                                                    G, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -52,6 +52,8 @@ struct FlashCta {
   using Params = FlashParams;
   static constexpr bool kScaleQ = false;
   static constexpr bool kSplitP = false;
+  static constexpr bool kWarpKV = false;
+  static constexpr bool kCopyKV = false;
   const Params& p;
   int b, h, q0, key_end, q_rows;
 

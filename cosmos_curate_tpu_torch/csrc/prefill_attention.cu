@@ -57,6 +57,8 @@ struct PrefillCta {
   using Params = PrefillParams;
   static constexpr bool kScaleQ = true;
   static constexpr bool kSplitP = true;
+  static constexpr bool kWarpKV = false;
+  static constexpr bool kCopyKV = false;
   const Params& p;
   int b, h, g0, t0, write, kvl, key_end, q_rows;
 

@@ -1,6 +1,6 @@
 // Tensor-core attention body for Hopper (sm_90a), shared by the flash
-// (csrc/flash_attention.cu) and contiguous-prefill (csrc/prefill_attention.cu)
-// kernels.
+// (csrc/flash_attention.cu), contiguous-prefill (csrc/prefill_attention.cu)
+// and paged-prefill (csrc/paged_attention.cu) kernels.
 //
 // A CTA owns 64 query rows of one (batch, head) and walks its visible keys
 // in 64-key tiles. Its warps split into roles:
@@ -10,6 +10,13 @@
 //     count completes them) and an "empty" mbarrier (the consumers release
 //     the stage), so loads run ahead of the math;
 //   - one consumer warpgroup of 128 threads, which owns the 64 rows.
+// A policy whose K / V rows are looked up per tile (kWarpKV: paged
+// prefill's block table) runs the producer loop on the whole warp: each
+// lane looks up one thing for the tile after the next (kv_lookup, a pool
+// block id), so the lookups' round trip hides behind a tile's issue, and
+// load_kv_tile issues the tile: TMA boxes from lane 0, or (kCopyKV) 16-byte
+// cp.async from every lane into the same swizzled layout, each lane's
+// copies completing one arrival on the stage's barrier (cp_async_tile).
 // The geometry is fixed: on the H100 one warpgroup per CTA and several
 // CTAs per SM (MIN_BLOCKS) beat two warpgroups sharing each K/V tile, and
 // 64-key tiles beat 128 (PERF.md). Per key tile the warpgroup runs
@@ -132,6 +139,25 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// 16 bytes global -> shared; src_bytes 0 writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// One arrival on the barrier once this thread's earlier cp.asyncs have landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Writes of the generic proxy (cp.async, st.shared) made visible to the
+// async proxy that wgmma reads shared memory through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // wgmma shared-memory matrix descriptor: start address, leading and stride
 // byte offsets (16-byte units), swizzle layout type.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
@@ -239,12 +265,39 @@ struct Row {
   __nv_bfloat16* out;
 };
 
+// Copy one [kBK, D] bf16 key tile into the panels TMA would have written
+// at `tile`: row r, 16-byte chunk c of a panel row lands where the
+// hardware's swizzle puts it (chunk bits 4.. XOR address bits 7..; the
+// panels are swizzle-atom aligned, so offsets stand for addresses). The
+// warp's 32 lanes split the tile's chunks; row(r) gives key row r's global
+// address or nullptr (zero-filled, nothing read; `any` is a valid address
+// to name instead). Each lane then arrives once on `bar` when its copies
+// have landed, so the barrier is initialised for 32 arrivals.
+template <int D, class RowFn>
+__device__ __forceinline__ void cp_async_tile(uint32_t tile, uint32_t bar, int lane, RowFn row,
+                                              const __nv_bfloat16* any) {
+  using Pn = Panels<D>;
+  constexpr int kChunks = D / 8;                   // 16-byte chunks per key row
+  constexpr int kPanelChunks = Pn::kRowBytes / 16;  // per panel row
+  constexpr uint32_t kSwizzle = Pn::kRowBytes == 128 ? 7 : 1;
+  for (int i = lane; i < kBK * kChunks; i += 32) {
+    const int r = i / kChunks, c = i % kChunks;
+    const __nv_bfloat16* src = row(r);
+    const uint32_t lin = r * Pn::kRowBytes + (c % kPanelChunks) * 16;
+    const uint32_t dst = tile + (c / kPanelChunks) * (kBK * Pn::kRowBytes) + (lin ^ (((lin >> 7) & kSwizzle) << 4));
+    cp_async_16(dst, src != nullptr ? src + c * 8 : any, src != nullptr ? 16 : 0);
+  }
+  cp_async_arrive(bar);
+}
+
 // ---- the kernel
 //
 // Threads [0, 128) are the consumer warpgroup, warp 4 the producer.
 // Cta(params) gives: key_end (keys the CTA walks, from 0), q_rows (rows
-// Q's TMA box fills), load_q / load_kv (start the TMA of one panel),
-// row(r), kScaleQ / q_scale, kSplitP and the score scale (log2 domain).
+// Q's TMA box fills), load_q / load_kv (start the TMA of one panel) or,
+// with kWarpKV, kv_lookup / load_kv_tile (the whole warp issues a K and a
+// V tile; kCopyKV: by cp.async), row(r), kScaleQ / q_scale, kSplitP and
+// the score scale (log2 domain).
 template <class Cta, int D, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
     tc_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -267,8 +320,8 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
     mbar_init(q_full, 1);
 #pragma unroll
     for (int s = 0; s < kNS; ++s) {
-      mbar_init(k_full + 8 * s, 1);
-      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_full + 8 * s, Cta::kCopyKV ? 32 : 1);  // lane arrivals, or one expect_tx
+      mbar_init(v_full + 8 * s, Cta::kCopyKV ? 32 : 1);
       mbar_init(empty + 8 * s, 4);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -282,6 +335,19 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
       mbar_expect_tx(q_full, cta.q_rows * D * 2);
 #pragma unroll
       for (int p = 0; p < Pn::kCount; ++p) cta.load_q(&tm_q, q_s + p * L::kQPanel, q_full, p * Pn::kW);
+    }
+    if constexpr (Cta::kWarpKV) {
+      int ahead = n_tiles > 0 ? cta.kv_lookup(0, lane) : 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kNS;
+        const int now = ahead;
+        if (j + 1 < n_tiles) ahead = cta.kv_lookup(j + 1, lane);  // in flight while tile j issues
+        if (j >= kNS) mbar_wait(empty + 8 * s, ((j / kNS) - 1) & 1);
+        cta.load_kv_tile(&tm_k, &tm_v, k_s + s * L::kKVBytes, k_full + 8 * s, v_s + s * L::kKVBytes,
+                         v_full + 8 * s, j * kBK, lane, now);
+      }
+      if constexpr (Cta::kCopyKV) cp_async_wait_all();
+    } else if (lane == 0) {
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kNS;
         if (j >= kNS) mbar_wait(empty + 8 * s, ((j / kNS) - 1) & 1);
@@ -323,7 +389,7 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
         chunk[i] = u;
       }
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic writes -> wgmma reads
+    fence_proxy_async();  // generic writes -> wgmma reads
     asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumer warpgroup only
   }
   __syncwarp();
@@ -346,6 +412,7 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
     mbar_wait(k_full + 8 * s, parity);
+    if constexpr (Cta::kCopyKV) fence_proxy_async();
     __syncwarp();
     wgmma_fence();
 #pragma unroll
@@ -416,6 +483,7 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
 
     // O += P V, V [key][d] row-major: the MN-major B operand, 16 keys a step
     mbar_wait(v_full + 8 * s, parity);
+    if constexpr (Cta::kCopyKV) fence_proxy_async();
     __syncwarp();
     wgmma_fence();
 #pragma unroll

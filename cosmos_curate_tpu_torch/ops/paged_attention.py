@@ -7,17 +7,22 @@ contiguous kernels' and fragmented tables cost nothing extra. Decode (T=1)
 and chunked prefill (T>1) share the op.
 
 On CUDA tensors :func:`paged_attention` launches the hand-written kernels of
-``csrc/paged_attention.cu`` (``cct_paged_decode`` for T=1,
-``cct_paged_prefill`` for T>1; bf16 only), which read pool pages in place.
-On CPU tensors it runs :func:`paged_attention_plain`, the mirror of the
-reference's ``_paged_reference``: it gathers the rows' blocks and replays the
-contiguous attention lines, so CPU outputs are bit-equal to the engine's
-gather programs.
+``csrc/paged_attention.cu`` (bf16 only), which read pool pages in place:
+``cct_paged_decode`` for T=1, split-KV over :func:`decode_split_count` CTAs
+per (row, kv head) and merged in the same launch, and ``cct_paged_prefill``
+for T>1 on the tensor-core body. On CPU tensors it runs
+:func:`paged_attention_plain`, the mirror of the reference's
+``_paged_reference``: it gathers the rows' blocks and replays the contiguous
+attention lines, so CPU outputs are bit-equal to the engine's gather
+programs. :func:`paged_decode_split_plain` mirrors the decode kernel's split
+and merge at its precision, for tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -30,19 +35,56 @@ from cosmos_curate_tpu_torch.ops.prefill_attention import (
 
 # grouped heads one decode CTA holds
 MAX_DECODE_GROUP = 16
+# split-KV decode: CTAs aimed at per SM, and the fewest keys a split covers;
+# they pick the fastest split count of scripts/tc_attention_ab.py's sweep at
+# both caption lanes (PERF.md)
+SPLIT_WAVES = 2
+SPLIT_MIN_KEYS = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 PAGED_DECODE_KERNEL = CudaKernel(
     "paged_attention",
     "cct_paged_decode",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 )
 PAGED_PREFILL_KERNEL = CudaKernel(
     "paged_attention",
     "cct_paged_prefill",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 )
+_NEG_INF = -1e30
+# (device index, stream) -> int32 zeros the decode kernel's last split
+# resets; calls on one stream run in order, so they may share them
+_split_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def decode_split_count(width: int, rows: int, sm_count: int) -> int:
+    """Key ranges (CTAs) per (batch row, kv head) for a decode over a table
+    ``width`` keys wide, ``rows`` = B * Hkv: about ``SPLIT_WAVES`` CTAs per
+    SM, each covering at least ``SPLIT_MIN_KEYS`` keys of the table, at
+    least one. Host integers only: the visible lengths are never read, so
+    no device sync."""
+    return max(1, min(SPLIT_WAVES * sm_count // max(1, rows), math.ceil(width / SPLIT_MIN_KEYS)))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The int32 counters of the decode kernel's merge on ``device``'s
+    current stream, at least ``n``: allocated zero once per (device,
+    stream), again only when a call needs more; the kernel leaves them
+    zero."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, torch.cuda.current_stream(index).cuda_stream)
+    buf = _split_counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=device)
+        _split_counters[key] = buf
+    return buf
 
 
 def paged_attention_plain(q, pool_k, pool_v, tables, write_index, kv_len, *, layer_index, sm_scale):
@@ -56,6 +98,39 @@ def paged_attention_plain(q, pool_k, pool_v, tables, write_index, kv_len, *, lay
     return chunk_attention_plain(q, new_k, new_v, write_index, kv_len, sm_scale)
 
 
+def paged_decode_split_plain(q, pool_k, pool_v, tables, kv_len, *, layer_index, sm_scale, n_split):
+    """Plain PyTorch mirror of ``cct_paged_decode``: the table's keys cut
+    into ``n_split`` ranges of ceil(width / n_split), each range's fp32
+    softmax state (m, l, acc) over its keys below kv_len (an empty range:
+    m = -1e30, l = 0), merged in log-sum-exp form; q * sm_scale, scores, P
+    and P V in fp32, ``acc / max(l, 1e-30)``. q: [B, 1, Hkv, G, D]."""
+    b, _, hk, g, d = q.shape
+    width = tables.shape[1] * pool_k.shape[2]
+    tables = tables.long()
+    k = pool_k[layer_index][tables].reshape(b, width, hk, d).float()
+    v = pool_v[layer_index][tables].reshape(b, width, hk, d).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", q[:, 0].float() * sm_scale, k)
+    seen = torch.arange(width, device=q.device)[None, :] < kv_len[:, None]  # [B, S]
+    per = -(-width // n_split)
+    neg = torch.full((), _NEG_INF, device=q.device)
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        lo, hi = i * per, min((i + 1) * per, width)
+        s = scores[..., lo:hi]
+        vis = seen[:, None, None, lo:hi]
+        m = torch.where(vis, s, neg).amax(dim=-1) if hi > lo else neg.expand(b, hk, g)
+        p = torch.where(vis, torch.exp(s - m[..., None]), torch.zeros_like(s))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p, v[:, lo:hi]))
+    m_all = torch.stack(ms)  # [n_split, B, Hkv, G]
+    big = m_all.amax(dim=0)
+    w = torch.where(torch.stack(ls) > 0, torch.exp(m_all - big), torch.zeros_like(m_all))
+    l_sum = (w * torch.stack(ls)).sum(dim=0)
+    acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
+    return (acc / torch.clamp(l_sum, min=1e-30)[..., None])[:, None].to(q.dtype)
+
+
 def paged_attention(
     q, pool_k, pool_v, tables, write_index, kv_len, *, layer_index: int = 0, sm_scale=None
 ):
@@ -66,7 +141,9 @@ def paged_attention(
     through the table; tables: ``[B, nbl]`` logical-to-physical block ids;
     write_index/kv_len: ``[B]``. Returns ``[B, T, Hkv, G, D]``.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream. A split decode's merge counters are shared by the
+    calls on one stream, which run in order; each stream has its own."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -98,10 +175,22 @@ def paged_attention(
     nbl = tables.shape[1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        common = (q.data_ptr(), k_ptr, v_ptr, tables.data_ptr(), write_index.data_ptr(),
-                  kv_len.data_ptr(), out.data_ptr(), b)
         if t == 1:
-            PAGED_DECODE_KERNEL.launch(*common, hk, g, d, nbl, bs, float(sm_scale), stream)
+            n_split = decode_split_count(nbl * bs, b * hk, _sm_count(torch.cuda.current_device()))
+            ml_ptr = acc_ptr = counters_ptr = None
+            if n_split > 1:  # partials [B, Hkv, n_split, G] x (m, l), then x D
+                n_ml = b * hk * n_split * g * 2
+                partials = torch.empty(n_ml + n_ml // 2 * d, dtype=torch.float32, device=q.device)
+                ml_ptr = partials.data_ptr()
+                acc_ptr = ml_ptr + 4 * n_ml
+                counters_ptr = split_counters(q.device, b * hk).data_ptr()
+            PAGED_DECODE_KERNEL.launch(
+                q.data_ptr(), k_ptr, v_ptr, tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                ml_ptr, acc_ptr, counters_ptr, b, hk, g, d, nbl, bs, n_split, float(sm_scale), stream,
+            )
         else:
-            PAGED_PREFILL_KERNEL.launch(*common, t, hk, g, d, nbl, bs, float(sm_scale), stream)
+            PAGED_PREFILL_KERNEL.launch(
+                q.data_ptr(), k_ptr, v_ptr, tables.data_ptr(), write_index.data_ptr(), kv_len.data_ptr(),
+                out.data_ptr(), b, t, hk, g, d, nbl, bs, nb, float(sm_scale), stream,
+            )
     return out

@@ -23,8 +23,8 @@ from cosmos_curate_tpu_torch.ops._build import CudaKernel, KernelInputError
 _NEG_INF = -1e30
 # head dims the CUDA kernels are instantiated for
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
-# grouped heads the prefill wrappers take: the query rows (tokens x grouped
-# heads) one paged-prefill CTA holds
+# grouped heads the prefill wrappers take (contiguous and paged); a CTA holds
+# 64 query rows, and more than 64 groups split over CTAs
 MAX_PREFILL_ROWS = 128
 
 _P = ctypes.c_void_p

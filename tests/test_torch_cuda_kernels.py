@@ -16,7 +16,13 @@ import torch
 from cosmos_curate_tpu_torch.ops import kernels
 from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+from cosmos_curate_tpu_torch.ops.paged_attention import (
+    decode_split_count,
+    paged_attention,
+    paged_attention_plain,
+    paged_decode_split_plain,
+    split_counters,
+)
 from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
 
 BOUND = 1e-2
@@ -72,6 +78,159 @@ def test_paged_prefill_kernel_mid_context(dev, t, d):
         q.float(), pk.float(), pv.float(), tables, write, write + t, layer_index=0, sm_scale=d**-0.5
     )
     assert _err(got, want) <= BOUND
+
+
+# (bs, nbl, d): every way the prefill kernel reads the pool (64 / bs TMA
+# boxes per key tile at bs = 8 and 16, one box inside a block at 128,
+# cp.async rows at 4, 3 and 48) and tables whose width is not a multiple of
+# the 64-key tile (except at bs = 128)
+BLOCK_SIZE_CASES = [(16, 6, 64), (8, 13, 16), (128, 3, 128), (4, 25, 64), (3, 40, 64), (48, 3, 128)]
+
+
+def _garbage_case(seed, *, b, t, hk, g, d, nbl, bs, device, idle_row):
+    """Pools whose every row the tables do not expose holds +-1e20: blocks
+    outside the tables, and the rows at or past each row's kv_len inside
+    its own blocks. Block 0, the idle rows' garbage block, keeps a finite
+    row 0 (its kv_len is 1) and +-1e20 after it."""
+    rng = np.random.default_rng(seed)
+    width = nbl * bs
+    n_blocks = b * nbl + 3
+    pool_k = rng.standard_normal((2, n_blocks, bs, hk, d)).astype(np.float32)
+    pool_v = rng.standard_normal((2, n_blocks, bs, hk, d)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, n_blocks))[: b * nbl].reshape(b, nbl).astype(np.int32)
+    t_max = min(t, width - 1)
+    write = rng.integers(0, width - t_max + 1, b).astype(np.int32)
+    if t == 1:
+        write[0] = width - 1  # a full table
+    kv_len = (write + t_max).astype(np.int32) if t > 1 else write + 1
+    if idle_row:
+        tables[-1] = 0
+        write[-1], kv_len[-1] = 0, 1
+    unmapped = sorted(set(range(n_blocks)) - set(tables.ravel().tolist()) - {0})
+    for pool, sign in ((pool_k, 1.0), (pool_v, -1.0)):
+        pool[:, unmapped] = sign * 1e20
+        pool[:, 0, 1:] = sign * 1e20
+        for row in range(b):
+            if tables[row, 0] == 0:
+                continue
+            for pos in range(int(kv_len[row]), width):
+                pool[:, tables[row, pos // bs], pos % bs] = sign * 1e20
+    to = lambda x: torch.from_numpy(x).to(device, torch.bfloat16)  # noqa: E731
+    i32 = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(device)  # noqa: E731
+    q = to(rng.standard_normal((b, t_max if t > 1 else 1, hk, g, d)).astype(np.float32))
+    return q, to(pool_k), to(pool_v), i32(tables), i32(write), i32(kv_len)
+
+
+def _paged_check(dev, q, pk, pv, tables, write, kv_len, name):
+    d = q.shape[-1]
+    n = kernels()[name].launches
+    got = paged_attention(q, pk, pv, tables, write, kv_len, layer_index=1)
+    want = paged_attention_plain(
+        q.float(), pk.float(), pv.float(), tables, write, kv_len, layer_index=1, sm_scale=d**-0.5
+    )
+    assert kernels()[name].launches == n + 1
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) <= BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,nbl,d", BLOCK_SIZE_CASES)
+def test_paged_prefill_kernel_block_sizes(dev, bs, nbl, d):
+    """B = 3 mid-context chunks with the pool's unexposed rows at +-1e20;
+    the last row idle on block 0."""
+    args = _garbage_case(10, b=3, t=nbl * bs // 2 + 5, hk=2, g=2, d=d, nbl=nbl, bs=bs, device=dev, idle_row=True)
+    _paged_check(dev, *args, "paged_prefill")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,nbl,d", BLOCK_SIZE_CASES)
+def test_paged_decode_kernel_block_sizes(dev, bs, nbl, d):
+    """B = 4 rows, one over its full table, the last idle on block 0, the
+    pool's unexposed rows at +-1e20; the split count the wrapper picks."""
+    args = _garbage_case(11, b=4, t=1, hk=2, g=2, d=d, nbl=nbl, bs=bs, device=dev, idle_row=True)
+    _paged_check(dev, *args, "paged_decode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,bs", [(2, 64, 16), (6, 128, 16), (2, 64, 4)])
+def test_paged_prefill_equals_contiguous_prefill(dev, g, d, bs):
+    """Over a shuffled table, paged prefill equals cct_prefill on the same
+    rows gathered into a contiguous cache, bit for bit: one geometry and
+    precision, K / V read from the pool in place (by TMA boxes at bs = 16,
+    by cp.async at bs = 4)."""
+    rng = np.random.default_rng(12)
+    b, hk, nbl, t = 2, 2, 96 // bs, 40
+    n_blocks = b * nbl + 3
+    to = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    pk, pv = to(2, n_blocks, bs, hk, d), to(2, n_blocks, bs, hk, d)
+    tables = torch.from_numpy(
+        rng.permutation(np.arange(1, n_blocks))[: b * nbl].reshape(b, nbl).astype(np.int32)
+    ).to(dev)
+    q = to(b, t, hk, g, d)
+    write = torch.tensor([0, 50], dtype=torch.int32, device=dev)
+    kv_len = write + t
+    paged = paged_attention(q, pk, pv, tables, write, kv_len, layer_index=1)
+    k = pk[1][tables.long()].reshape(b, nbl * bs, hk, d).contiguous()
+    v = pv[1][tables.long()].reshape(b, nbl * bs, hk, d).contiguous()
+    contiguous = prefill_attention(q, k, v, write, kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, contiguous)
+
+
+@pytest.mark.cuda
+def test_paged_decode_is_one_launch_and_leaves_counters_zero(dev):
+    """The caption engine's 1024-key lane: 8 splits of 128 keys on an H100,
+    merged by the last split in the same launch, which leaves the merge
+    counters zero; twice, so the second call finds them zeroed."""
+    rng = np.random.default_rng(13)
+    b, hk, g, d, bs, nbl = 4, 8, 2, 64, 16, 64
+    n_blocks = b * nbl + 1
+    to = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    pk, pv = to(2, n_blocks, bs, hk, d), to(2, n_blocks, bs, hk, d)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, n_blocks)).reshape(b, nbl).astype(np.int32)).to(dev)
+    q = to(b, 1, hk, g, d)
+    kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32, device=dev)
+    n_split = decode_split_count(nbl * bs, b * hk, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert n_split > 1
+    want = paged_decode_split_plain(
+        q.float(), pk.float(), pv.float(), tables, kv_len, layer_index=1, sm_scale=d**-0.5, n_split=n_split
+    )
+    outs = []
+    for _ in range(2):
+        n = kernels()["paged_decode"].launches
+        outs.append(paged_attention(q, pk, pv, tables, kv_len - 1, kv_len, layer_index=1))
+        assert kernels()["paged_decode"].launches == n + 1
+        torch.cuda.synchronize()
+        assert not split_counters(q.device, b * hk).any()
+    assert torch.equal(outs[0], outs[1])
+    assert _err(outs[0], want) <= BOUND
+
+
+@pytest.mark.cuda
+def test_paged_decode_on_two_streams(dev):
+    """Split decodes queued on two streams at once: each stream merges
+    through its own counters, so both give the single-stream answer."""
+    rng = np.random.default_rng(14)
+    b, hk, g, d, bs, nbl = 4, 8, 2, 64, 16, 64
+    n_blocks = b * nbl + 1
+    to = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    pk, pv = to(1, n_blocks, bs, hk, d), to(1, n_blocks, bs, hk, d)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, n_blocks)).reshape(b, nbl).astype(np.int32)).to(dev)
+    qs = [to(b, 1, hk, g, d) for _ in range(2)]
+    kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32, device=dev)
+    want = [paged_attention(q, pk, pv, tables, kv_len - 1, kv_len) for q in qs]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[i].append(paged_attention(qs[i], pk, pv, tables, kv_len - 1, kv_len))
+    torch.cuda.synchronize()
+    for i, stream in enumerate(streams):
+        assert all(torch.equal(out, want[i]) for out in outs[i])
+        with torch.cuda.stream(stream):
+            assert not split_counters(dev, b * hk).any()
 
 
 def _prefill_check(dev, seed, *, t, s, hk, g, d, write, kv_len):
