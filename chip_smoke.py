@@ -14,8 +14,11 @@ and prints one JSON line per phase:
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    caption engine gives it at ``VLM_BASE`` width (bf16 inputs, the plain
    version in fp32 on the same inputs, bound 1e-2 max abs error; paged
-   decode at both lanes' table widths, 1024 and 256 keys; paged prefill
-   also bit-equal to the contiguous prefill kernel on the gathered rows), timed with
+   decode and contiguous decode at both lanes' widths, 1024 and 256 keys,
+   contiguous decode also within it of its split mirror in fp32 and
+   bit-equal to paged decode on its rows scattered into a pool; paged
+   prefill also bit-equal to the contiguous prefill kernel on
+   the gathered rows), timed with
    CUDA events (median of 30 launches after warm-up, L2 flushed between
    launches, the host kept ahead of the device), beside the card's least
    time for the same work and one
@@ -44,7 +47,8 @@ and prints one JSON line per phase:
 6. gather: the same workload through ``CaptionEngine(VLM_BASE,
    paged_attention="gather")``, whose decode steps run the contiguous decode
    kernel and whose prefills run the contiguous prefill kernel; the paged
-   kernels must not launch there;
+   kernels must not launch there; then 16 of its engine steps under the
+   profiler, as in 7 (``gather_breakdown``);
    witness: for each request the two engines answer differently, the first
    differing step and both engines' top-2 logits there, and which engine
    six more drives side with: a paged drive with both paged kernels held
@@ -58,8 +62,9 @@ and prints one JSON line per phase:
    that snapshot (``paged_prefill_at_drive_shape``);
 7. breakdown: with both lanes of the paged engine decoding, 16 engine steps
    without a profiler (wall time per step), then 16 under torch.profiler
-   tracing the device only (device time by kernel, launches per step, and
-   the device's idle share of that traced window);
+   tracing the device only (device time by kernel, the decode kernel's own
+   time and launches, launches per step, and the device's idle share of
+   that traced window);
 8. forward: the engine's model on a small input with every kernel against
    the same forward with each kernel replaced by its plain version.
 
@@ -258,7 +263,12 @@ def check_kernels(timer, dev) -> dict:
     from cosmos_curate_tpu_torch.ops import kernels
     from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
     from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-    from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+    from cosmos_curate_tpu_torch.ops.paged_attention import (
+        decode_split_count,
+        decode_split_plain,
+        paged_attention,
+        paged_attention_plain,
+    )
     from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -353,34 +363,53 @@ def check_kernels(timer, dev) -> dict:
     )
     assert err <= BOUND, f"prefill: max abs err {err} > {BOUND}"
 
-    # contiguous decode: the gather engine's long lane, 4 slots, random
-    # lengths, one row at 1
-    b, s = 4, 1024
-    kv = rng.integers(64, s + 1, b)
-    kv[-1] = 1
-    q, k, v = bf16(b, hk, g, d), bf16(b, s, hk, d), bf16(b, s, hk, d)
-    kl = i32(kv)
+    # contiguous decode: each lane of the gather engine (4 slots, caches of
+    # 1024 and 256 keys), random lengths, the last row at 1; the long lane is
+    # the kernels line's row. The same rows scattered into a shuffled pool
+    # must give paged decode's output bit for bit: one split body, one split
+    # count, one merge order.
+    decode = {}
+    for label, s in (("lane_1024", 1024), ("lane_256", 256)):
+        b, nbl = 4, s // bs
+        kv = rng.integers(64, s + 1, b)
+        kv[-1] = 1
+        q, k, v = bf16(b, hk, g, d), bf16(b, s, hk, d), bf16(b, s, hk, d)
+        kl = i32(kv)
 
-    def run():
-        return decode_attention(q, k, v, kl)
+        def run():
+            return decode_attention(q, k, v, kl)
 
-    got = run()
-    want = decode_attention_plain(q.float(), k.float(), v.float(), kl, sm_scale=d**-0.5)
-    torch.cuda.synchronize()
-    err = (got.float() - want).abs().max().item()
-    qs, ks, vs, mask = sdpa_inputs(q[:, None], k, v, kl - 1, kl)
-    n_bytes, flops = attention_work((b, 1, hk, g, d), kv - 1, kv, hk, d)
-    bms, by = bound_ms(n_bytes, flops)
-    results["decode"] = dict(
-        shape=dict(B=b, S=s, Hkv=hk, G=g, D=d, kv_len=kv.tolist()),
-        max_abs_err=err,
-        kernel_ms=timer(run),
-        plain_ms=timer(lambda: decode_attention_plain(q, k, v, kl, sm_scale=d**-0.5)),
-        bound_ms=bms,
-        bound_by=by,
-        library_ms=timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)),
-    )
-    assert err <= BOUND, f"decode: max abs err {err} > {BOUND}"
+        got = run()
+        want = decode_attention_plain(q.float(), k.float(), v.float(), kl, sm_scale=d**-0.5)
+        n_split = decode_split_count(s, b * hk, torch.cuda.get_device_properties(dev).multi_processor_count)
+        mirror = decode_split_plain(q.float(), k.float(), v.float(), kl, sm_scale=d**-0.5, n_split=n_split)
+        n_blocks = b * nbl + 1
+        tables = i32(rng.permutation(np.arange(1, n_blocks)).reshape(b, nbl))
+        pk = torch.zeros(2, n_blocks, bs, hk, d, dtype=torch.bfloat16, device=dev)
+        pv = torch.zeros_like(pk)
+        pk[1][tables.long()] = k.reshape(b, nbl, bs, hk, d)
+        pv[1][tables.long()] = v.reshape(b, nbl, bs, hk, d)
+        paged = paged_attention(q[:, None], pk, pv, tables, kl - 1, kl, layer_index=1)[:, 0]
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all(), f"decode {label}: non-finite output"
+        err = (got.float() - want).abs().max().item()
+        mirror_err = (got.float() - mirror).abs().max().item()
+        assert max(err, mirror_err) <= BOUND, f"decode {label}: max abs err {err}, {mirror_err} > {BOUND}"
+        assert torch.equal(got, paged), f"decode {label}: not bit-equal to paged decode on the same rows"
+        qs, ks, vs, mask = sdpa_inputs(q[:, None], k, v, kl - 1, kl)
+        bms, by = bound_ms(*attention_work((b, 1, hk, g, d), kv - 1, kv, hk, d))
+        decode[label] = with_shares(dict(
+            shape=dict(B=b, S=s, Hkv=hk, G=g, D=d, kv_len=kv.tolist(), n_split=n_split),
+            max_abs_err=err,
+            max_abs_err_vs_split_mirror=mirror_err,
+            kernel_ms=timer(run),
+            plain_ms=timer(lambda: decode_attention_plain(q, k, v, kl, sm_scale=d**-0.5)),
+            bound_ms=bms,
+            bound_by=by,
+            library_ms=timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+            bit_equal_to_paged_decode=True,
+        ))
+    results["decode"] = {**decode["lane_1024"], "cases": decode}
 
     flash = {}
     for label, shape, causal in FLASH_CASES:
@@ -998,11 +1027,12 @@ def witness_prefill(dev, cfg, paged: dict, gather: dict, timer) -> dict:
             "kernel_on_engine_inputs": kernel_on_engine_inputs, "paged_prefill_at_drive_shape": drive_prefill}
 
 
-def profile_window(run, steps: int, unit: str) -> dict:
+def profile_window(run, steps: int, unit: str, focus: str | None = None) -> dict:
     """``run`` ``steps`` times untraced (wall time), then ``steps`` times
     under torch.profiler tracing the device only:
     device busy time, launches and top kernels per ``unit``, and the
-    device's idle share of the traced window."""
+    device's idle share of the traced window; with ``focus``, the time,
+    launches and busy share of the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     def window() -> float:
@@ -1020,6 +1050,13 @@ def profile_window(run, steps: int, unit: str) -> dict:
     busy_us = sum(e.self_device_time_total for e in kernels)
     assert busy_us > 0, "the profiler traced no device time"
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    focused = {}
+    if focus is not None:
+        hits = [e for e in kernels if focus in e.key]
+        assert hits, f"no kernel named {focus} ran in the profiled window"
+        focus_us = sum(e.self_device_time_total for e in hits)
+        focused = {"focus": {"name": focus, "ms_per_step": focus_us / 1e3 / steps,
+                             "calls_per_step": sum(e.count for e in hits) / steps, "busy_share": focus_us / busy_us}}
     return {
         "unit": unit,
         "steps": steps,
@@ -1033,14 +1070,16 @@ def profile_window(run, steps: int, unit: str) -> dict:
              "calls_per_step": e.count / steps}
             for e in top
         ],
+        **focused,
     }
 
 
-def profile_decode(engine, make_request, steps: int = 16) -> dict:
+def profile_decode(engine, make_request, focus: str, steps: int = 16) -> dict:
     """Where a decode step's time goes, with both lanes decoding: first
     ``steps`` engine steps with no profiler (wall time per step), then
-    ``steps`` more under torch.profiler tracing the device only. The idle
-    share is one window's: 1 - device busy / wall of the traced window."""
+    ``steps`` more under torch.profiler tracing the device only, with the
+    decode kernel (its name holds ``focus``) apart. The idle share is one
+    window's: 1 - device busy / wall of the traced window."""
     for i in range(8):
         engine.add_request(make_request(f"profile-{i}", i))
     deadline = time.monotonic() + 120
@@ -1049,7 +1088,11 @@ def profile_decode(engine, make_request, steps: int = 16) -> dict:
         engine.step()
     for _ in range(4):  # let the rest of the burst join the batch
         engine.step()
-    out = profile_window(engine.step, steps, "engine step")
+    # the async prep thread idle before the window: a CUDA call of that
+    # thread racing the profiler's stop crashed the process (PERF.md §7),
+    # so the window holds decode steps without prep's overlap
+    assert engine.wait_prep_idle(max(deadline - time.monotonic(), 0.0)), "the prep thread never went idle"
+    out = profile_window(engine.step, steps, "engine step", focus)
     assert all(lane.slots for lane in engine.lanes), "a lane drained inside the profiled window"
     engine.run_until_complete()
     return out
@@ -1090,22 +1133,27 @@ def main() -> int:
     record, engine, make_request, paged_texts, paged_greedy = drive_slice(dev, VLM_BASE)
     emit({"phase": "slice", **record})
 
-    emit({"phase": "breakdown", **profile_decode(engine, make_request)})
+    emit({"phase": "breakdown", **profile_decode(engine, make_request, "PagedKV")})
     engine.shutdown()
 
     forward = check_forward(engine.model, dev)
     emit({"phase": "forward", "max_abs_logit_diff": forward, "bound": FORWARD_BOUND})
     del engine
 
-    gather, gather_engine, _, gather_texts, gather_greedy = drive_slice(dev, VLM_BASE, paged_attention="gather")
-    gather_engine.shutdown()
-    del gather_engine
-    # the same seeded weights and requests; decode numerics differ (fp32
-    # probabilities in the decode kernel, bf16 in the paged kernels' mirror
-    # of the reference), so agreement is reported, not asserted
+    gather, gather_engine, gather_request, gather_texts, gather_greedy = drive_slice(
+        dev, VLM_BASE, paged_attention="gather")
+    # the same seeded weights and requests; the two engines' prefill
+    # kernels share one tensor-core body and their decode kernels one split
+    # body, each pair bit-equal on the same K/V (the kernels phase asserts
+    # both), but async prep packs each drive's chunks by host timing, so
+    # agreement is reported, not asserted; the witness phase explains each
+    # request that differs
     emit({"phase": "gather", **gather,
           "paged": {k: record[k] for k in ("end_to_end_tok_s", "decode_tok_s", "decode_ms_per_step")},
           "agreement_with_paged": agreement(paged_texts, gather_texts)})
+    emit({"phase": "gather_breakdown", **profile_decode(gather_engine, gather_request, "ContiguousKV")})
+    gather_engine.shutdown()
+    del gather_engine
     for name in ("paged_decode", "paged_prefill"):
         assert gather["launches"][name] == 0, f"the gather engine launched {name}"
     witness = witness_prefill(dev, VLM_BASE, paged_greedy, gather_greedy, timer)

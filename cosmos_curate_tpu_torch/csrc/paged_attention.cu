@@ -204,17 +204,7 @@ int cct_paged_decode(const void* q, const void* k_pool, const void* v_pool, cons
                         tables, nbl, bs};
   const sdk::SplitParams p{static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), kv_len,
                            part_ml, part_acc, counters, G, n_split, sm_scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return sdk::launch_split_decode<16>(kv, p, B, Hkv, st);
-    case 64:
-      return sdk::launch_split_decode<64>(kv, p, B, Hkv, st);
-    case 128:
-      return sdk::launch_split_decode<128>(kv, p, B, Hkv, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return sdk::dispatch_split_decode(D, kv, p, B, Hkv, static_cast<cudaStream_t>(stream));
 }
 
 // q, out: [B, T, Hkv, G, D] bf16; k_pool / v_pool: one layer's pool

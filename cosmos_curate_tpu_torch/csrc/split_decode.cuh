@@ -1,4 +1,7 @@
-// Split-KV (flash-decoding) GQA decode on the CUDA cores, for sm_90a.
+// Split-KV (flash-decoding) GQA decode on the CUDA cores, for sm_90a: the
+// body of both decode kernels, paged (cct_paged_decode,
+// csrc/paged_attention.cu) and contiguous (cct_decode,
+// csrc/decode_attention.cu).
 //
 // One new token per row attends to its visible keys. Decode is bound by
 // bytes: each key brings 4 * D bytes of K and V for 4 * G * D flops, so
@@ -26,13 +29,18 @@
 // that starts at or past the row's visible keys writes an empty partial
 // (m = -1e30, l = 0), which the merge skips.
 //
-// Precision is the TPU paged-decode kernel's: q * sm_scale in fp32, fp32
-// scores and P, fp32 P V, acc / max(l, 1e-30). Keys at or past
-// min(kv_len, table width) are never loaded and weigh exactly zero.
+// Precision is the TPU decode kernels' (paged and contiguous alike): q *
+// sm_scale in fp32, fp32 scores and P, fp32 P V, acc / max(l, 1e-30). Keys
+// at or past min(kv_len, width) are never loaded and weigh exactly zero; a
+// row with kv_len 0 gives zeros.
 //
-// The K / V addressing is a policy: PagedKV resolves logical key p through
-// the block table (pool block tables[b][p / bs], row p % bs), so pool pages
-// are read in place.
+// The K / V addressing is a policy, and nothing else differs between the
+// two kernels: PagedKV resolves logical key p through the block table
+// (pool block tables[b][p / bs], row p % bs), so pool pages are read in
+// place; ContiguousKV reads row p of a [B, S, Hkv, D] cache, one dependent
+// load fewer per key. On the same K / V values, at a width of S = nbl * bs
+// and the same split count, the two give the same bits: the same split
+// boundaries, the same key for each thread, the same merge order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,6 +68,16 @@ struct PagedKV {
   __device__ __forceinline__ long long row_offset(int b, int p, int h, int hkv, int d) const {
     const int blk = tables[(long long)b * nbl + p / bs];
     return (((long long)blk * bs + p % bs) * hkv + h) * d;
+  }
+};
+
+struct ContiguousKV {
+  const __nv_bfloat16* k;  // [B, S, Hkv, D]
+  const __nv_bfloat16* v;
+  int s;
+  __device__ __forceinline__ int rows() const { return s; }
+  __device__ __forceinline__ long long row_offset(int b, int p, int h, int hkv, int d) const {
+    return (((long long)b * s + p) * hkv + h) * d;
   }
 };
 
@@ -319,6 +337,21 @@ int launch_split_decode(const KV& kv, const SplitParams& p, int B, int Hkv, cuda
     split_decode_kernel<D, 16, KV><<<grid, kThreads, 0, stream>>>(kv, p);
   }
   return (int)cudaGetLastError();
+}
+
+// launch_split_decode at a head dim of 16, 64 or 128; any other is refused.
+template <class KV>
+int dispatch_split_decode(int D, const KV& kv, const SplitParams& p, int B, int Hkv, cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch_split_decode<16>(kv, p, B, Hkv, stream);
+    case 64:
+      return launch_split_decode<64>(kv, p, B, Hkv, stream);
+    case 128:
+      return launch_split_decode<128>(kv, p, B, Hkv, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace sdk

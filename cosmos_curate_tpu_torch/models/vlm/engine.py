@@ -654,6 +654,16 @@ class CaptionEngine:
                 or any(p.request.owner == owner for p in self.pending.values())
             )
 
+    def wait_prep_idle(self, timeout: float) -> bool:
+        """Block until no request waits for prep and the prep thread holds
+        none; False if ``timeout`` seconds pass first. A caller whose next
+        device work must not overlap prep's (a profiled window) calls this
+        first. Requests already prepared stay queued for ``step``."""
+        with self._work_cv:
+            return self._work_cv.wait_for(
+                lambda: not self.waiting and self._prep_inflight is None, timeout
+            )
+
     def run_until_complete(self, owner: Any = None) -> list[CaptionResult]:
         """Drive the engine until this caller's requests are done.
 

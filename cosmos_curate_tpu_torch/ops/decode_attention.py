@@ -6,8 +6,12 @@ row attends to its slot cache ``[B, S, Hkv, D]``; queries stay grouped
 keys at or past ``kv_len`` are never read.
 
 On a CUDA tensor :func:`decode_attention` launches the hand-written kernel
-``csrc/decode_attention.cu`` (``cct_decode``; bf16 only). On a CPU tensor it
-runs :func:`decode_attention_plain`.
+``csrc/decode_attention.cu`` (``cct_decode``; bf16 only): split-KV over
+``decode_split_count`` CTAs per (row, kv head), merged in the same launch,
+on the body paged decode runs (``csrc/split_decode.cuh``), so on the same
+K/V at the same width it gives paged decode's bits. On a CPU tensor it
+runs :func:`decode_attention_plain`. ``paged_attention.decode_split_plain``
+mirrors the kernel's split and merge, for tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import ctypes
 import torch
 
 from cosmos_curate_tpu_torch.ops._build import CudaKernel, KernelInputError
-from cosmos_curate_tpu_torch.ops.paged_attention import MAX_DECODE_GROUP
+from cosmos_curate_tpu_torch.ops.paged_attention import MAX_DECODE_GROUP, split_workspace
 from cosmos_curate_tpu_torch.ops.prefill_attention import check_kernel_inputs
 
 _NEG_INF = -1e30
@@ -27,7 +31,7 @@ _I = ctypes.c_int
 DECODE_KERNEL = CudaKernel(
     "decode_attention",
     "cct_decode",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 )
 
 
@@ -52,7 +56,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, sm_scale=None):
     k_cache/v_cache: ``[B, S, Hkv, D]`` with the token's K/V already
     written; kv_len: ``[B]`` valid lengths. Returns ``[B, Hkv, G, D]``.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream, sharing the stream's split merge counters with
+    paged decode (calls on one stream run in order)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -69,11 +75,13 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, sm_scale=None):
         (("kv_len", kv_len),),
         max_g=MAX_DECODE_GROUP,
     )
+    s = k_cache.shape[1]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        n_split, workspace, _partials = split_workspace(q.device, b * hk, g, d, s)
         DECODE_KERNEL.launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            b, hk, g, d, k_cache.shape[1], float(sm_scale),
+            *workspace, b, hk, g, d, s, n_split, float(sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     return out

@@ -15,7 +15,9 @@ for T>1 on the tensor-core body. On CPU tensors it runs
 ``_paged_reference``: it gathers the rows' blocks and replays the contiguous
 attention lines, so CPU outputs are bit-equal to the engine's gather
 programs. :func:`paged_decode_split_plain` mirrors the decode kernel's split
-and merge at its precision, for tests and ``chip_smoke.py``.
+and merge at its precision, for tests and ``chip_smoke.py``, through
+:func:`decode_split_plain`, the mirror of the split body on contiguous rows
+that contiguous decode (``ops/decode_attention.py``) shares.
 """
 
 from __future__ import annotations
@@ -98,18 +100,18 @@ def paged_attention_plain(q, pool_k, pool_v, tables, write_index, kv_len, *, lay
     return chunk_attention_plain(q, new_k, new_v, write_index, kv_len, sm_scale)
 
 
-def paged_decode_split_plain(q, pool_k, pool_v, tables, kv_len, *, layer_index, sm_scale, n_split):
-    """Plain PyTorch mirror of ``cct_paged_decode``: the table's keys cut
-    into ``n_split`` ranges of ceil(width / n_split), each range's fp32
-    softmax state (m, l, acc) over its keys below kv_len (an empty range:
-    m = -1e30, l = 0), merged in log-sum-exp form; q * sm_scale, scores, P
-    and P V in fp32, ``acc / max(l, 1e-30)``. q: [B, 1, Hkv, G, D]."""
-    b, _, hk, g, d = q.shape
-    width = tables.shape[1] * pool_k.shape[2]
-    tables = tables.long()
-    k = pool_k[layer_index][tables].reshape(b, width, hk, d).float()
-    v = pool_v[layer_index][tables].reshape(b, width, hk, d).float()
-    scores = torch.einsum("bkgd,bskd->bkgs", q[:, 0].float() * sm_scale, k)
+def decode_split_plain(q, k, v, kv_len, *, sm_scale, n_split):
+    """Plain PyTorch mirror of the split decode body (``cct_decode`` and
+    ``cct_paged_decode``) over contiguous rows: the ``S`` keys cut into
+    ``n_split`` ranges of ceil(S / n_split), each range's fp32 softmax
+    state (m, l, acc) over its keys below kv_len (an empty range: m =
+    -1e30, l = 0), merged in log-sum-exp form; q * sm_scale, scores, P and
+    P V in fp32, ``acc / max(l, 1e-30)``. q: [B, Hkv, G, D]; k/v: [B, S,
+    Hkv, D]. For tests and ``chip_smoke.py``: no wrapper calls it."""
+    b, hk, g, d = q.shape
+    width = k.shape[1]
+    k, v = k.float(), v.float()
+    scores = torch.einsum("bkgd,bskd->bkgs", q.float() * sm_scale, k)
     seen = torch.arange(width, device=q.device)[None, :] < kv_len[:, None]  # [B, S]
     per = -(-width // n_split)
     neg = torch.full((), _NEG_INF, device=q.device)
@@ -128,7 +130,36 @@ def paged_decode_split_plain(q, pool_k, pool_v, tables, kv_len, *, layer_index, 
     w = torch.where(torch.stack(ls) > 0, torch.exp(m_all - big), torch.zeros_like(m_all))
     l_sum = (w * torch.stack(ls)).sum(dim=0)
     acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
-    return (acc / torch.clamp(l_sum, min=1e-30)[..., None])[:, None].to(q.dtype)
+    return (acc / torch.clamp(l_sum, min=1e-30)[..., None]).to(q.dtype)
+
+
+def paged_decode_split_plain(q, pool_k, pool_v, tables, kv_len, *, layer_index, sm_scale, n_split):
+    """Plain PyTorch mirror of ``cct_paged_decode``: the table's rows of
+    layer ``layer_index`` gathered, then :func:`decode_split_plain` over
+    the table's width. q: [B, 1, Hkv, G, D]."""
+    b, _, hk, g, d = q.shape
+    width = tables.shape[1] * pool_k.shape[2]
+    tables = tables.long()
+    k = pool_k[layer_index][tables].reshape(b, width, hk, d)
+    v = pool_v[layer_index][tables].reshape(b, width, hk, d)
+    return decode_split_plain(q[:, 0], k, v, kv_len, sm_scale=sm_scale, n_split=n_split)[:, None]
+
+
+def split_workspace(device: torch.device, rows: int, g: int, d: int, width: int):
+    """The split count of a decode over ``width`` keys for ``rows`` = B *
+    Hkv (row, kv head) pairs on ``device`` (the current CUDA device), and
+    the split kernel's workspace: fp32 partials [rows, n_split, G] x (m, l)
+    then x D, allocated with ``torch.empty`` per call, and the stream's
+    merge counters (``split_counters``). Returns ``(n_split, (part_ml,
+    part_acc, counters) pointers, partials)``; with one split the pointers
+    are None. Keep ``partials`` referenced until the launch is enqueued."""
+    n_split = decode_split_count(width, rows, _sm_count(torch.cuda.current_device()))
+    if n_split == 1:
+        return n_split, (None, None, None), None
+    n_ml = rows * n_split * g * 2
+    partials = torch.empty(n_ml + n_ml // 2 * d, dtype=torch.float32, device=device)
+    ml_ptr = partials.data_ptr()
+    return n_split, (ml_ptr, ml_ptr + 4 * n_ml, split_counters(device, rows).data_ptr()), partials
 
 
 def paged_attention(
@@ -176,17 +207,10 @@ def paged_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if t == 1:
-            n_split = decode_split_count(nbl * bs, b * hk, _sm_count(torch.cuda.current_device()))
-            ml_ptr = acc_ptr = counters_ptr = None
-            if n_split > 1:  # partials [B, Hkv, n_split, G] x (m, l), then x D
-                n_ml = b * hk * n_split * g * 2
-                partials = torch.empty(n_ml + n_ml // 2 * d, dtype=torch.float32, device=q.device)
-                ml_ptr = partials.data_ptr()
-                acc_ptr = ml_ptr + 4 * n_ml
-                counters_ptr = split_counters(q.device, b * hk).data_ptr()
+            n_split, workspace, _partials = split_workspace(q.device, b * hk, g, d, nbl * bs)
             PAGED_DECODE_KERNEL.launch(
                 q.data_ptr(), k_ptr, v_ptr, tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                ml_ptr, acc_ptr, counters_ptr, b, hk, g, d, nbl, bs, n_split, float(sm_scale), stream,
+                *workspace, b, hk, g, d, nbl, bs, n_split, float(sm_scale), stream,
             )
         else:
             PAGED_PREFILL_KERNEL.launch(

@@ -6,9 +6,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 ``DIR`` is an earlier tree's ``cosmos_curate_tpu_torch/csrc`` whose
 ``cct_flash`` and ``cct_prefill`` have the C signatures of this tree's; its
-``cct_paged_decode`` / ``cct_paged_prefill`` may have those of the first
-versions (no split workspace, no pool block count), which the script calls
-through a wrapper of the first versions' form. It builds
+``cct_paged_decode`` / ``cct_paged_prefill`` / ``cct_decode`` may have those
+of the first versions (no split workspace, no pool block count), which the
+script calls through a wrapper of the first versions' form (a source that
+names no ``part_ml`` workspace is taken for a first version). It builds
 ``flash_attention.cu``, ``prefill_attention.cu``, ``paged_attention.cu`` and
 ``decode_attention.cu`` of both trees into ``build/tc_ab/`` (one ``nvcc``
 each, all at once), points the wrappers at each build in turn, in the order
@@ -23,9 +24,11 @@ after the 686-token prefix) over a 1024-key table in pool blocks of 16, 64,
 128, 8 and 4 rows, with contiguous prefill on that call's rows gathered
 (the reference paged prefill is held to); paged decode over the caption
 engine's two lanes (4 slots, tables of 1024 and 256 keys in blocks of 16,
-the last row idle); contiguous decode at the gather engine's long lane
-(4 slots, S 1024, the last row at kv_len 1); and the timer's floor, a
-one-element fill.
+the last row idle); contiguous decode at the gather engine's two lanes
+(4 slots, S 1024 and 256, the last row at kv_len 1), and on paged decode's
+rows gathered into a contiguous cache (``decode_on_paged_rows_*``: the
+cost of the table lookup is paged decode's time less this one's); and the
+timer's floor, a one-element fill.
 
 Then the split-decode geometry: ``cct_paged_decode`` of this tree rebuilt
 with each of ``SPLIT_BUILDS``' keys a thread loads per pass
@@ -100,6 +103,8 @@ FIRST_PAGED = {
     "cct_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "cct_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 }
+# the first version's contiguous decode C signature (one CTA per row, kv head)
+FIRST_DECODE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 FLASH_CASES = {
     "vit_b16_224": ((128, 12, 197, 64), False),
     "vit_b16_224_32_clips": ((256, 12, 197, 64), False),
@@ -194,6 +199,36 @@ def first_paged(lib):
     return call
 
 
+def first_decode(lib):
+    """decode_attention as the first version's wrapper called it: the same
+    input checks, then the C entry point without split workspace or split
+    count."""
+    fn = lib["cct_decode"]
+    fn.argtypes = FIRST_DECODE
+    fn.restype = ctypes.c_int
+
+    def call(q, k_cache, v_cache, kv_len):
+        b, hk, g, d = q.shape
+        check_kernel_inputs("decode_attention", q, (("k_cache", k_cache), ("v_cache", v_cache)),
+                            (("kv_len", kv_len),), max_g=MAX_DECODE_GROUP)
+        out = torch.empty_like(q)
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                b, hk, g, d, k_cache.shape[1], d**-0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"first-version contiguous decode: cudaError {rc}")
+        return out
+
+    return call
+
+
+def use(kernel, lib) -> None:
+    """Point ``kernel``'s wrapper at ``lib``'s entry point of its symbol."""
+    fn = getattr(lib, kernel.symbol)
+    fn.argtypes = kernel._argtypes
+    fn.restype = ctypes.c_int
+    kernel._fn = fn
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", required=True, type=Path, help="an earlier tree's csrc/")
@@ -229,9 +264,14 @@ def main() -> int:
     kl = torch.full((1,), 686, dtype=torch.int32, device=dev)
     calls[("prefill_attention", "prefill_1024")] = lambda: prefill_attention(q, k, v, wi, kl)
 
+    def first_form(name: str) -> bool:
+        return "part_ml" not in (trees["baseline"] / f"{name}.cu").read_text()
+
     # paged: through this tree's wrapper, or the first versions' form
     hk, g, d, bs = 8, 2, 64, 16
-    paged_fn = {"this": paged_attention, "baseline": first_paged(libs[("paged_attention", "baseline")])}
+    paged_fn = {"this": paged_attention, "baseline": paged_attention}
+    if first_form("paged_attention"):
+        paged_fn["baseline"] = first_paged(libs[("paged_attention", "baseline")])
     tree_now = {"label": "this"}
 
     def paged_call(b, t, nbl, write, kv_len, idle_row=False, bs=bs):
@@ -252,18 +292,30 @@ def main() -> int:
         calls[("paged_attention", f"paged_prefill_drive_bs{bsz}")] = call
     gk, gv = (x.reshape(db, DRIVE_WIDTH, hk, d).contiguous() for x in (gk, gv))
     calls[("prefill_attention", "prefill_drive_gathered")] = lambda: prefill_attention(qp, gk, gv, wp, kp)
+    decode_fn = {"this": decode_attention, "baseline": decode_attention}
+    if first_form("decode_attention"):
+        decode_fn["baseline"] = first_decode(libs[("decode_attention", "baseline")])
     decode_calls = {}
+
+    def contiguous_call(*args):
+        return lambda: decode_fn[tree_now["label"]](*args)
+
     for nbl in (64, 16):
-        kv = rng.integers(64, nbl * bs, 4)
+        width = nbl * bs
+        kv = rng.integers(64, width, 4)
         kv[-1] = 1
-        decode_calls[nbl * bs] = paged_call(4, 1, nbl, kv - 1, kv, idle_row=True)[0]
-        calls[("paged_attention", f"paged_decode_{nbl * bs}")] = decode_calls[nbl * bs]
-    # contiguous decode, unchanged since its first version: the control
-    kv = rng.integers(64, 1025, 4)
-    kv[-1] = 1
-    qd, kd, vd = bf16(4, hk, g, d), bf16(4, 1024, hk, d), bf16(4, 1024, hk, d)
-    kld = torch.as_tensor(kv.astype(np.int32), device=dev)
-    calls[("decode_attention", "decode_1024")] = lambda: decode_attention(qd, kd, vd, kld)
+        decode_calls[width], (dq, dk, dv, _, dkl) = paged_call(4, 1, nbl, kv - 1, kv, idle_row=True)
+        calls[("paged_attention", f"paged_decode_{width}")] = decode_calls[width]
+        dk, dv = (x.reshape(4, width, hk, d).contiguous() for x in (dk, dv))
+        calls[("decode_attention", f"decode_on_paged_rows_{width}")] = contiguous_call(
+            dq[:, 0].contiguous(), dk, dv, dkl)
+    # contiguous decode at the gather engine's lanes
+    for width in (1024, 256):
+        kv = rng.integers(64, width + 1, 4)
+        kv[-1] = 1
+        kld = torch.as_tensor(kv.astype(np.int32), device=dev)
+        calls[("decode_attention", f"decode_{width}")] = contiguous_call(
+            bf16(4, hk, g, d), bf16(4, width, hk, d), bf16(4, width, hk, d), kld)
     # the timer's floor: one launch that does next to nothing
     tiny = torch.zeros(1, device=dev)
     calls[("floor", "one_element_fill")] = tiny.zero_
@@ -272,10 +324,7 @@ def main() -> int:
         tree_now["label"] = label
         for name, held in KERNELS.items():
             for kernel in held:
-                fn = getattr(libs[(name, label)], kernel.symbol)
-                fn.argtypes = kernel._argtypes
-                fn.restype = ctypes.c_int
-                kernel._fn = fn
+                use(kernel, libs[(name, label)])
         for (name, case), call in calls.items():
             host_ms, wall_ms = host_times(call)
             print(json.dumps({"kernel": name, "tree": label, "case": case, "ms": timer(call),
@@ -285,10 +334,7 @@ def main() -> int:
     chosen = {width: decode_split_count(width, 4 * hk, paged_module._sm_count(0)) for width in decode_calls}
     for u, m in (*SPLIT_BUILDS, SPLIT_BUILDS[0]):
         label = "this" if (u, m) == SPLIT_BUILDS[0] else f"split_u{u}_m{m}"
-        fn = getattr(libs[("paged_attention", label)], PAGED_DECODE_KERNEL.symbol)
-        fn.argtypes = PAGED_DECODE_KERNEL._argtypes
-        fn.restype = ctypes.c_int
-        PAGED_DECODE_KERNEL._fn = fn
+        use(PAGED_DECODE_KERNEL, libs[("paged_attention", label)])
         for width, call in decode_calls.items():
             for n_split in SPLIT_COUNTS:
                 paged_module.decode_split_count = lambda *_, n=n_split: n

@@ -18,6 +18,7 @@ from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention, decod
 from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from cosmos_curate_tpu_torch.ops.paged_attention import (
     decode_split_count,
+    decode_split_plain,
     paged_attention,
     paged_attention_plain,
     paged_decode_split_plain,
@@ -280,21 +281,82 @@ def test_contiguous_prefill_kernel_rows_differ(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,g,s", [(64, 2, 1024), (16, 4, 100), (128, 6, 300)])
+@pytest.mark.parametrize(
+    "d,g,s",
+    [(64, 2, 1024), (16, 4, 100), (128, 6, 300), (64, 16, 1024), (16, 16, 100), (128, 16, 300), (64, 8, 256)],
+)
 def test_contiguous_decode_kernel(dev, d, g, s):
+    """Rows at kv_len 0 (zeros), 1, S / 3, S - 1 and S; every cache row at
+    or past a row's kv_len holds +-1e20; the split count the wrapper picks."""
     rng = np.random.default_rng(3)
 
     def mk(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
 
-    q, k, v = mk(4, 2, g, d), mk(4, s, 2, d), mk(4, s, 2, d)
-    kv_len = torch.tensor([1, s // 3, s - 1, s], dtype=torch.int32, device=dev)
+    lengths = [0, 1, s // 3, s - 1, s]
+    q, k, v = mk(5, 2, g, d), mk(5, s, 2, d), mk(5, s, 2, d)
+    for row, n in enumerate(lengths):
+        k[row, n:] = 1e20
+        v[row, n:] = -1e20
+    kv_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
     n = kernels()["decode"].launches
     got = decode_attention(q, k, v, kv_len)
     want = decode_attention_plain(q.float(), k.float(), v.float(), kv_len, sm_scale=d**-0.5)
     assert kernels()["decode"].launches == n + 1
     assert torch.isfinite(got.float()).all()
+    assert not got[0].any()
     assert _err(got, want) <= BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,bs", [(1024, 16), (256, 16), (1024, 4), (256, 4)])
+def test_contiguous_decode_equals_paged_decode(dev, width, bs):
+    """The caption engine's lanes (4 slots, Hkv 8, G 2, D 64; the last slot
+    idle on block 0 at kv_len 1): contiguous decode on the table's rows
+    gathered into a [B, width, Hkv, D] cache equals paged decode on the pool,
+    bit for bit: one body, one split count, one merge order."""
+    rng = np.random.default_rng(15)
+    b, hk, g, d, nbl = 4, 8, 2, 64, width // bs
+    n_blocks = b * nbl + 1
+    to = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    pk, pv = to(2, n_blocks, bs, hk, d), to(2, n_blocks, bs, hk, d)
+    tables = rng.permutation(np.arange(1, n_blocks)).reshape(b, nbl).astype(np.int32)
+    tables[-1] = 0
+    tables = torch.from_numpy(tables).to(dev)
+    q = to(b, hk, g, d)
+    kv = rng.integers(64, width + 1, b)
+    kv[-1] = 1
+    kv_len = torch.from_numpy(kv.astype(np.int32)).to(dev)
+    k = pk[1][tables.long()].reshape(b, width, hk, d).contiguous()
+    v = pv[1][tables.long()].reshape(b, width, hk, d).contiguous()
+    paged = paged_attention(q[:, None], pk, pv, tables, kv_len - 1, kv_len, layer_index=1)
+    contiguous = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(contiguous, paged[:, 0])
+
+
+@pytest.mark.cuda
+def test_contiguous_decode_is_one_launch_and_leaves_counters_zero(dev):
+    """The gather engine's 1024-key lane: 8 splits of 128 keys on an H100,
+    merged by the last split in the same launch, which leaves the merge
+    counters zero; twice, so the second call finds them zeroed."""
+    rng = np.random.default_rng(16)
+    b, hk, g, d, s = 4, 8, 2, 64, 1024
+    to = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    q, k, v = to(b, hk, g, d), to(b, s, hk, d), to(b, s, hk, d)
+    kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32, device=dev)
+    n_split = decode_split_count(s, b * hk, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert n_split > 1
+    want = decode_split_plain(q.float(), k.float(), v.float(), kv_len, sm_scale=d**-0.5, n_split=n_split)
+    outs = []
+    for _ in range(2):
+        n = kernels()["decode"].launches
+        outs.append(decode_attention(q, k, v, kv_len))
+        assert kernels()["decode"].launches == n + 1
+        torch.cuda.synchronize()
+        assert not split_counters(q.device, b * hk).any()
+    assert torch.equal(outs[0], outs[1])
+    assert _err(outs[0], want) <= BOUND
 
 
 @pytest.mark.cuda

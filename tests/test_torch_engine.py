@@ -12,6 +12,7 @@
 - Inside the port: the paged and gather program families give bit-equal
   tokens and pool contents on the CPU, with a fragmented block table.
 - The pool is fully free after a drained shutdown.
+- ``wait_prep_idle`` returns once the prep thread has taken every request.
 """
 
 import zlib
@@ -176,6 +177,23 @@ def test_pool_fully_free_after_drain_and_shutdown():
     eng.shutdown()
     assert eng.kv_blocks_used == 0
     assert eng._allocator.free_blocks == eng.kv_blocks_total
+
+
+def test_wait_prep_idle_returns_once_prep_has_taken_every_request():
+    eng = CaptionEngine(
+        VLM_TINY_TEST, max_batch=2, kv_lanes=((128, 2),), tokenizer=ByteTokenizer(), device="cpu",
+        async_prep=True,
+    )
+    eng.setup(0)
+    assert eng.wait_prep_idle(timeout=0.0)  # nothing queued
+    tok = ByteTokenizer()
+    for i in range(3):
+        eng.add_request(_request(CaptionRequest, SamplingConfig, tok, f"r{i}", "describe", max_new=2))
+    assert eng.wait_prep_idle(timeout=60.0)
+    assert not eng.waiting and eng._prep_inflight is None
+    assert sorted(p.request.request_id for p in eng._ready) == ["r0", "r1", "r2"]
+    assert sorted(r.request_id for r in eng.run_until_complete()) == ["r0", "r1", "r2"]
+    eng.shutdown()
 
 
 def test_engine_refuses_mesh_and_unknown_mode():
