@@ -7,7 +7,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the hand-written CUDA kernels from ``cosmos_curate_tpu_torch/csrc``
 and prints one JSON line per phase:
 
-1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
+1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA,
+   which optional modules import (``cv2``, ``msgpack``, ``cloudpickle``,
+   ``prometheus_client``, ``pyarrow``), and which FFmpeg libraries and
+   headers are installed;
 2. build: seconds to compile every kernel (one ``nvcc`` per source, in
    parallel), and the HGMMA / UTMALDG / FFMA counts of the tensor-core
    kernels' SASS (flash, prefill, paged: each must hold wgmma and TMA loads);
@@ -66,7 +69,27 @@ and prints one JSON line per phase:
    time and launches, launches per step, and the device's idle share of
    that traced window);
 8. forward: the engine's model on a small input with every kernel against
-   the same forward with each kernel replaced by its plain version.
+   the same forward with each kernel replaced by its plain version;
+9. pipeline: the annotate half of the main path through the port's own
+   ``run_pipeline``: ``ClipEmbeddingStage(variant="video")`` ->
+   ``CaptionPrepStage`` -> ``CaptionStage(model_flavor="base")`` at
+   ``VIDEO_EMBED_BASE`` and ``VLM_BASE`` (seeded random weights) over the
+   embed phase's shapes (tasks of 4 clips x 8 random uint8 224x224 frames,
+   each clip one caption window). The default runner (the
+   ``PipelinedRunner``) over ``PIPELINE_TASKS`` tasks, more than one embed
+   stage call can take, so the embed stage embeds while the caption stage
+   decodes, from two host threads on one card; then ``SequentialRunner``
+   over 2 of the tasks; then the caption pipeline efficiency as
+   ``benchmarks/caption_benchmark.py`` defines it: the windows of
+   ``EFFICIENCY_TASKS`` tasks straight into the shared engine, then the
+   same windows through ``CaptionStage``, each pass's decode tokens over its
+   wall, and the ratio. Reported: clips embedded and windows captioned, wall time, clips/s, in-pipeline
+   caption tok/s, the runner's overlap fraction and the seconds during
+   which the embed and caption stages ran at once (both asserted above 0),
+   each kernel's launches, the CUDA stream each stage's worker thread
+   launched on, peak memory, and how far the two runners agree (the same
+   clips and windows, embeddings within ``EMBED_BOUND``, identical
+   captions reported).
 
 Every path's run zeroes the launch counters just before it and reads them
 just after; each kernel must have launched on the path that uses it
@@ -82,11 +105,13 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -126,6 +151,22 @@ KERNEL_PATH = {
     "decode": "gather",
     "flash": "embed",
 }
+# kernels the pipeline phase must launch (cct_decode serves only the gather
+# engine, which no stage uses)
+PIPELINE_KERNELS = ("paged_decode", "paged_prefill", "prefill", "flash")
+# six embed stage calls (192 clips): the caption stage's first batch takes
+# at most 32 tasks and waits 0.2 s for them, while an embed call of 8 tasks
+# takes under 0.1 s, so with fewer tasks embedding ends before captioning
+# starts and the two device stages never run at once
+PIPELINE_TASKS = 48
+PIPELINE_SEQUENTIAL_TASKS = 2
+EFFICIENCY_TASKS = 8  # 32 windows: through the engine alone, then CaptionStage
+# modules and FFmpeg libraries the port's later slices may need (split
+# assembly decodes and encodes through cv2 and a native H.264 writer over
+# libavcodec, and writes parquet with pyarrow); the device phase reports
+# which are here
+OPTIONAL_MODULES = ("cv2", "msgpack", "cloudpickle", "prometheus_client", "pyarrow")
+FFMPEG_LIBRARIES = ("avcodec", "avformat", "avutil", "swscale", "x264")
 # embed phase: stage calls timed, clips per task (4 one-second clips of
 # bench.py's videos), so each call is one 32-clip dispatch
 EMBED_CALLS = 8
@@ -787,6 +828,7 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
         requests=len(results),
         prompt_tokens={"short": len(prompt_ids), "long": len(long_ids)},
         output_tokens=out_tokens,
+        decode_tokens=engine.decode_tokens,
         elapsed_s=elapsed,
         end_to_end_tok_s=out_tokens / elapsed,
         decode_tok_s=engine.tokens_per_second,
@@ -1098,6 +1140,227 @@ def profile_decode(engine, make_request, focus: str, steps: int = 16) -> dict:
     return out
 
 
+def optional_modules() -> dict:
+    """Module -> its version (or True) where it imports here, else the
+    import error; FFmpeg library -> the shared library the loader finds
+    (or None), and whether libavcodec's headers are installed."""
+    import ctypes.util
+    import importlib
+    from pathlib import Path
+
+    out = {}
+    for name in OPTIONAL_MODULES:
+        try:
+            mod = importlib.import_module(name)
+            out[name] = str(getattr(mod, "__version__", True))
+        except Exception as e:  # reported, not fatal: later slices read it
+            out[name] = f"{type(e).__name__}: {e}"
+    out["libraries"] = {name: ctypes.util.find_library(name) for name in FFMPEG_LIBRARIES}
+    out["libavcodec_headers"] = Path("/usr/include/libavcodec/avcodec.h").exists() or any(
+        Path("/usr/include").glob("*/libavcodec/avcodec.h"))
+    return out
+
+
+def drive_pipeline(dev) -> dict:
+    """The annotate half of the main path through ``run_pipeline``:
+    embed -> caption prep -> caption, at VIDEO_EMBED_BASE and VLM_BASE
+    (``model_flavor="base"``, seeded), with ``split.py``'s stage settings
+    (window_len 256, 8 frames a window, 128 new tokens, stage batch 32).
+    Tasks of EMBED_CLIPS_PER_TASK clips x 8 random 224x224 frames at 8 fps,
+    each clip 1 s of a 30 fps video: one caption window. First the default
+    runner over PIPELINE_TASKS tasks, then SequentialRunner over
+    PIPELINE_SEQUENTIAL_TASKS of them on the same frames (the same seeded
+    weights: the embedder re-seeds, the caption engine is shared), then the
+    caption efficiency over EFFICIENCY_TASKS tasks on that engine."""
+    from cosmos_curate_tpu_torch.core.pipeline import run_pipeline
+    from cosmos_curate_tpu_torch.core.pipelined_runner import PipelinedRunner
+    from cosmos_curate_tpu_torch.core.runner import RUNNER_ENV, SequentialRunner, default_runner
+    from cosmos_curate_tpu_torch.data.model import (
+        Clip,
+        FrameExtractionSignature,
+        SplitPipeTask,
+        Video,
+        VideoMetadata,
+    )
+    from cosmos_curate_tpu_torch.models.embedder import VIDEO_EMBED_BASE
+    from cosmos_curate_tpu_torch.models.vlm import CaptionRequest, SamplingConfig, SharedCaptionEngine
+    from cosmos_curate_tpu_torch.ops import kernels
+    from cosmos_curate_tpu_torch.pipelines.video.stages.captioning import CaptionPrepStage, CaptionStage
+    from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import ClipEmbeddingStage
+
+    cfg = VIDEO_EMBED_BASE
+    sig = FrameExtractionSignature("fps", 8.0)
+    size = cfg.vit.image_size
+    rng = np.random.default_rng(SEED + 3)
+    frames = [
+        [rng.integers(0, 256, (cfg.num_frames, size, size, 3), dtype=np.uint8) for _ in range(EMBED_CLIPS_PER_TASK)]
+        for _ in range(PIPELINE_TASKS)
+    ]
+
+    def make_tasks(n: int) -> list:
+        return [
+            SplitPipeTask(video=Video(
+                path=f"video-{t}.mp4",
+                metadata=VideoMetadata(width=size, height=size, fps=30.0, num_frames=30 * EMBED_CLIPS_PER_TASK,
+                                       duration_s=float(EMBED_CLIPS_PER_TASK)),
+                clips=[Clip(source_video=f"video-{t}", span=(float(i), float(i + 1)),
+                            extracted_frames={sig.key(): f}) for i, f in enumerate(frames[t])],
+            ))
+            for t in range(n)
+        ]
+
+    # the pipelined run: which host thread and CUDA stream each stage's
+    # batches ran on, and when
+    batches: list[tuple[str, str, int, float, float]] = []
+    batches_lock = threading.Lock()
+
+    def stages() -> list:
+        out = [ClipEmbeddingStage(variant="video", extraction=sig), CaptionPrepStage(extraction=sig),
+               CaptionStage(model_flavor="base")]
+        for stage in out:
+            def traced(tasks, _run=stage.process_data, _name=stage.name):
+                t0 = time.monotonic()
+                try:
+                    return _run(tasks)
+                finally:
+                    with batches_lock:
+                        batches.append((_name, threading.current_thread().name,
+                                        torch.cuda.current_stream().cuda_stream, t0, time.monotonic()))
+
+            stage.process_data = traced
+        return out
+
+    def drive(runner, n: int) -> tuple[list, float, int, dict, object]:
+        ks = kernels()
+        for k in ks.values():
+            k.launches = 0
+        batches.clear()
+        used = stages()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = run_pipeline(make_tasks(n), used, runner=runner)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        caption = used[2]
+        tokens = caption.model.engine.owner_decode_tokens.get(caption.owner, 0)
+        return out, wall, tokens, {name: k.launches for name, k in ks.items()}, caption
+
+    def check(out: list, n: int, label: str) -> dict:
+        assert len(out) == n, f"{label}: {len(out)} of {n} tasks came out"
+        clips = [c for t in out for c in t.video.clips]
+        windows = [w for c in clips for w in c.windows]
+        assert len(clips) == n * EMBED_CLIPS_PER_TASK, f"{label}: {len(clips)} clips"
+        for c in clips:
+            emb = c.embeddings.get("video-embed-tpu")
+            assert emb is not None and emb.shape == (cfg.output_dim,) and np.isfinite(emb).all(), f"{label}: embedding"
+            assert len(c.windows) == 1, f"{label}: {len(c.windows)} windows in a 1 s clip"
+        assert all(w.caption.get("default") for w in windows), f"{label}: a window has no caption"
+        return {"clips_embedded": len(clips), "windows_captioned": len(windows)}
+
+    def outputs(out: list) -> dict:
+        return {(t.video.path, c.span, (w.start_frame, w.end_frame)): (c.embeddings["video-embed-tpu"],
+                                                                         w.caption["default"])
+                for t in out for c in t.video.clips for w in c.windows}
+
+    def concurrent_s(a: str, b: str) -> float:
+        """Seconds during which a batch of stage ``a`` and one of ``b`` ran
+        at once (the two stages' batches do not overlap themselves)."""
+        spans_a = [(t0, t1) for name, _, _, t0, t1 in batches if name == a]
+        spans_b = [(t0, t1) for name, _, _, t0, t1 in batches if name == b]
+        return sum(max(0.0, min(a1, b1) - max(a0, b0)) for a0, a1 in spans_a for b0, b1 in spans_b)
+
+    os.environ.pop(RUNNER_ENV, None)
+    runner = default_runner()
+    assert isinstance(runner, PipelinedRunner), f"default runner is {type(runner).__name__}"
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    piped, wall, tokens, launches, caption = drive(runner, PIPELINE_TASKS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = check(piped, PIPELINE_TASKS, "pipelined")
+    streams = collections.defaultdict(set)
+    for name, thread, stream, _, _ in batches:
+        streams[name].add((thread, stream))
+    embed_caption_s = concurrent_s("ClipEmbeddingStage", "CaptionStage")
+    assert embed_caption_s > 0, "the embed and caption stages never ran at once"
+    assert runner.overlap_frac > 0, f"overlap fraction {runner.overlap_frac}"
+    seq, seq_wall, seq_tokens, seq_launches, seq_caption = drive(SequentialRunner(), PIPELINE_SEQUENTIAL_TASKS)
+    seq_counts = check(seq, PIPELINE_SEQUENTIAL_TASKS, "sequential")
+    engine = caption.model.engine
+    assert seq_caption.model.engine is engine, "the two runs' caption stages did not share one engine"
+    # caption pipeline efficiency (benchmarks/caption_benchmark.py:263-390):
+    # the same windows straight into the engine the runs above built and
+    # warmed, then through a CaptionStage sharing it; decode tokens over
+    # wall on both sides
+    prepped = run_pipeline(make_tasks(EFFICIENCY_TASKS), [CaptionPrepStage(extraction=sig)],
+                           runner=SequentialRunner())
+    eff_stage = CaptionStage(model_flavor="base")
+    windows = [(f"{c.uuid}-{i}", w) for t in prepped for c in t.video.clips for i, w in enumerate(c.windows)]
+    prefix_ids, prompt_ids = eff_stage.model.encode_prompt(eff_stage.prompt_text)
+
+    def submit(tag: str, wins: list) -> None:
+        for rid, win in wins:
+            engine.add_request(CaptionRequest(
+                request_id=f"{tag}{rid}", prefix_ids=list(prefix_ids), prompt_ids=list(prompt_ids),
+                frames=win.frames, frame_fps=win.frame_fps,
+                sampling=SamplingConfig(max_new_tokens=eff_stage.max_new_tokens)))
+
+    def timed(run) -> tuple[float, int]:
+        before = engine.decode_tokens
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        return time.monotonic() - t0, engine.decode_tokens - before
+
+    def standalone() -> None:
+        submit("standalone-", windows)
+        engine.run_until_complete()
+
+    standalone_s, standalone_tokens = timed(standalone)
+    stage_s, stage_tokens = timed(lambda: run_pipeline(prepped, [eff_stage], runner=SequentialRunner()))
+    assert all(w.caption.get("default") for _, w in windows), "efficiency: a window has no caption"
+    standalone_tok_s = standalone_tokens / standalone_s
+    stage_tok_s = stage_tokens / stage_s
+    SharedCaptionEngine.reset()
+
+    a = outputs(piped)
+    b = outputs(seq)
+    assert set(b) <= set(a), "the sequential runner made clips or windows the pipelined runner did not"
+    assert {k for k in a if k[0] in {t.video.path for t in seq}} == set(b), "the runners' output sets differ"
+    emb_errs = [float(np.abs(a[k][0] - b[k][0]).max()) for k in b]
+    same_captions = sum(a[k][1] == b[k][1] for k in b)
+    emb_agree = sum(e <= EMBED_BOUND for e in emb_errs)
+    assert emb_agree == len(b), f"embeddings of the two runners differ by {max(emb_errs)} > {EMBED_BOUND}"
+    return dict(
+        runner=type(runner).__name__,
+        tasks=PIPELINE_TASKS,
+        **counts,
+        wall_s=wall,
+        clips_per_s=counts["clips_embedded"] / wall,
+        decode_tokens=tokens,
+        in_pipeline_tok_s=tokens / wall,
+        overlap_frac=runner.overlap_frac,
+        embed_caption_concurrent_s=embed_caption_s,
+        caption_efficiency={"windows": len(windows), "standalone_s": standalone_s,
+                            "standalone_decode_tokens": standalone_tokens, "standalone_tok_s": standalone_tok_s,
+                            "stage_s": stage_s, "stage_decode_tokens": stage_tokens, "stage_tok_s": stage_tok_s,
+                            "caption_pipeline_efficiency": stage_tok_s / standalone_tok_s},
+        launches=launches,
+        stage_busy_s=dict(runner.stage_times),
+        stage_counts=runner.stage_counts,
+        streams={k: sorted(v) for k, v in streams.items()},
+        peak_memory_bytes=peak,
+        sequential={"tasks": PIPELINE_SEQUENTIAL_TASKS, **seq_counts, "wall_s": seq_wall,
+                    "decode_tokens": seq_tokens, "launches": seq_launches},
+        same_output_sets=True,
+        embeddings_within_bound=emb_agree,
+        max_abs_embedding_diff=max(emb_errs),
+        embed_bound=EMBED_BOUND,
+        identical_captions=same_captions,
+        windows_compared=len(b),
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the GPU", file=sys.stderr)
@@ -1110,7 +1373,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     emit({"phase": "device", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
+          "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+          "modules": optional_modules()})
 
     t0 = time.monotonic()
     _build.build_all()
@@ -1162,6 +1426,11 @@ def main() -> int:
     emit({"phase": "paged_prefill_at_drive_shape", **drive_prefill})
     checks["paged_prefill"]["cases"] = {"chunk_256": dict(checks["paged_prefill"]), "drive_mode": drive_prefill}
 
+    pipeline = drive_pipeline(dev)
+    emit({"phase": "pipeline", **pipeline})
+    for name in PIPELINE_KERNELS:
+        assert pipeline["launches"][name] > 0, f"kernel {name} was not launched on the pipeline path"
+
     launches = {"embed": embed["launches"], "slice": record["launches"], "gather": gather["launches"]}
     for path, counts in launches.items():
         for name, n in counts.items():
@@ -1176,6 +1445,7 @@ def main() -> int:
             launches=launches[KERNEL_PATH[name]][name], max_abs_err=c["max_abs_err"], ms=c["kernel_ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], bound_share=c["bound_share"], vs_library=c["vs_library"],
+            pipeline_launches=pipeline["launches"][name],
         ))
     emit({"kernels": rows})
     print(card, flush=True)

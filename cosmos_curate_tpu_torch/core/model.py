@@ -22,7 +22,9 @@ class ModelInterface(abc.ABC):
 
     @property
     def device_pipeline(self):
-        """The model's DevicePipeline after ``setup()``, else None."""
+        """The model's DevicePipeline after ``setup()``, else None. None
+        also for models whose device work runs elsewhere (the caption
+        engine's continuous-batching loop is its own dispatch point)."""
         return getattr(self, "_pipeline", None)
 
     @property

@@ -1,6 +1,7 @@
 from cosmos_curate_tpu_torch.models.vlm.engine import CaptionEngine, CaptionRequest, CaptionResult, SamplingConfig
 from cosmos_curate_tpu_torch.models.vlm.model import VLM, VLM_BASE, VLM_TINY_TEST, VLMConfig
 from cosmos_curate_tpu_torch.models.vlm.paged_kv import BlockAllocator, PoolExhausted
+from cosmos_curate_tpu_torch.models.vlm.shared_engine import SharedCaptionEngine
 
 __all__ = [
     "VLM",
@@ -13,4 +14,5 @@ __all__ = [
     "CaptionResult",
     "PoolExhausted",
     "SamplingConfig",
+    "SharedCaptionEngine",
 ]

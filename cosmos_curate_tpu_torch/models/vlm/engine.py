@@ -490,6 +490,15 @@ class CaptionEngine:
                 self._start_prep_thread()
                 self._work_cv.notify_all()
 
+    def load_weights(self, state_dict: dict[str, torch.Tensor]) -> None:
+        """Serve ``state_dict`` from now on: copy it into the model that
+        ``setup`` built (strict: every parameter must match). For weights
+        that arrive after setup, as the shared engine's loader's do; call
+        it before any request is queued."""
+        if self.model is None:
+            raise RuntimeError("load_weights() before setup()")
+        self.model.load_state_dict(state_dict, strict=True)
+
     # -- device programs (the reference's jitted functions) -------------
     def _sync(self) -> None:
         """Wait for this thread's queued device work (timing boundaries)."""

@@ -78,7 +78,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, sm_scale=None):
     s = k_cache.shape[1]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        n_split, workspace, _partials = split_workspace(q.device, b * hk, g, d, s)
+        n_split, workspace, _held = split_workspace(q.device, b * hk, g, d, s)
         DECODE_KERNEL.launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
             *workspace, b, hk, g, d, s, n_split, float(sm_scale),

@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -57,8 +58,11 @@ PAGED_PREFILL_KERNEL = CudaKernel(
 )
 _NEG_INF = -1e30
 # (device index, stream) -> int32 zeros the decode kernel's last split
-# resets; calls on one stream run in order, so they may share them
+# resets; calls on one stream run in order, so they may share them. Host
+# threads (two pipeline stages, the engine's prep thread) read and fill the
+# dict under the lock.
 _split_counters: dict[tuple[int, int], torch.Tensor] = {}
+_split_counters_lock = threading.Lock()
 
 
 def decode_split_count(width: int, rows: int, sm_count: int) -> int:
@@ -79,14 +83,17 @@ def split_counters(device: torch.device, n: int) -> torch.Tensor:
     """The int32 counters of the decode kernel's merge on ``device``'s
     current stream, at least ``n``: allocated zero once per (device,
     stream), again only when a call needs more; the kernel leaves them
-    zero."""
+    zero. The caller holds the returned tensor until its launch is
+    enqueued: another thread may replace the dict's entry meanwhile, and a
+    buffer that nothing references can go back to the allocator."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     key = (index, torch.cuda.current_stream(index).cuda_stream)
-    buf = _split_counters.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=device)
-        _split_counters[key] = buf
-    return buf
+    with _split_counters_lock:
+        buf = _split_counters.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=device)
+            _split_counters[key] = buf
+        return buf
 
 
 def paged_attention_plain(q, pool_k, pool_v, tables, write_index, kv_len, *, layer_index, sm_scale):
@@ -151,15 +158,17 @@ def split_workspace(device: torch.device, rows: int, g: int, d: int, width: int)
     the split kernel's workspace: fp32 partials [rows, n_split, G] x (m, l)
     then x D, allocated with ``torch.empty`` per call, and the stream's
     merge counters (``split_counters``). Returns ``(n_split, (part_ml,
-    part_acc, counters) pointers, partials)``; with one split the pointers
-    are None. Keep ``partials`` referenced until the launch is enqueued."""
+    part_acc, counters) pointers, (partials, counters) tensors)``; with one
+    split the pointers are None. Keep the tensors referenced until the
+    launch is enqueued: the pointers alone keep neither alive."""
     n_split = decode_split_count(width, rows, _sm_count(torch.cuda.current_device()))
     if n_split == 1:
         return n_split, (None, None, None), None
     n_ml = rows * n_split * g * 2
     partials = torch.empty(n_ml + n_ml // 2 * d, dtype=torch.float32, device=device)
+    counters = split_counters(device, rows)
     ml_ptr = partials.data_ptr()
-    return n_split, (ml_ptr, ml_ptr + 4 * n_ml, split_counters(device, rows).data_ptr()), partials
+    return n_split, (ml_ptr, ml_ptr + 4 * n_ml, counters.data_ptr()), (partials, counters)
 
 
 def paged_attention(
@@ -207,7 +216,7 @@ def paged_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if t == 1:
-            n_split, workspace, _partials = split_workspace(q.device, b * hk, g, d, nbl * bs)
+            n_split, workspace, _held = split_workspace(q.device, b * hk, g, d, nbl * bs)
             PAGED_DECODE_KERNEL.launch(
                 q.data_ptr(), k_ptr, v_ptr, tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
                 *workspace, b, hk, g, d, nbl, bs, n_split, float(sm_scale), stream,

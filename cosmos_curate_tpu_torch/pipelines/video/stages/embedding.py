@@ -65,7 +65,8 @@ class ClipEmbeddingStage(Stage[SplitPipeTask, SplitPipeTask]):
 
     @property
     def resources(self) -> Resources:
-        return Resources(cpus=1.0, gpus=1.0)
+        # a stage on the CPU claims no card from the runner's budget
+        return Resources(cpus=1.0, gpus=1.0 if self._model.device.type == "cuda" else 0.0)
 
     @property
     def model_name(self) -> str:

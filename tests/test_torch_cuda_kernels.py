@@ -234,6 +234,68 @@ def test_paged_decode_on_two_streams(dev):
             assert not split_counters(dev, b * hk).any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("own_stream", [False, True])
+def test_decode_from_two_host_threads(dev, own_stream):
+    """Two host threads (two pipeline stages sharing the card) issue split
+    decodes, paged and contiguous, at once: on the default stream, and each
+    on a stream of its own. The merge-counter registry starts empty, so
+    both threads race to create its entries. Every output equals the same
+    call run serially, bit for bit."""
+    import sys
+    import threading
+
+    import cosmos_curate_tpu_torch.ops.paged_attention as paged_mod
+
+    rng = np.random.default_rng(15)
+    b, hk, g, d, bs, nbl = 4, 8, 2, 64, 16, 64
+    n_blocks = b * nbl + 1
+    to = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    pk, pv = to(1, n_blocks, bs, hk, d), to(1, n_blocks, bs, hk, d)
+    k, v = to(b, nbl * bs, hk, d), to(b, nbl * bs, hk, d)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, n_blocks)).reshape(b, nbl).astype(np.int32)).to(dev)
+    qs = [to(b, hk, g, d) for _ in range(2)]
+    kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32, device=dev)
+
+    def calls(i):
+        if i == 0:
+            return paged_attention(qs[0][:, None], pk, pv, tables, kv_len - 1, kv_len)[:, 0]
+        return decode_attention(qs[1], k, v, kv_len)
+
+    want = [calls(i) for i in range(2)]
+    torch.cuda.synchronize()
+    paged_mod._split_counters.clear()
+    outs: list[list] = [[], []]
+    errors = []
+    start = threading.Barrier(2)
+
+    def worker(i):
+        try:
+            stream = torch.cuda.Stream(dev) if own_stream else torch.cuda.current_stream(dev)
+            start.wait(timeout=30)
+            with torch.cuda.stream(stream):
+                for _ in range(50):
+                    outs[i].append(calls(i))
+                stream.synchronize()
+        except Exception as e:  # reported on the main thread below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert len(outs[i]) == 50 and all(torch.equal(out, want[i]) for out in outs[i])
+
+
 def _prefill_check(dev, seed, *, t, s, hk, g, d, write, kv_len):
     rng = np.random.default_rng(seed)
     b = len(write)

@@ -286,4 +286,4 @@ def test_stage_refuses_what_is_not_ported():
         tstage.ClipEmbeddingStage(variant="bogus", device="cpu")
     stage = tstage.ClipEmbeddingStage(variant="video-256", device="cpu")
     assert stage.model.embedding_dim == 256 and stage.model_name == "video-embed-256-tpu"
-    assert stage.resources.gpus == 1.0 and stage.batch_size == 8
+    assert stage.resources.gpus == 0.0 and stage.batch_size == 8  # on the CPU: no card claimed
