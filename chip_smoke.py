@@ -91,6 +91,25 @@ and prints one JSON line per phase:
    clips and windows, embeddings within ``EMBED_BOUND``, identical
    captions reported).
 
+10. split: the whole main path through the port's own ``run_split``, from
+   raw mp4 files to the output layout: bench.py's corpus (64 videos of 4 s
+   at 1280x720, mp4v, made by this script's copy of bench.py's generator;
+   its build is timed and kept out of the wall). Run A is bench.py's
+   headline row (1 s fixed-stride clips, 8 fps frames at 224x224,
+   ``embedding_model="video"`` at ``VIDEO_EMBED_BASE``) through the default
+   runner: wall, clips/s, ``summary.json``'s video hours per day per chip,
+   each stage's busy seconds and batches (``process_data`` wrapped), the
+   codec the clips were written with and the native H.264 writer's status,
+   flash launches, the device's peak memory and the host's peak RSS; it
+   asserts 256 clips cut, transcoded, embedded and written (256 metas, 256
+   parquet rows of finite unit-norm embeddings). Run B captions the first 4
+   videos (``captioning=True``, ``caption_model="base"``): every window of
+   every meta captioned, and paged decode, paged prefill, prefill and
+   flash launched. Then the first 2 videos through ``SequentialRunner`` and
+   the default runner (the same clip uuids and output files, embeddings
+   within ``EMBED_BOUND``), and a second ``run_split`` on run A's output,
+   which must discover no video.
+
 Every path's run zeroes the launch counters just before it and reads them
 just after; each kernel must have launched on the path that uses it
 (``KERNEL_PATH``).
@@ -103,6 +122,8 @@ non-zero and prints no result. Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import gc
 import json
 import os
@@ -111,8 +132,11 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -161,6 +185,20 @@ PIPELINE_KERNELS = ("paged_decode", "paged_prefill", "prefill", "flash")
 PIPELINE_TASKS = 48
 PIPELINE_SEQUENTIAL_TASKS = 2
 EFFICIENCY_TASKS = 8  # 32 windows: through the engine alone, then CaptionStage
+# split phase: bench.py's corpus (bench.py:41-47, :84-103) and headline
+# settings (bench.py:217-227), built by this script's own copy of its
+# generator: 64 videos of 2 scenes x 48 frames at 24 fps, 1280x720, mp4v,
+# seeded per video with 1000 + i; 1 s fixed-stride clips, 8 fps frames at
+# 224^2, embedding_model="video". Run B captions the first 4 videos at
+# VLM_BASE; the runner agreement takes the first 2
+SPLIT_VIDEOS = 64
+SPLIT_SCENE_FRAMES = 48
+SPLIT_NUM_SCENES = 2
+SPLIT_FRAME_W, SPLIT_FRAME_H = 1280, 720
+SPLIT_CLIPS = SPLIT_VIDEOS * SPLIT_NUM_SCENES * SPLIT_SCENE_FRAMES // 24
+SPLIT_CAPTION_VIDEOS = 4
+SPLIT_AGREEMENT_VIDEOS = 2
+SPLIT_RSS_SAMPLE_S = 0.05
 # modules and FFmpeg libraries the port's later slices may need (split
 # assembly decodes and encodes through cv2 and a native H.264 writer over
 # libavcodec, and writes parquet with pyarrow); the device phase reports
@@ -173,12 +211,18 @@ EMBED_CALLS = 8
 EMBED_CLIPS_PER_TASK = 4
 # flash shapes timed: ViT-B/16 at 224^2 over the embed phase's 16-clip x
 # 8-frame dispatch (the row of the kernels line) and over 32 clips, the
-# base pooler over 16 clips, and a causal ViT-B/16-at-768^2 length
+# base pooler over 16 clips, and a causal ViT-B/16-at-768^2 length; then
+# the split phase's embed dispatches, whose calls hold 1 or 2 tasks of 4
+# clips (padded to 4 and 8 clips; 3 or 4 tasks pad to the 16-clip cases)
 FLASH_CASES = (
     ("vit_b16_224", (128, 12, 197, 64), False),
     ("vit_b16_224_32_clips", (256, 12, 197, 64), False),
     ("pooler", (16, 8, 9, 64), False),
     ("causal_2305", (1, 16, 2305, 64), True),
+    ("vit_b16_224_4_clips", (32, 12, 197, 64), False),
+    ("vit_b16_224_8_clips", (64, 12, 197, 64), False),
+    ("pooler_4_clips", (4, 8, 9, 64), False),
+    ("pooler_8_clips", (8, 8, 9, 64), False),
 )
 
 
@@ -300,10 +344,60 @@ def sdpa_inputs(q, k, v, write, kv_len):
     return qs, ks, vs, mask
 
 
+def check_flash(timer, bf16, shape: tuple, causal: bool, label: str) -> dict:
+    """The flash wrapper against its fp32 plain version at one [B, H, S, D]
+    shape (asserted within BOUND), and the kernel's, the plain version's and
+    SDPA's times on the same inputs beside the bound."""
+    from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = bf16(*shape), bf16(*shape), bf16(*shape)
+
+    def run():
+        return flash_attention(q, k, v, causal=causal)
+
+    got = run()
+    want = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    assert err <= BOUND, f"flash {label}: max abs err {err} > {BOUND}"
+    fb, fh, fs, fd = shape
+    pairs = fs * (fs + 1) // 2 if causal else fs * fs
+    bms, by = bound_ms(4 * 2 * fb * fh * fs * fd, 4.0 * fd * fb * fh * pairs)
+    return with_shares(dict(
+        shape=dict(B=fb, H=fh, S=fs, D=fd, causal=causal),
+        max_abs_err=err,
+        kernel_ms=timer(run),
+        plain_ms=timer(lambda: flash_attention_plain(q, k, v, causal=causal)),
+        bound_ms=bms,
+        bound_by=by,
+        library_ms=timer(lambda: sdpa(q, k, v, is_causal=causal)),
+    ))
+
+
+@contextlib.contextmanager
+def recorded_flash_shapes(shapes: set):
+    """Wrap the models' flash call for the duration: every call adds its
+    (q shape, causal) to ``shapes`` and goes on to the wrapper, which counts
+    its own launches as before."""
+    import cosmos_curate_tpu_torch.models.layers as layers
+
+    saved = layers.flash_attention
+
+    def attn(q, k, v, *, causal=False):
+        shapes.add((tuple(q.shape), causal))
+        return saved(q, k, v, causal=causal)
+
+    layers.flash_attention = attn
+    try:
+        yield
+    finally:
+        layers.flash_attention = saved
+
+
 def check_kernels(timer, dev) -> dict:
     from cosmos_curate_tpu_torch.ops import kernels
     from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
-    from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     from cosmos_curate_tpu_torch.ops.paged_attention import (
         decode_split_count,
         decode_split_plain,
@@ -452,31 +546,7 @@ def check_kernels(timer, dev) -> dict:
         ))
     results["decode"] = {**decode["lane_1024"], "cases": decode}
 
-    flash = {}
-    for label, shape, causal in FLASH_CASES:
-        q, k, v = bf16(*shape), bf16(*shape), bf16(*shape)
-
-        def run():
-            return flash_attention(q, k, v, causal=causal)
-
-        got = run()
-        want = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
-        torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
-        fb, fh, fs, fd = shape
-        pairs = fs * (fs + 1) // 2 if causal else fs * fs
-        bms, by = bound_ms(4 * 2 * fb * fh * fs * fd, 4.0 * fd * fb * fh * pairs)
-        flash[label] = dict(
-            shape=dict(B=fb, H=fh, S=fs, D=fd, causal=causal),
-            max_abs_err=err,
-            kernel_ms=timer(run),
-            plain_ms=timer(lambda: flash_attention_plain(q, k, v, causal=causal)),
-            bound_ms=bms,
-            bound_by=by,
-            library_ms=timer(lambda: sdpa(q, k, v, is_causal=causal)),
-        )
-        assert err <= BOUND, f"flash {label}: max abs err {err} > {BOUND}"
-    flash = {label: with_shares(r) for label, r in flash.items()}
+    flash = {label: check_flash(timer, bf16, shape, causal, label) for label, shape, causal in FLASH_CASES}
     results = {name: r if "cases" in r else with_shares(r) for name, r in results.items()}
     results["flash"] = {**flash[FLASH_CASES[0][0]], "cases": flash}
     assert set(results) == set(kernels())
@@ -1361,6 +1431,313 @@ def drive_pipeline(dev) -> dict:
     )
 
 
+def scene_frames(rng, scene_idx: int):
+    """One scene of bench.py's corpus (bench.py:57-81): a moving diagonal
+    gradient over a per-scene noise texture, plus a tracked high-contrast
+    block; deterministic per (video, scene)."""
+    import cv2
+
+    c0 = rng.integers(0, 255, 3).astype(np.float32)
+    c1 = rng.integers(0, 255, 3).astype(np.float32)
+    angle = rng.uniform(0, 2 * np.pi)
+    speed = rng.uniform(2.0, 8.0)  # gradient pixels/frame
+    noise = rng.integers(0, 60, (SPLIT_FRAME_H // 4, SPLIT_FRAME_W // 4, 3), dtype=np.uint8)
+    noise = cv2.resize(noise, (SPLIT_FRAME_W, SPLIT_FRAME_H), interpolation=cv2.INTER_LINEAR)
+    noise_f = noise.astype(np.float32)
+    yy, xx = np.mgrid[0:SPLIT_FRAME_H, 0:SPLIT_FRAME_W]
+    proj = (np.cos(angle) * xx + np.sin(angle) * yy).astype(np.float32)
+    span = float(proj.max() - proj.min()) or 1.0
+    bx = int(rng.integers(0, SPLIT_FRAME_W - 160))
+    bvx = int(rng.integers(3, 11)) * (1 if scene_idx % 2 == 0 else -1)
+    for f in range(SPLIT_SCENE_FRAMES):
+        phase = ((proj + f * speed) % span) / span
+        frame = (c0[None, None] * (1 - phase[..., None]) + c1[None, None] * phase[..., None])
+        frame = np.clip(frame + noise_f - 30.0, 0, 255).astype(np.uint8)
+        x = (bx + f * bvx) % (SPLIT_FRAME_W - 160)
+        frame[280:440, x : x + 160] = (255 - c0).astype(np.uint8)
+        yield frame
+
+
+def write_corpus_video(vids: Path, i: int) -> Path:
+    """Video ``i`` of bench.py's corpus (bench.py:84-103): its own rng,
+    seeded by its index."""
+    import cv2
+
+    rng = np.random.default_rng(1000 + i)
+    path = vids / f"bench_{i}.mp4"
+    w = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 24.0, (SPLIT_FRAME_W, SPLIT_FRAME_H))
+    assert w.isOpened(), "cv2 cannot write mp4v here"
+    for scene in range(SPLIT_NUM_SCENES):
+        for frame in scene_frames(rng, scene):
+            w.write(frame)
+    w.release()
+    return path
+
+
+def make_corpus(vids: Path) -> list[Path]:
+    """bench.py's corpus, one spawned worker process per core: the frame
+    generator runs numpy on the interpreter's thread, so threads would
+    share one lock."""
+    import multiprocessing
+
+    vids.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=os.cpu_count() or 1, mp_context=ctx) as pool:
+        return list(pool.map(write_corpus_video, [vids] * SPLIT_VIDEOS, range(SPLIT_VIDEOS)))
+
+
+@contextlib.contextmanager
+def timed_stages(classes, spans: list):
+    """Wrap each stage class's ``process_data`` for the duration: every call
+    appends (stage, host thread, tasks, clips, start, end) to ``spans``."""
+    lock = threading.Lock()
+    saved = {cls: cls.__dict__["process_data"] for cls in classes}
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def process_data(self, tasks):
+            clips = sum(len(t.video.clips) for t in tasks)
+            t0 = time.monotonic()
+            try:
+                return fn(self, tasks)
+            finally:
+                with lock:
+                    spans.append((self.name, threading.current_thread().name, len(tasks), clips, t0,
+                                  time.monotonic()))
+        return process_data
+
+    for cls, fn in saved.items():
+        cls.process_data = wrap(fn)
+    try:
+        yield
+    finally:
+        for cls, fn in saved.items():
+            cls.process_data = fn
+
+
+@contextlib.contextmanager
+def peak_rss(out: dict):
+    """The host's resident set size at the block's start (``out["start"]``)
+    and its peak over the block (``out["bytes"]``), sampled every
+    SPLIT_RSS_SAMPLE_S from /proc/self/status."""
+    stop = threading.Event()
+
+    def rss() -> int:
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+
+    def sample() -> None:
+        while not stop.is_set():
+            out["bytes"] = max(out.get("bytes", 0), rss())
+            stop.wait(SPLIT_RSS_SAMPLE_S)
+
+    out["start"] = out["bytes"] = rss()
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join(timeout=5)
+
+
+def drive_split(dev, timer) -> dict:
+    """The whole main path through ``run_split``, on bench.py's corpus.
+    Every flash shape the runs give the wrapper is one the kernels phase
+    checked and timed (run A's embed dispatches must be), or is checked and
+    timed here."""
+    import pyarrow.parquet as pq
+
+    from cosmos_curate_tpu_torch.core.pipelined_runner import PipelinedRunner
+    from cosmos_curate_tpu_torch.core.runner import RUNNER_ENV, SequentialRunner, default_runner
+    from cosmos_curate_tpu_torch.models.embedder import VIDEO_EMBED_VARIANTS
+    from cosmos_curate_tpu_torch.models.vlm import SharedCaptionEngine
+    from cosmos_curate_tpu_torch.ops import kernels
+    from cosmos_curate_tpu_torch.pipelines.video import split
+    from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_split_tasks
+    from cosmos_curate_tpu_torch.pipelines.video.stages.writer import ClipWriterStage
+    from cosmos_curate_tpu_torch.video.h264 import h264_status
+
+    stage_classes = (
+        split.VideoDownloadStage, split.FixedStrideExtractorStage, split.ClipTranscodingStage,
+        split.ClipFrameExtractionStage, split.ClipEmbeddingStage, split.CaptionPrepStage, split.CaptionStage,
+        ClipWriterStage,
+    )
+    cfg, model = VIDEO_EMBED_VARIANTS["video"]
+    checked_shapes = {(shape, causal) for _, shape, causal in FLASH_CASES}
+    os.environ.pop(RUNNER_ENV, None)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_split-"))
+    try:
+        t0 = time.monotonic()
+        corpus = make_corpus(root / "videos")
+        corpus_s = time.monotonic() - t0
+
+        def subset(name: str, n: int) -> Path:
+            d = root / name
+            d.mkdir()
+            for path in corpus[:n]:
+                (d / path.name).symlink_to(path)
+            return d
+
+        def args(videos: Path, out: str, **kw) -> split.SplitPipelineArgs:
+            return split.SplitPipelineArgs(
+                input_path=str(videos), output_path=str(root / out), fixed_stride_len_s=1.0, min_clip_len_s=0.5,
+                extract_fps=(8.0,), extract_resize_hw=(224, 224), embedding_model="video", **kw)
+
+        def run(a: split.SplitPipelineArgs, runner) -> dict:
+            """One run_split with every launch counter zeroed just before it:
+            summary, wall, launches, stage spans, flash shapes, peaks."""
+            ks = kernels()
+            for k in ks.values():
+                k.launches = 0
+            spans: list = []
+            rss: dict = {}
+            shapes: set = set()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with timed_stages(stage_classes, spans), peak_rss(rss), recorded_flash_shapes(shapes):
+                t0 = time.monotonic()
+                summary = split.run_split(a, runner=runner)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+            return dict(summary=summary, wall=wall, launches={name: k.launches for name, k in ks.items()},
+                        spans=spans, flash_shapes=shapes, peak_device=torch.cuda.max_memory_allocated(dev),
+                        peak_rss=rss["bytes"], start_rss=rss["start"])
+
+        def outputs(out: Path) -> tuple[dict, dict, set]:
+            """(uuid -> meta, uuid -> embedding, output file names)."""
+            metas = {p.stem: json.loads(p.read_text()) for p in (out / "metas" / "v0").glob("*.json")}
+            embs = {}
+            for path in (out / "embeddings" / model).glob("*.parquet"):
+                table = pq.read_table(path).to_pydict()
+                for uuid, emb in zip(table["clip_uuid"], table["embedding"], strict=True):
+                    assert uuid not in embs, f"{uuid} embedded twice"
+                    embs[uuid] = np.asarray(emb, np.float32)
+            files = {str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()}
+            return metas, embs, files
+
+        def stage_busy(spans: list, wall: float) -> dict:
+            by = collections.defaultdict(lambda: {"calls": 0, "tasks": 0, "clips": 0, "busy_s": 0.0, "threads": set()})
+            for name, thread, n_tasks, n_clips, t0, t1 in spans:
+                rec = by[name]
+                rec["calls"] += 1
+                rec["tasks"] += n_tasks
+                rec["clips"] += n_clips
+                rec["busy_s"] += t1 - t0
+                rec["threads"].add(thread)
+            return {name: {**rec, "threads": sorted(rec["threads"]), "busy_share": rec["busy_s"] / wall,
+                           "busy_ms_per_call": 1e3 * rec["busy_s"] / rec["calls"]} for name, rec in by.items()}
+
+        def check_embeddings(embs: dict, label: str) -> None:
+            for uuid, emb in embs.items():
+                assert emb.shape == (cfg.output_dim,) and np.isfinite(emb).all(), f"{label}: embedding of {uuid}"
+                assert abs(float(np.linalg.norm(emb)) - 1.0) < 1e-2, f"{label}: embedding of {uuid} is not unit-norm"
+
+        # run A: bench.py's headline row through the default runner
+        runner = default_runner()
+        assert isinstance(runner, PipelinedRunner), f"default runner is {type(runner).__name__}"
+        a = run(args(root / "videos", "out_a"), runner)
+        summary = a["summary"]
+        for key in ("num_clips", "num_transcoded", "num_with_embeddings"):
+            assert summary[key] == SPLIT_CLIPS, f"run A: {key} = {summary[key]}, not {SPLIT_CLIPS}"
+        assert summary["num_videos"] == SPLIT_VIDEOS and summary["num_errors"] == 0, summary
+        assert runner.dlq is None or runner.dlq.recorded == 0, "run A dropped a batch"
+        metas, embs, files = outputs(root / "out_a")
+        assert len(metas) == SPLIT_CLIPS, f"run A: {len(metas)} metas"
+        assert len(embs) == SPLIT_CLIPS and set(embs) == set(metas), f"run A: {len(embs)} parquet rows"
+        assert sum(f.startswith("clips/") for f in files) == SPLIT_CLIPS, "run A: clip files"
+        assert sum(f.startswith("processed_videos/") for f in files) == SPLIT_VIDEOS, "run A: resume records"
+        check_embeddings(embs, "run A")
+        codecs = sorted({m["codec"] for m in metas.values()})
+        assert len(codecs) == 1 and codecs[0], f"run A: codecs {codecs}"
+        assert a["launches"]["flash"] > 0, "run A: flash was not launched"
+        # the kernels phase checked and timed flash at every embed dispatch
+        off_cases = a["flash_shapes"] - checked_shapes
+        assert not off_cases, f"run A: flash cases off the split path: {sorted(off_cases)}"
+        run_a = dict(
+            videos=SPLIT_VIDEOS, clips=summary["num_clips"], num_transcoded=summary["num_transcoded"],
+            num_with_embeddings=summary["num_with_embeddings"], metas=len(metas), parquet_rows=len(embs),
+            wall_s=a["wall"], clips_per_s=summary["num_clips"] / a["wall"],
+            pipeline_run_time_s=summary["pipeline_run_time_s"],
+            video_hours_per_day_per_chip=summary["video_hours_per_day_per_chip"],
+            codec=codecs[0], native_h264=h264_status(), stages=stage_busy(a["spans"], a["wall"]),
+            overlap_frac=runner.overlap_frac, launches=a["launches"],
+            peak_device_memory_bytes=a["peak_device"], peak_host_rss_bytes=a["peak_rss"],
+            host_rss_at_start_bytes=a["start_rss"],
+        )
+
+        # resume: a second run_split on run A's output finds every video done
+        assert discover_split_tasks(str(root / "videos"), str(root / "out_a")) == [], "resume: videos rediscovered"
+        again = run(args(root / "videos", "out_a"), default_runner())
+        assert again["summary"]["num_videos"] == 0, f"resume: {again['summary']['num_videos']} videos rerun"
+
+        # run B: split-annotate on the first videos, captions at VLM_BASE
+        SharedCaptionEngine.reset()
+        try:
+            b = run(args(subset("videos_b", SPLIT_CAPTION_VIDEOS), "out_b", captioning=True, caption_model="base"),
+                    default_runner())
+        finally:
+            SharedCaptionEngine.reset()
+        b_metas, b_embs, _ = outputs(root / "out_b")
+        b_clips = SPLIT_CAPTION_VIDEOS * SPLIT_CLIPS // SPLIT_VIDEOS
+        windows = [w for m in b_metas.values() for w in m["windows"]]
+        assert len(b_metas) == b_clips and len(b_embs) == b_clips, f"run B: {len(b_metas)} metas"
+        assert all(m["windows"] for m in b_metas.values()), "run B: a clip has no caption window"
+        assert all(w["captions"].get("default") for w in windows), "run B: a window has no caption"
+        assert b["summary"]["num_with_captions"] == b_clips, b["summary"]
+        check_embeddings(b_embs, "run B")
+        for name in PIPELINE_KERNELS:
+            assert b["launches"][name] > 0, f"run B: kernel {name} was not launched"
+        run_b = dict(videos=SPLIT_CAPTION_VIDEOS, clips=len(b_metas), windows_captioned=len(windows),
+                     wall_s=b["wall"], clips_per_s=len(b_metas) / b["wall"],
+                     video_hours_per_day_per_chip=b["summary"]["video_hours_per_day_per_chip"],
+                     stages=stage_busy(b["spans"], b["wall"]), launches=b["launches"],
+                     peak_device_memory_bytes=b["peak_device"], peak_host_rss_bytes=b["peak_rss"],
+                     host_rss_at_start_bytes=b["start_rss"])
+
+        # the two runners on the same videos
+        videos_c = subset("videos_c", SPLIT_AGREEMENT_VIDEOS)
+        seq = run(args(videos_c, "out_seq"), SequentialRunner())
+        piped = run(args(videos_c, "out_piped"), default_runner())
+        s_metas, s_embs, s_files = outputs(root / "out_seq")
+        p_metas, p_embs, p_files = outputs(root / "out_piped")
+        assert set(s_metas) == set(p_metas) and len(s_metas) == SPLIT_AGREEMENT_VIDEOS * 4, "runners: clip uuids"
+        assert {f for f in s_files if f != "summary.json"} == {f for f in p_files if f != "summary.json"}, \
+            "runners: output files"
+        emb_diff = max(float(np.abs(s_embs[u] - p_embs[u]).max()) for u in s_embs)
+        assert emb_diff <= EMBED_BOUND, f"runners: embeddings differ by {emb_diff} > {EMBED_BOUND}"
+        for key in ("num_clips", "num_transcoded", "num_with_embeddings"):
+            assert seq["summary"][key] == piped["summary"][key] == SPLIT_AGREEMENT_VIDEOS * 4, key
+
+        # flash at every shape of the phase the kernels phase did not check
+        # (the caption ViT tower's batches of run B), against its plain version
+        rng = np.random.default_rng(SEED + 7)
+
+        def bf16(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+        ran = set().union(*(r["flash_shapes"] for r in (a, again, b, seq, piped)))
+        flash_here = {f"{'x'.join(map(str, shape))}{'_causal' if causal else ''}": check_flash(
+            timer, bf16, shape, causal, "split") for shape, causal in sorted(ran - checked_shapes)}
+        return dict(
+            cpu_count=os.cpu_count(), corpus={"videos": SPLIT_VIDEOS, "size": [SPLIT_FRAME_W, SPLIT_FRAME_H],
+                                              "seconds": SPLIT_NUM_SCENES * SPLIT_SCENE_FRAMES / 24,
+                                              "build_s": corpus_s},
+            run_a=run_a, run_b=run_b,
+            runners={"clips": len(s_metas), "same_clip_uuids": True, "same_output_files": True,
+                     "max_abs_embedding_diff": emb_diff, "embed_bound": EMBED_BOUND,
+                     "sequential_wall_s": seq["wall"], "pipelined_wall_s": piped["wall"]},
+            resume={"videos_discovered": again["summary"]["num_videos"], "wall_s": again["wall"]},
+            flash_shapes={"run_a": [list(shape) for shape, _ in sorted(a["flash_shapes"])],
+                          "run_b": [list(shape) for shape, _ in sorted(b["flash_shapes"])],
+                          "checked_here": flash_here},
+            split_launches={name: run_a["launches"][name] + run_b["launches"][name] for name in run_a["launches"]},
+        )
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the GPU", file=sys.stderr)
@@ -1431,6 +1808,9 @@ def main() -> int:
     for name in PIPELINE_KERNELS:
         assert pipeline["launches"][name] > 0, f"kernel {name} was not launched on the pipeline path"
 
+    split_run = drive_split(dev, timer)
+    emit({"phase": "split", **split_run})
+
     launches = {"embed": embed["launches"], "slice": record["launches"], "gather": gather["launches"]}
     for path, counts in launches.items():
         for name, n in counts.items():
@@ -1445,7 +1825,7 @@ def main() -> int:
             launches=launches[KERNEL_PATH[name]][name], max_abs_err=c["max_abs_err"], ms=c["kernel_ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], bound_share=c["bound_share"], vs_library=c["vs_library"],
-            pipeline_launches=pipeline["launches"][name],
+            pipeline_launches=pipeline["launches"][name], split_launches=split_run["split_launches"][name],
         ))
     emit({"kernels": rows})
     print(card, flush=True)

@@ -1,7 +1,13 @@
 """The video-curation data model: the payload flowing through every stage
-(port of ``cosmos_curate_tpu/data/model.py``, the fields the embed and
-caption stages read and write; each later stage's port adds the fields it
-uses).
+(port of ``cosmos_curate_tpu/data/model.py``, the fields the split,
+embed and caption stages read and write; each later stage's port adds the
+fields it uses).
+
+Not ported with their stages: the motion, aesthetic, text and semantic
+scores, tracks, previews and T5 embeddings (ROADMAP queue A item 8), and
+``SplitPipeTask.aux_videos`` / ``Video.camera`` of multicam sessions
+(item 11). The writer's meta still writes their keys with the reference's
+empty values.
 
 - decoded frames are numpy ``uint8 [T, H, W, 3]`` arrays keyed by a
   ``FrameExtractionSignature``, so a CPU prep stage extracts once and many
@@ -20,6 +26,17 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from cosmos_curate_tpu_torch.core.tasks import PipelineTask, estimate_major_size
+
+_UUID_NAMESPACE = uuid.UUID("8c5aa64e-25f1-44f3-b9a2-3cfb0c1a75d1")
+
+
+def deterministic_id(*parts: str) -> uuid.UUID:
+    """Stable uuid5 chain over string parts, so re-runs produce identical
+    clip ids and resume can dedupe."""
+    u = _UUID_NAMESPACE
+    for p in parts:
+        u = uuid.uuid5(u, p)
+    return u
 
 
 @dataclass(frozen=True)
@@ -109,16 +126,26 @@ class Clip:
     uuid: uuid.UUID = field(default_factory=uuid.uuid4)
     source_video: str = ""
     span: tuple[float, float] = (0.0, 0.0)  # seconds in source
+    encoded_data: bytes | None = None  # transcoded mp4
+    encoding_codec: str = ""
+    # recorded by the writer before encoded_data is freed
+    encoded_byte_size: int = 0
+    encoded_sha256: str = ""
+    encoded_url: str = ""
     # extraction-signature key -> uint8 [T, H, W, 3]
     extracted_frames: dict[str, np.ndarray] = field(default_factory=dict)
     # model name -> float32 embedding
     embeddings: dict[str, np.ndarray] = field(default_factory=dict)
     windows: list[Window] = field(default_factory=list)
+    filtered_by: str = ""  # which filter removed this clip ("" = kept)
     errors: dict[str, str] = field(default_factory=dict)
 
     @property
     def duration_s(self) -> float:
         return self.span[1] - self.span[0]
+
+    def release_frames(self) -> None:
+        self.extracted_frames.clear()
 
     def get_major_size(self) -> int:
         return estimate_major_size(self)
@@ -129,9 +156,17 @@ class Video:
     """A source video being split."""
 
     path: str = ""
+    raw_bytes: bytes | None = None
     metadata: VideoMetadata = field(default_factory=VideoMetadata)
     clips: list[Clip] = field(default_factory=list)
+    filtered_clips: list[Clip] = field(default_factory=list)
+    num_total_clips: int = 0
     num_clip_chunks: int = 1
+    clip_chunk_index: int = 0
+    errors: dict[str, str] = field(default_factory=dict)
+
+    def release_raw(self) -> None:
+        self.raw_bytes = None
 
 
 @dataclass
@@ -142,6 +177,11 @@ class SplitPipeTask(PipelineTask):
     video: Video = field(default_factory=Video)
     stage_perf: dict[str, float] = field(default_factory=dict)
     stats: ClipStats | None = None
+
+    @property
+    def videos(self) -> list[Video]:
+        """Every camera of the task; one until multicam is ported."""
+        return [self.video]
 
     @property
     def weight(self) -> float:

@@ -1,6 +1,6 @@
 """Model-weights registry: where a model's checkpoint lives and how it is
-loaded (port of ``cosmos_curate_tpu/models/registry.py``, the part the
-caption stage calls).
+loaded (port of ``cosmos_curate_tpu/models/registry.py``, the parts the
+caption stage and the split writer call).
 
 A model's weights are ``params.msgpack`` under
 ``$CURATE_MODEL_WEIGHTS_DIR/<model-id>/`` (the staging directory) or under
@@ -19,6 +19,7 @@ Not ported: pulling checkpoints or tokenizer files from remote storage
 
 from __future__ import annotations
 
+import hashlib
 import os
 import tempfile
 from pathlib import Path
@@ -57,6 +58,34 @@ def find_model_file(model_id: str, filename: str) -> Path | None:
 
 def find_checkpoint(model_id: str) -> Path | None:
     return find_model_file(model_id, "params.msgpack")
+
+
+_PROVENANCE_CACHE: dict[tuple[str, int], str] = {}
+
+
+def weights_provenance(model_id: str) -> str:
+    """Where ``model_id``'s weights would come from right now:
+    ``"checkpoint:<sha256-12>"`` when a checkpoint is staged or committed,
+    ``"random"`` otherwise (the seeded-init fallback ``load_params`` warns
+    about). Only positive results are cached (keyed by path + mtime), so
+    weights staged later in the process are picked up."""
+    ckpt = find_checkpoint(model_id)
+    if ckpt is None:
+        return "random"
+    try:
+        key = (str(ckpt), ckpt.stat().st_mtime_ns)
+    except OSError:
+        return "random"
+    cached = _PROVENANCE_CACHE.get(key)
+    if cached is not None:
+        return cached
+    digest = hashlib.sha256()
+    with ckpt.open("rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 22), b""):
+            digest.update(chunk)
+    prov = f"checkpoint:{digest.hexdigest()[:12]}"
+    _PROVENANCE_CACHE[key] = prov
+    return prov
 
 
 # flax.serialization's msgpack extension codes of arrays and numpy scalars

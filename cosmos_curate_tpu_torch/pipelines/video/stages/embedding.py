@@ -27,9 +27,9 @@ EMBED_STAGE_TASK_BATCH = 8
 
 # variants of the JAX stage that are not ported yet -> their ROADMAP item
 _NOT_PORTED = {
-    "clip": "ROADMAP queue A item 6: the canonical filters (models/clip.py)",
-    "iv2": "ROADMAP queue A item 6: the canonical filters (models/internvideo2.py)",
-    "iv2-tiny-test": "ROADMAP queue A item 6: the canonical filters (models/internvideo2.py)",
+    "clip": "ROADMAP queue A item 5: the rest of the embed leg (models/clip.py)",
+    "iv2": "ROADMAP queue A item 5: the rest of the embed leg (models/internvideo2.py)",
+    "iv2-tiny-test": "ROADMAP queue A item 5: the rest of the embed leg (models/internvideo2.py)",
 }
 
 

@@ -1,0 +1,187 @@
+"""Clip writer stage: persists pipeline output in the curated layout (port
+of ``cosmos_curate_tpu/pipelines/video/stages/writer.py``):
+
+    <output>/clips/<clip-uuid>.mp4                       transcoded clip
+    <output>/metas/v0/<clip-uuid>.json                   clip metadata + captions
+    <output>/embeddings/<model>/<video-id>-<chunk>.parquet   clip embeddings
+    <output>/processed_videos/<video-id>/chunk-<i>.json  resume record
+
+Writing the resume record **last** is the crash-safety contract: a video is
+only skipped on re-run if all its chunks finished writing.
+
+A clip meta carries every key of the reference's. The keys of stages not
+ported yet (motion, aesthetic, text and semantic scores, dedup, tracks, event
+captions, enhanced captions, T5 embeddings) hold the reference's empty
+values, so the file format stays the same.
+
+Not ported: the corpus-index fragments the reference appends when
+``index_path`` is set (a non-empty ``index_path`` raises; ROADMAP queue A
+item 8, dedup), and the secondary cameras of multicam sessions (item 11).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from collections import defaultdict
+
+import numpy as np
+
+from cosmos_curate_tpu_torch.core.stage import Resources, Stage
+from cosmos_curate_tpu_torch.data.model import Clip, ClipStats, SplitPipeTask
+from cosmos_curate_tpu_torch.models.registry import weights_provenance
+from cosmos_curate_tpu_torch.storage.client import write_bytes
+from cosmos_curate_tpu_torch.storage.writers import write_json, write_parquet
+
+INDEX_NOT_PORTED = "the corpus index and dedup are not ported yet (ROADMAP queue A item 8)"
+
+
+def video_record_id(path: str) -> str:
+    return hashlib.sha256(path.encode()).hexdigest()[:24]
+
+
+def _clip_meta(clip: Clip, provenance: dict | None = None) -> dict:
+    meta = {
+        "uuid": str(clip.uuid),
+        "source_video": clip.source_video,
+        "span_start": clip.span[0],
+        "span_end": clip.span[1],
+        "duration_s": clip.duration_s,
+        "codec": clip.encoding_codec,
+        "motion_score_global": None,
+        "motion_score_per_patch_min": None,
+        "aesthetic_score": None,
+        "artificial_text_score": None,
+        "semantic_pass": None,
+        "filtered_by": clip.filtered_by,
+        "duplicate_of": "",
+        "embedding_models": sorted(clip.embeddings),
+        "tracks": [],
+        "event_captions": [],
+        "windows": [
+            {
+                "start_frame": w.start_frame,
+                "end_frame": w.end_frame,
+                "captions": w.caption,
+                "enhanced_captions": {},
+                "has_t5_embedding": False,
+            }
+            for w in clip.windows
+        ],
+        "errors": clip.errors,
+    }
+    if provenance:
+        # per-model weights provenance: "checkpoint:<sha256-12>" or "random"
+        meta["weights_provenance"] = {m: provenance[m] for m in sorted(clip.embeddings) if m in provenance}
+    return meta
+
+
+class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
+    def __init__(self, output_path: str, *, index_path: str = "") -> None:
+        if index_path:
+            raise NotImplementedError(f"index_path={index_path!r}: {INDEX_NOT_PORTED}")
+        self.output_path = output_path.rstrip("/")
+        # model -> weights_provenance, memoized per stage instance
+        self._provenance_memo: dict[str, str] = {}
+
+    @property
+    def resources(self) -> Resources:
+        return Resources(cpus=0.5)
+
+    def process_data(self, tasks: list[SplitPipeTask]) -> list[SplitPipeTask]:
+        for task in tasks:
+            video = task.video
+            stats = ClipStats()
+            embedding_rows: dict[str, list[tuple[str, np.ndarray]]] = defaultdict(list)
+            for clip in video.clips:
+                self._write_clip(clip, stats, embedding_rows)
+            for clip in video.filtered_clips:
+                stats.num_clips += 1
+                self._count_filtered(clip, stats)
+                write_json(f"{self.output_path}/metas/filtered/{clip.uuid}.json",
+                           _clip_meta(clip, self._model_provenance(clip)))
+            chunk_tag = f"{video_record_id(video.path)}-{video.clip_chunk_index:05d}"
+            for model, rows in embedding_rows.items():
+                write_parquet(
+                    f"{self.output_path}/embeddings/{model}/{chunk_tag}.parquet",
+                    {
+                        "clip_uuid": [r[0] for r in rows],
+                        "embedding": [r[1].astype(np.float32).tolist() for r in rows],
+                    },
+                )
+            self._write_resume_record(task)
+            # free payloads (kept AND filtered clips): downstream only needs
+            # stats and metadata
+            for clip in (*video.clips, *video.filtered_clips):
+                clip.encoded_data = None
+                clip.release_frames()
+                for w in clip.windows:
+                    w.frames = None
+            task.stage_perf["clips_written"] = stats.num_clips
+            if self._provenance_memo:
+                # rides the task back to run_split: build_summary unions
+                # these into summary.json's weights_provenance map
+                task.stage_perf["weights_provenance"] = dict(self._provenance_memo)
+            task.stats = stats
+        return tasks
+
+    def _model_provenance(self, clip: Clip) -> dict:
+        """Weights provenance per embedding model on ``clip``, memoized."""
+        out: dict[str, str] = {}
+        for model in clip.embeddings:
+            if model not in self._provenance_memo:
+                try:
+                    self._provenance_memo[model] = weights_provenance(model)
+                except OSError:  # provenance must never fail a write
+                    self._provenance_memo[model] = "unknown"
+            out[model] = self._provenance_memo[model]
+        return out
+
+    def _write_clip(self, clip: Clip, stats: ClipStats, embedding_rows) -> None:
+        stats.num_clips += 1
+        stats.total_clip_duration_s += clip.duration_s
+        stats.max_clip_duration_s = max(stats.max_clip_duration_s, clip.duration_s)
+        if clip.encoded_data:
+            dest = f"{self.output_path}/clips/{clip.uuid}.mp4"
+            write_bytes(dest, clip.encoded_data)
+            clip.encoded_byte_size = len(clip.encoded_data)
+            clip.encoded_sha256 = hashlib.sha256(clip.encoded_data).hexdigest()
+            clip.encoded_url = dest
+            stats.num_transcoded += 1
+        for model, emb in clip.embeddings.items():
+            embedding_rows[model].append((str(clip.uuid), emb))
+        if clip.embeddings:
+            stats.num_with_embeddings += 1
+        if any(w.caption for w in clip.windows):
+            stats.num_with_captions += 1
+        write_json(f"{self.output_path}/metas/v0/{clip.uuid}.json", _clip_meta(clip, self._model_provenance(clip)))
+
+    @staticmethod
+    def _count_filtered(clip: Clip, stats: ClipStats) -> None:
+        key = clip.filtered_by
+        if key == "motion":
+            stats.num_filtered_by_motion += 1
+        elif key == "aesthetic":
+            stats.num_filtered_by_aesthetic += 1
+        elif key == "text":
+            stats.num_filtered_by_text += 1
+        elif key == "semantic":
+            stats.num_filtered_by_semantic += 1
+        elif key == "dedup":
+            stats.num_filtered_by_dedup += 1
+
+    def _write_resume_record(self, task: SplitPipeTask) -> None:
+        # one record per chunk; a video counts as processed when the number
+        # of chunk records matches num_chunks (input_discovery checks)
+        video = task.video
+        vid = video_record_id(video.path)
+        write_json(
+            f"{self.output_path}/processed_videos/{vid}/chunk-{video.clip_chunk_index:05d}.json",
+            {
+                "path": video.path,
+                "chunk_index": video.clip_chunk_index,
+                "num_chunks": video.num_clip_chunks,
+                "num_clips_total": video.num_total_clips,
+                "duration_s": video.metadata.duration_s,
+                "errors": video.errors,
+            },
+        )

@@ -2,6 +2,7 @@
 loads no JAX, no flax and nothing of the JAX package, and its entry points
 run on the GPU unless the caller asks for the CPU."""
 
+import json
 import subprocess
 import sys
 import textwrap
@@ -66,3 +67,55 @@ def test_embed_leg_defaults_to_the_gpu(entry):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert make(device="cpu").type == "cpu"
+
+
+def test_native_writer_builds_from_the_port_source_into_the_repo_build_dir():
+    """The port's H.264 writer is built from its own copy of the source into
+    ``<repo>/build/native/`` and never loads the JAX package's library (nor
+    any module of the JAX package)."""
+    script = textwrap.dedent(
+        """
+        import json, sys
+        from cosmos_curate_tpu_torch import native
+        from cosmos_curate_tpu_torch.video.h264 import h264_available, h264_status
+        ok = h264_available()
+        with open("/proc/self/maps") as f:
+            mapped = sorted({line.split()[-1] for line in f if "/libcurate" in line})
+        print(json.dumps({"build_dir": str(native.BUILD_DIR), "source": str(native.SOURCE), "ok": ok,
+                          "status": h264_status(), "mapped": mapped,
+                          "reference": sorted(m for m in sys.modules if m.startswith("cosmos_curate_tpu."))}))
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.splitlines()[-1])
+    build_dir = REPO / "build" / "native"
+    assert Path(got["build_dir"]) == build_dir
+    assert Path(got["source"]) == REPO / "cosmos_curate_tpu_torch" / "native" / "h264_encoder.c"
+    assert got["status"] == "available" if got["ok"] else got["status"].startswith("unavailable: ")
+    assert all(Path(lib).parent == build_dir and Path(lib).name.startswith("libcurate_h264-") for lib in got["mapped"])
+    assert bool(got["mapped"]) == got["ok"]
+    assert got["reference"] == []
+
+
+def test_native_writer_rebuilds_a_cached_library_that_does_not_load(tmp_path, monkeypatch):
+    """A cached library that fails to load (one built on another host and
+    copied with the tree) is rebuilt here, so ``h264_error()`` reports this
+    host's reason, never the stale file's load error."""
+    import hashlib
+
+    from cosmos_curate_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_error", None)
+    tag = hashlib.sha256(native.SOURCE.read_bytes()).hexdigest()[:16]
+    stale = tmp_path / f"libcurate_h264-{tag}.so"
+    stale.write_bytes(b"not a shared object")
+    lib = native.load_h264()
+    if lib is None:
+        assert "invalid ELF header" not in native.h264_error()
+        assert not stale.exists()
+    else:
+        assert native.h264_error() is None
+        assert stale.read_bytes()[:4] == b"\x7fELF"

@@ -1,0 +1,588 @@
+"""Port parity: split assembly, module by module and through ``run_split``.
+
+The videos are ``tests/fixtures/media.make_scene_video``'s (96x64 at 24 fps,
+one second a scene), as in ``tests/pipelines/test_split_pipeline.py``. Each
+test runs the same inputs through the JAX package and the port.
+
+Codecs: both packages encode clips through the native H.264 writer where
+it builds (libavcodec, libx264 and their headers), else through cv2's
+negotiated codec. libx264 does not repeat itself: encoding the same frames
+twice in one process can give other bytes, and now and then other pixels
+in a macroblock, in either package. So the tests run on
+cv2's codec (the module forces it in both packages; ``mp4v`` repeats bit
+for bit), and the native writer's own tests skip where it does not build.
+
+Tolerances:
+- spans, clip uuids, metadata, timestamps, chunk layouts, summary counts,
+  output file names and clip metas: exactly equal;
+- extracted frames, clip bytes and the frames decoded from each clip on
+  cv2's codec: bit-equal;
+- on the native writer: the same codec in the metas, the same frame
+  counts, and decoded frames within ``NATIVE_TOL`` mean absolute levels of
+  the JAX package's (well below the codec's own loss against the source
+  frames, and above what its run-to-run wobble gives);
+- embeddings: within the embed stage's bf16 bound of 2e-2
+  (``test_torch_embedder.py``);
+- captions: the rule of ``test_torch_engine.py`` (bf16 logits within
+  ``LOGIT_TOL`` at every compared step; a window's comparison stops at a
+  JAX top-2 margin below ``2 * LOGIT_TOL``, where either token could win).
+
+The JAX ``run_split`` also writes ``report/live/status.json`` (its live
+status, not ported: ROADMAP queue A item 14); file-name comparisons leave
+``report/`` out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pyarrow.parquet as pq
+import pytest
+
+from cosmos_curate_tpu.core.runner import SequentialRunner as JSequentialRunner
+from cosmos_curate_tpu.core.stage import WorkerMetadata as JWorkerMetadata
+from cosmos_curate_tpu.data import model as jdata
+from cosmos_curate_tpu.models import embedder as jemb
+from cosmos_curate_tpu.models import registry as jregistry
+from cosmos_curate_tpu.models.vlm import SharedCaptionEngine as JShared
+from cosmos_curate_tpu.models.vlm import VLM_TINY_TEST as J_TINY
+from cosmos_curate_tpu.models.vlm import CaptionEngine as JEngine
+from cosmos_curate_tpu.pipelines.video import split as jsplit
+from cosmos_curate_tpu.pipelines.video.stages import captioning as jcap
+from cosmos_curate_tpu.pipelines.video.stages import clip_extraction as jclip
+from cosmos_curate_tpu.pipelines.video.stages import embedding as jembed
+from cosmos_curate_tpu.video import decode as jdecode
+from cosmos_curate_tpu.video import encode as jencode
+from cosmos_curate_tpu.video import splitter as jsplitter
+from cosmos_curate_tpu_torch.core.pipelined_runner import PipelinedRunner
+from cosmos_curate_tpu_torch.core.runner import SequentialRunner, default_runner
+from cosmos_curate_tpu_torch.data import model as tdata
+from cosmos_curate_tpu_torch.models import embedder as temb
+from cosmos_curate_tpu_torch.models.convert_jax import flax_to_state_dict
+from cosmos_curate_tpu_torch.models.vlm import SharedCaptionEngine
+from cosmos_curate_tpu_torch.pipelines.video import split as tsplit
+from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_split_tasks
+from cosmos_curate_tpu_torch.pipelines.video.stages import captioning as tcap
+from cosmos_curate_tpu_torch.pipelines.video.stages import clip_extraction as tclip
+from cosmos_curate_tpu_torch.pipelines.video.stages import embedding as tembed
+from cosmos_curate_tpu_torch.pipelines.video.stages.writer import ClipWriterStage
+from cosmos_curate_tpu_torch.video import decode as tdecode
+from cosmos_curate_tpu_torch.video import encode as tencode
+from cosmos_curate_tpu_torch.video import splitter as tsplitter
+from cosmos_curate_tpu_torch.video.h264 import h264_available
+from tests.fixtures.media import make_scene_video
+from tests.test_torch_engine import LOGIT_TOL, _record_logits
+
+EMBED_TOL = 2e-2
+CAPTION_MODEL_ID = "caption-vlm-tpu"
+EMBED_MODEL_ID = "video-embed-tpu"
+SPLIT = dict(fixed_stride_len_s=1.0, min_clip_len_s=0.5)
+NATIVE_TOL = 0.3
+# summary keys that depend on the clock
+CLOCK_KEYS = ("timestamp", "pipeline_run_time_s", "video_hours_per_day_per_chip")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cv2_codec():
+    """Both packages on cv2's negotiated codec, which repeats itself."""
+    from cosmos_curate_tpu.video import h264 as jh264
+    from cosmos_curate_tpu_torch.video import h264 as th264
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jh264, "_probe_result", False)
+    mp.setattr(th264, "_probe_result", False)
+    yield
+    mp.undo()
+
+
+@pytest.fixture
+def native_codec(monkeypatch):
+    """Both packages on their native H.264 writers (probed afresh); skips
+    where the reference's does not build."""
+    from cosmos_curate_tpu.video import h264 as jh264
+    from cosmos_curate_tpu_torch.video import h264 as th264
+
+    monkeypatch.setattr(jh264, "_probe_result", None)
+    monkeypatch.setattr(th264, "_probe_result", None)
+    if not jh264.h264_available():
+        pytest.skip("the native H.264 writer does not build here (it needs libavcodec, libx264 and their headers)")
+    assert th264.h264_available(), th264.h264_status()
+    return "avc1"
+
+
+@pytest.fixture(autouse=True)
+def _default_runner_env(monkeypatch):
+    monkeypatch.delenv("CURATE_RUNNER", raising=False)
+    monkeypatch.delenv("CURATE_ENGINE_DRIVER_PORT", raising=False)
+    monkeypatch.delenv(tsplit.HEALTH_GATE_ENV, raising=False)
+
+
+@pytest.fixture(scope="module")
+def videos(tmp_path_factory) -> Path:
+    """Three videos of 2, 2 and 3 one-second scenes, and a file that is
+    not a video."""
+    d = tmp_path_factory.mktemp("videos")
+    for i, scenes in enumerate((2, 2, 3)):
+        make_scene_video(d / f"video_{i}.mp4", scene_len_frames=24, num_scenes=scenes)
+    (d / "not_a_video.txt").write_text("x")
+    return d
+
+
+def _runner(name: str):
+    runner = SequentialRunner() if name == "sequential" else default_runner()
+    assert isinstance(runner, SequentialRunner if name == "sequential" else PipelinedRunner)
+    return runner
+
+
+def _files(out: Path) -> set[str]:
+    return {str(p.relative_to(out)) for p in out.rglob("*") if p.is_file() and p.relative_to(out).parts[0] != "report"}
+
+
+def _frames(source) -> np.ndarray:
+    """Every frame of an mp4 (path or bytes), BGR, as cv2 decodes it."""
+    with tdecode._open_capture(source) as cap:
+        out = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            out.append(frame)
+    return np.stack(out)
+
+
+def _assert_native_frames_close(t_frames: np.ndarray, j_frames: np.ndarray) -> None:
+    assert t_frames.shape == j_frames.shape
+    assert np.abs(t_frames.astype(np.int16) - j_frames.astype(np.int16)).mean() <= NATIVE_TOL
+
+
+def _counts(summary: dict) -> dict:
+    return {k: v for k, v in summary.items() if k not in CLOCK_KEYS}
+
+
+def _metas(out: Path) -> dict[str, dict]:
+    return {p.stem: json.loads(p.read_text()) for p in (out / "metas" / "v0").glob("*.json")}
+
+
+# -- (a) module by module ------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "duration,clip_len,stride,min_len",
+    [(2.0, 1.0, None, 0.5), (3.0, 1.0, None, 0.5), (10.5, 2.0, None, 1.0), (10.5, 2.0, 1.5, 0.6), (0.4, 1.0, None, 0.5)],
+)
+def test_spans_and_clip_ids_match_jax(duration, clip_len, stride, min_len):
+    kw = dict(clip_len_s=clip_len, stride_s=stride, min_clip_len_s=min_len)
+    spans = tsplitter.fixed_stride_spans(duration, **kw)
+    assert spans == jsplitter.fixed_stride_spans(duration, **kw)
+    t_clips = tsplitter.make_clips("in/v.mp4", spans)
+    j_clips = jsplitter.make_clips("in/v.mp4", spans)
+    assert [(c.uuid, c.span, c.source_video) for c in t_clips] == [(c.uuid, c.span, c.source_video) for c in j_clips]
+
+
+@pytest.mark.parametrize("as_bytes", [False, True])
+def test_metadata_and_timestamps_match_jax(videos, as_bytes):
+    for path in sorted(videos.glob("*.mp4")):
+        src = path.read_bytes() if as_bytes else str(path)
+        assert dataclasses.asdict(tdecode.extract_video_metadata(src)) == dataclasses.asdict(
+            jdecode.extract_video_metadata(src))
+        t_ts, j_ts = tdecode.get_frame_timestamps(src), jdecode.get_frame_timestamps(src)
+        assert t_ts.dtype == j_ts.dtype and np.array_equal(t_ts, j_ts)
+
+
+@pytest.mark.parametrize("resize", [None, (32, 32)])
+def test_extract_frames_multi_is_bit_equal(videos, resize):
+    src = (videos / "video_2.mp4").read_bytes()
+    sigs_t = (tdata.FrameExtractionSignature("fps", 8.0), tdata.FrameExtractionSignature("fps", 2.0),
+              tdata.FrameExtractionSignature("fps", 8.0))
+    sigs_j = tuple(jdata.FrameExtractionSignature(s.policy, s.target_fps) for s in sigs_t)
+    got = tdecode.extract_frames_multi(src, sigs_t, resize_hw=resize)
+    want = jdecode.extract_frames_multi(src, sigs_j, resize_hw=resize)
+    assert set(got) == set(want) == {"fps-8", "fps-2"}
+    for key in want:
+        assert got[key].dtype == np.uint8 and got[key].shape[0] > 0
+        assert np.array_equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("codec", ["cv2", "native"])
+@pytest.mark.parametrize("timestamps", [True, False])
+def test_transcode_clips_match_jax(videos, timestamps, codec, request):
+    if codec == "native":
+        request.getfixturevalue("native_codec")
+    src = (videos / "video_2.mp4").read_bytes()
+    spans = [(0.0, 1.0), (1.0, 2.0), (0.5, 2.5), (2.0, 3.0), (3.5, 4.0)]  # overlapping, and one past the end
+    ts = tdecode.get_frame_timestamps(src) if timestamps else None
+    got = tencode.transcode_clips(src, spans, timestamps_s=ts)
+    want = jencode.transcode_clips(src, spans, timestamps_s=ts)
+    assert tencode.negotiated_codec() == jencode.negotiated_codec()
+    assert [c for _, c in got] == [c for _, c in want] == [tencode.negotiated_codec()] * len(spans)
+    assert (got[0][1] == "avc1") == (codec == "native")
+    assert got[-1][0] == b"" and want[-1][0] == b""
+    for (a, b), (t_data, _), (j_data, _) in zip(spans, got[:-1], want[:-1]):
+        t_frames, j_frames = _frames(t_data), _frames(j_data)
+        assert t_frames.shape[0] == round((b - a) * 24)
+        if codec == "native":
+            _assert_native_frames_close(t_frames, j_frames)
+        else:
+            assert t_data == j_data and np.array_equal(t_frames, j_frames)
+
+
+def test_native_writer_status_matches_the_reference(native_codec):
+    from cosmos_curate_tpu_torch.video.h264 import h264_status
+
+    assert h264_available() and h264_status() == "available"
+    assert tencode.negotiated_codec() == jencode.negotiated_codec() == native_codec
+
+
+def test_encode_frames_matches_jax():
+    frames = np.random.default_rng(3).integers(0, 256, (12, 48, 64, 3), np.uint8)
+    got, want = tencode.encode_frames(frames, 24.0), jencode.encode_frames(frames, 24.0)
+    assert got == want and _frames(got).shape == (12, 48, 64, 3)
+
+
+@pytest.mark.parametrize(
+    "path,prefix",
+    [("in/a/b.mp4", "in"), ("in/a/b.mp4", "in/"), ("./in/b.mp4", "in"), ("other/b.mp4", "in"),
+     ("s3://bkt/in/b.mp4", "s3://bkt/in"), ("s3://bkt/x/b.mp4", "s3://bkt/in"), ("gs://b/v.mp4", "gs://b/")],
+)
+def test_storage_paths_match_jax(path, prefix):
+    from cosmos_curate_tpu.storage import client as jclient
+    from cosmos_curate_tpu_torch.storage import client as tclient
+
+    assert tclient.relative_to_prefix(path, prefix) == jclient.relative_to_prefix(path, prefix)
+    assert tclient.is_remote_path(path) == jclient.is_remote_path(path)
+
+
+def test_writers_match_jax(tmp_path):
+    import uuid
+
+    from cosmos_curate_tpu.storage import writers as jwriters
+    from cosmos_curate_tpu_torch.storage import writers as twriters
+
+    obj = {"a": np.float32(0.5), "b": np.int64(3), "c": np.arange(3), "d": uuid.uuid5(uuid.NAMESPACE_URL, "x")}
+    twriters.write_json(str(tmp_path / "t" / "m.json"), obj)
+    jwriters.write_json(str(tmp_path / "j" / "m.json"), obj)
+    assert (tmp_path / "t" / "m.json").read_bytes() == (tmp_path / "j" / "m.json").read_bytes()
+    cols = {"clip_uuid": ["u0", "u1"], "embedding": [[0.25, 0.5], [1.0, -2.0]]}
+    twriters.write_parquet(str(tmp_path / "t" / "e.parquet"), cols)
+    jwriters.write_parquet(str(tmp_path / "j" / "e.parquet"), cols)
+    assert pq.read_table(tmp_path / "t" / "e.parquet").equals(pq.read_table(tmp_path / "j" / "e.parquet"))
+    assert not list(tmp_path.rglob("*.tmp"))  # the writes land through an atomic rename
+
+
+def test_weights_provenance_matches_jax(tmp_path, monkeypatch):
+    from cosmos_curate_tpu_torch.models import registry as tregistry
+
+    monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(tmp_path))
+    assert tregistry.weights_provenance("no-such-model") == jregistry.weights_provenance("no-such-model") == "random"
+    ckpt = tmp_path / "some-model" / "params.msgpack"
+    ckpt.parent.mkdir()
+    ckpt.write_bytes(b"\x80" * 1000)
+    got = tregistry.weights_provenance("some-model")
+    assert got == jregistry.weights_provenance("some-model") and got.startswith("checkpoint:")
+
+
+@pytest.mark.parametrize("n_clips,chunk_size", [(10, 4), (4, 2), (3, 64), (5, 0), (1, 1)])
+def test_chunk_split_task_matches_jax(n_clips, chunk_size):
+    def chunks(data, mod):
+        video = data.Video(path="v.mp4", clips=[data.Clip(span=(float(i), i + 1.0)) for i in range(n_clips)],
+                           num_total_clips=n_clips, errors={"x": "y"})
+        return mod.chunk_split_task(data.SplitPipeTask(video=video), chunk_size)
+
+    got, want = chunks(tdata, tclip), chunks(jdata, jclip)
+    assert sum(t.fraction for t in got) == pytest.approx(1.0)
+    layout = lambda ts: [(t.video.clip_chunk_index, t.video.num_clip_chunks, t.video.num_total_clips,  # noqa: E731
+                          [c.span for c in t.video.clips], t.video.errors, t.fraction) for t in ts]
+    assert layout(got) == layout(want)
+    if len(got) > 1:
+        assert got[0].video is not got[1].video and got[0].stage_perf is not got[1].stage_perf
+
+
+def test_split_args_mirror_the_reference_field_for_field():
+    port = {f.name: f for f in dataclasses.fields(tsplit.SplitPipelineArgs)}
+    ref = {f.name: f for f in dataclasses.fields(jsplit.SplitPipelineArgs)}
+    assert set(port) == set(ref) | {"device"}
+    t_args, j_args = tsplit.SplitPipelineArgs(), jsplit.SplitPipelineArgs()
+    for name in ref:
+        assert getattr(t_args, name) == getattr(j_args, name), name
+    assert t_args.device == "cuda"
+
+
+# -- (b) split only ------------------------------------------------------------
+
+
+def _jax_split(videos: Path, out: Path) -> dict:
+    return jsplit.run_split(jsplit.SplitPipelineArgs(input_path=str(videos), output_path=str(out), **SPLIT),
+                            runner=JSequentialRunner())
+
+
+@pytest.fixture(scope="module")
+def jax_split(videos, tmp_path_factory) -> tuple[Path, dict]:
+    out = tmp_path_factory.mktemp("jax_split") / "out"
+    return out, _jax_split(videos, out)
+
+
+@pytest.mark.parametrize("codec", ["cv2", "native"])
+@pytest.mark.parametrize("runner", ["sequential", "default"])
+def test_split_only_matches_jax(videos, jax_split, runner, codec, tmp_path, request):
+    if codec == "native":
+        request.getfixturevalue("native_codec")
+        j_out = tmp_path / "jout"
+        j_summary = _jax_split(videos, j_out)
+    else:
+        j_out, j_summary = jax_split
+    out = tmp_path / "out"
+    args = tsplit.SplitPipelineArgs(input_path=str(videos), output_path=str(out), **SPLIT)
+    summary = tsplit.run_split(args, runner=_runner(runner))
+
+    assert _counts(summary) == _counts(j_summary)
+    assert summary["num_videos"] == 3 and summary["num_clips"] == summary["num_transcoded"] == 7
+    assert json.loads((out / "summary.json").read_text()) == summary
+    assert _files(out) == _files(j_out)
+    metas, j_metas = _metas(out), _metas(j_out)
+    assert len(metas) == 7
+    for uuid, meta in j_metas.items():
+        assert list(metas[uuid]) == list(meta)  # key order too
+        assert metas[uuid] == meta, uuid
+        assert meta["codec"] == ("avc1" if codec == "native" else tencode._pick_codec())
+        clip, j_clip = out / "clips" / f"{uuid}.mp4", j_out / "clips" / f"{uuid}.mp4"
+        if codec == "native":
+            _assert_native_frames_close(_frames(str(clip)), _frames(str(j_clip)))
+        else:
+            assert clip.read_bytes() == j_clip.read_bytes()
+    for rec in (out / "processed_videos").rglob("*.json"):
+        assert json.loads(rec.read_text()) == json.loads((j_out / rec.relative_to(out)).read_text())
+
+    # resume: a re-run discovers nothing and writes an empty summary
+    assert discover_split_tasks(str(videos), str(out)) == []
+    again = tsplit.run_split(args, runner=_runner(runner))
+    assert again["num_videos"] == 0 and again["num_clips"] == 0
+
+
+@pytest.mark.parametrize("runner", ["sequential", "default"])
+def test_bad_input_is_contained(tmp_path, runner):
+    vids = tmp_path / "in"
+    vids.mkdir()
+    make_scene_video(vids / "good.mp4", scene_len_frames=24, num_scenes=1)
+    (vids / "broken.mp4").write_bytes(b"garbage garbage garbage")
+    j_summary = jsplit.run_split(
+        jsplit.SplitPipelineArgs(input_path=str(vids), output_path=str(tmp_path / "jout"), **SPLIT),
+        runner=JSequentialRunner())
+    summary = tsplit.run_split(
+        tsplit.SplitPipelineArgs(input_path=str(vids), output_path=str(tmp_path / "out"), **SPLIT),
+        runner=_runner(runner))
+    assert _counts(summary) == _counts(j_summary)
+    assert summary["num_videos"] == 2 and summary["num_errors"] >= 1 and summary["num_transcoded"] == 1
+    assert _files(tmp_path / "out") == _files(tmp_path / "jout")
+
+
+# -- (c) split + embed + caption at tiny size ----------------------------------
+
+CAPTIONED = dict(SPLIT, extract_fps=(8.0,), extract_resize_hw=(32, 32), captioning=True, caption_model="tiny-test")
+
+
+@pytest.fixture(scope="module")
+def annotate_videos(tmp_path_factory) -> Path:
+    d = tmp_path_factory.mktemp("annotate_videos")
+    for i, scenes in enumerate((2, 3, 3)):
+        make_scene_video(d / f"video_{i}.mp4", scene_len_frames=24, num_scenes=scenes)
+    return d
+
+
+@pytest.fixture(scope="module")
+def jax_annotated(annotate_videos, tmp_path_factory):
+    """The JAX run_split with the tiny embed stage in ``extra_stages`` and
+    tiny-test captions, from the caption checkpoint it writes; yields that
+    weights root, the embedder's seeded params, the output and the logits
+    of every caption's greedy steps."""
+    root = tmp_path_factory.mktemp("weights")
+    out = tmp_path_factory.mktemp("jax_annotated") / "out"
+    mp = pytest.MonkeyPatch()
+    mp.setenv(jregistry.WEIGHTS_DIR_ENV, str(root))
+    JShared.reset()
+    try:
+        eng = JEngine(J_TINY, max_batch=2)
+        eng.setup(9)
+        jregistry.save_params(CAPTION_MODEL_ID, eng.params, root=root)
+        eng.shutdown()
+        sig = jdata.FrameExtractionSignature("fps", 8.0)
+        embed = jembed.ClipEmbeddingStage(variant="video", video_cfg=jemb.VIDEO_EMBED_TINY_TEST, extraction=sig)
+        embed.setup(JWorkerMetadata())  # the stage's seeded init, carried to the port below
+        traced = jcap.CaptionStage(model_flavor="tiny-test")
+        traced.model.setup()  # the shared engine the split's caption stage joins
+        trace = _record_logits(traced.model.engine)
+        summary = jsplit.run_split(
+            jsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(out), extra_stages=[embed],
+                                     **CAPTIONED),
+            runner=JSequentialRunner())
+        yield root, flax_to_state_dict(embed.model._params), out, summary, dict(trace)
+    finally:
+        JShared.reset()
+        mp.undo()
+
+
+def _embeddings(out: Path) -> dict[str, np.ndarray]:
+    rows = {}
+    for path in (out / "embeddings" / EMBED_MODEL_ID).glob("*.parquet"):
+        table = pq.read_table(path).to_pydict()
+        for uuid, emb in zip(table["clip_uuid"], table["embedding"]):
+            rows[uuid] = np.asarray(emb, np.float32)
+    return rows
+
+
+@pytest.mark.parametrize("runner", ["sequential", "default"])
+def test_split_embed_caption_matches_jax(annotate_videos, jax_annotated, runner, tmp_path, monkeypatch):
+    root, embed_params, j_out, j_summary, j_trace = jax_annotated
+    monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(root))
+    out = tmp_path / "out"
+    SharedCaptionEngine.reset()
+    try:
+        sig = tdata.FrameExtractionSignature("fps", 8.0)
+        embed = tembed.ClipEmbeddingStage(variant="video", video_cfg=temb.VIDEO_EMBED_TINY_TEST, extraction=sig,
+                                          params=embed_params, device="cpu")
+        traced = tcap.CaptionStage(model_flavor="tiny-test", device="cpu")
+        traced.model.setup()
+        trace = _record_logits(traced.model.engine)
+        summary = tsplit.run_split(
+            tsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(out), extra_stages=[embed],
+                                     device="cpu", **CAPTIONED),
+            runner=_runner(runner))
+    finally:
+        SharedCaptionEngine.reset()
+
+    assert _counts(summary) == _counts(j_summary)
+    assert summary["num_clips"] == summary["num_with_embeddings"] == summary["num_with_captions"] == 8
+    assert summary["weights_provenance"] == {EMBED_MODEL_ID: "random"}
+    assert _files(out) == _files(j_out)
+    embs, j_embs = _embeddings(out), _embeddings(j_out)
+    assert set(embs) == set(j_embs) and len(embs) == 8
+    for uuid, j_emb in j_embs.items():
+        np.testing.assert_allclose(embs[uuid], j_emb, atol=EMBED_TOL)
+    metas, j_metas = _metas(out), _metas(j_out)
+    assert set(metas) == set(j_metas)
+    compared = 0
+    for uuid, j_meta in j_metas.items():
+        meta = metas[uuid]
+        assert list(meta) == list(j_meta)
+        captions = [w.pop("captions") for w in meta["windows"]]
+        j_captions = [w.pop("captions") for w in j_meta["windows"]]
+        assert meta == j_meta, uuid
+        assert len(captions) == len(j_captions) == 1
+        for i, (text, j_text) in enumerate(zip(captions, j_captions)):
+            assert text["default"]
+            rid = f"{uuid}-{i}"
+            full = True
+            for step, (j, p) in enumerate(zip(j_trace[rid], trace[rid], strict=True)):
+                assert np.abs(j - p).max() <= LOGIT_TOL, (rid, step)
+                top2 = np.sort(j)[-2:]
+                if top2[1] - top2[0] < 2 * LOGIT_TOL:
+                    full = False
+                    break
+                assert int(np.argmax(j)) == int(np.argmax(p)), (rid, step)
+                compared += 1
+            if full:
+                assert text == j_text, rid
+    assert compared >= len(metas)  # greedy steps held to the rule: 17 of them here
+
+
+# -- (d) chunking --------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def long_videos(tmp_path_factory) -> Path:
+    d = tmp_path_factory.mktemp("long_videos")
+    for i in range(2):
+        make_scene_video(d / f"long_{i}.mp4", scene_len_frames=24, num_scenes=4)
+    return d
+
+
+@pytest.mark.parametrize("runner", ["sequential", "default"])
+def test_chunked_split_matches_jax(long_videos, runner, tmp_path):
+    kw = dict(SPLIT, clip_chunk_size=2)
+    j_summary = jsplit.run_split(
+        jsplit.SplitPipelineArgs(input_path=str(long_videos), output_path=str(tmp_path / "jout"), **kw),
+        runner=JSequentialRunner())
+    out = tmp_path / "out"
+    summary = tsplit.run_split(tsplit.SplitPipelineArgs(input_path=str(long_videos), output_path=str(out), **kw),
+                               runner=_runner(runner))
+    assert _counts(summary) == _counts(j_summary)
+    assert summary["num_clips"] == summary["num_transcoded"] == 8
+    assert _files(out) == _files(tmp_path / "jout")
+    records = sorted((out / "processed_videos").rglob("chunk-*.json"))
+    assert len(records) == 4  # one resume record per chunk
+    for rec in records:
+        body = json.loads(rec.read_text())
+        assert body["num_chunks"] == 2 and body["num_clips_total"] == 4
+    assert discover_split_tasks(str(long_videos), str(out)) == []
+    # a video with a chunk record missing is not done
+    records[0].unlink()
+    assert len(discover_split_tasks(str(long_videos), str(out))) == 1
+
+
+# -- (e) refusals --------------------------------------------------------------
+
+REFUSED_OPTIONS = {
+    "transnetv2": dict(splitting_algorithm="transnetv2"),
+    "sr": dict(sr=True),
+    "motion_filter": dict(motion_filter="score-only"),
+    "aesthetic_threshold": dict(aesthetic_threshold=3.5),
+    "text_filter": dict(text_filter="enable"),
+    "semantic_filter": dict(semantic_filter="score-only"),
+    "incremental_dedup": dict(incremental_dedup="enable", embedding_model="video"),
+    "corpus_index": dict(corpus_index=True),
+    "index_path": dict(index_path="/some/index"),
+    "multicam": dict(multicam=True),
+    "enhance_captions": dict(enhance_captions=True),
+    "t5_embeddings": dict(t5_embeddings=True),
+    "previews": dict(previews=True),
+    "tracking": dict(tracking=True),
+    "tracking_annotated": dict(tracking_annotated=True),
+    "per_event_captions": dict(per_event_captions=True),
+    "clip_embeddings": dict(embedding_model="clip", device="cpu"),
+    "iv2_embeddings": dict(embedding_model="iv2", device="cpu"),
+    "qwen_captions": dict(captioning=True, caption_model="qwen2vl-2b", device="cpu"),
+    "tracing": dict(tracing=True),
+    "perf_profile": dict(perf_profile=True),
+    "profile_cpu": dict(profile_cpu=True),
+    "profile_memory": dict(profile_memory=True),
+    "stage_save_rate": dict(stage_save_rate=0.5),
+}
+
+
+@pytest.mark.parametrize("case", [*REFUSED_OPTIONS, "health_gate_on", "health_gate_strict", "remote_input",
+                                  "remote_output", "writer_index_path"])
+def test_unported_options_raise(case, videos, tmp_path, monkeypatch):
+    kw = dict(input_path=str(videos), output_path=str(tmp_path / "out"), **SPLIT)
+    if case in REFUSED_OPTIONS:
+        kw.update(REFUSED_OPTIONS[case])
+    elif case.startswith("health_gate"):
+        monkeypatch.setenv(tsplit.HEALTH_GATE_ENV, case.rsplit("_", 1)[1])
+    elif case == "remote_input":
+        kw["input_path"] = "s3://bucket/videos"
+    elif case == "remote_output":
+        kw["output_path"] = "gs://bucket/out"
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 8"):
+            ClipWriterStage(str(tmp_path / "out"), index_path="/some/index")
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
+        tsplit.run_split(tsplit.SplitPipelineArgs(**kw), runner=SequentialRunner())
+    assert not (tmp_path / "out").exists()
+
+
+# -- (f) no silent CPU ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("option", [dict(embedding_model="video"), dict(captioning=True, caption_model="tiny-test")])
+def test_split_model_stages_default_to_the_gpu(option, videos, tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    args = tsplit.SplitPipelineArgs(input_path=str(videos), output_path=str(tmp_path / "out"), **SPLIT, **option)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsplit.run_split(args, runner=SequentialRunner())
+    assert not (tmp_path / "out").exists()
