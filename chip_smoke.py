@@ -110,11 +110,44 @@ and prints one JSON line per phase:
    within ``EMBED_BOUND``), and a second ``run_split`` on run A's output,
    which must discover no video.
 
+11. canonical: run C, the reference's canonical split through ``run_split``
+   on the split phase's corpus, clipped as run A clips it (1 s clips, none
+   under 0.5 s): TransNetV2 shot detection (``transnetv2_threshold`` above
+   1: the seeded detector has no signal, so no frame is a cut and each
+   video is one scene, which ``max_clip_len_s`` cuts into four 1 s clips;
+   the detector's probabilities in the run and its cut count at the
+   default 0.4 are reported beside it, and its bf16 probabilities on one
+   video's windows are held within ``TRANSNET_BOUND`` of the fp32 module),
+   the aesthetic filter (CLIP ViT-L/14 + the aesthetic MLP, threshold
+   ``AESTHETIC_THRESHOLD``), ``embedding_model="clip"`` (CLIP ViT-B/16
+   frame means), 8 fps frames at 224x224. It asserts both the kept and the
+   filtered set non-empty, every clip's meta carrying its score, each clip
+   kept exactly when its score is ``>= AESTHETIC_THRESHOLD``, the summary's
+   filtered count, and a unit-norm 512-d CLIP embedding in the parquet for
+   every kept clip; one 32-frame L/14 batch's embeddings within
+   ``EMBED_BOUND`` of the tower on plain flash, and the plain version with
+   the first key tile dropped beyond it (the one-key last tile's loss is
+   reported: the kernels phase's check at [32,16,257,64] catches it). It
+   reports the wall, each stage's calls, clips and busy share, clips kept
+   and filtered, flash launches and every flash shape (any not in
+   ``FLASH_CASES`` checked and timed on the spot);
+12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
+   blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
+   ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
+   init every block is close to the identity), over ``IV2_CALLS`` calls of
+   8 tasks x 4 clips x 8 random 224^2 frames after a warm-up call: clips/s,
+   per-dispatch copy-in / compute / copy-out, peak device memory, the
+   attention's share of one call's device time (CUDA events); one 4-clip
+   batch's bf16 embeddings within ``IV2_BOUND`` of the same module in fp32
+   on the card; and the stage without ``params`` and without a staged
+   checkpoint must raise.
+
 Every path's run zeroes the launch counters just before it and reads them
 just after; each kernel must have launched on the path that uses it
 (``KERNEL_PATH``).
 
-Then the ``{"kernels": [...]}`` line, the card line, and the last line
+Then the script's seconds, the ``{"kernels": [...]}`` line, the card line,
+and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script exits
 non-zero and prints no result. Without a CUDA device it exits 1 at once.
 """
@@ -199,6 +232,28 @@ SPLIT_CLIPS = SPLIT_VIDEOS * SPLIT_NUM_SCENES * SPLIT_SCENE_FRAMES // 24
 SPLIT_CAPTION_VIDEOS = 4
 SPLIT_AGREEMENT_VIDEOS = 2
 SPLIT_RSS_SAMPLE_S = 0.05
+# canonical phase (run C): the split corpus's 64 videos, clipped as run A
+# clips them (1 s clips, none under 0.5 s): a shot threshold above every
+# probability, since the seeded detector has no signal (at 0.4 a quarter
+# of the frames cut and almost every scene falls under min_clip_len_s), so
+# each 4 s video is one scene, cut by max_clip_len_s into four 1 s clips
+# (four clips a task, so the clip embed stage's fused frame-mean batch
+# holds several); the seeded L/14 scorer's 256 scores on this corpus run
+# -0.084 to 0.092 with their median at -0.0035 on the H100 (PERF.md), so
+# a threshold of 0 keeps about half the clips and drops the rest
+CANONICAL_CLIP_LEN_S = 1.0
+CANONICAL_SHOT_THRESHOLD = 1.5
+AESTHETIC_THRESHOLD = 0.0
+CANONICAL_L14_CLIPS = 4  # kept clips whose frames make the L/14 check's batch
+# bf16 detector probabilities vs the fp32 module on the card (a CPU reading
+# of the seeded default config: 2.2e-3)
+TRANSNET_BOUND = 1e-2
+# iv2 phase: stage calls of EMBED_STAGE_TASK_BATCH tasks x 4 clips; bf16
+# embeddings vs the fp32 module, max abs error of unit-norm 512-d vectors:
+# about 6x the 8.6e-4 two full runs read on the H100 (PERF.md)
+IV2_CALLS = 4
+IV2_BOUND = 5e-3
+IV2_CHECK_CLIPS = 4
 # modules and FFmpeg libraries the port's later slices may need (split
 # assembly decodes and encodes through cv2 and a native H.264 writer over
 # libavcodec, and writes parquet with pyarrow); the device phase reports
@@ -210,12 +265,15 @@ FFMPEG_LIBRARIES = ("avcodec", "avformat", "avutil", "swscale", "x264")
 EMBED_CALLS = 8
 EMBED_CLIPS_PER_TASK = 4
 # flash shapes timed: ViT-B/16 at 224^2 over the embed phase's 16-clip x
-# 8-frame dispatch (the row of the kernels line) and over 32 clips, the
-# base pooler over 16 clips, and a causal ViT-B/16-at-768^2 length; then
-# the split phase's embed dispatches, whose calls hold 1 or 2 tasks of 4
-# clips (padded to 4 and 8 clips; 3 or 4 tasks pad to the 16-clip cases)
+# 8-frame dispatch (the row of the kernels line) and over 32 clips, CLIP
+# ViT-L/14 at 224^2 over the canonical phase's 32-frame aesthetic dispatch
+# (S = 257 = 4 x 64 + 1: its last key tile holds one key), the base pooler
+# over 16 clips, and a causal ViT-B/16-at-768^2 length; then the split
+# phase's embed dispatches, whose calls hold 1 or 2 tasks of 4 clips
+# (padded to 4 and 8 clips; 3 or 4 tasks pad to the 16-clip cases)
 FLASH_CASES = (
     ("vit_b16_224", (128, 12, 197, 64), False),
+    ("clip_l14_224", (32, 16, 257, 64), False),
     ("vit_b16_224_32_clips", (256, 12, 197, 64), False),
     ("pooler", (16, 8, 9, 64), False),
     ("causal_2305", (1, 16, 2305, 64), True),
@@ -344,6 +402,16 @@ def sdpa_inputs(q, k, v, write, kv_len):
     return qs, ks, vs, mask
 
 
+def random_bf16(rng, dev):
+    """A maker of bf16 tensors of standard normal values drawn from ``rng``,
+    on ``dev``."""
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+    return bf16
+
+
 def check_flash(timer, bf16, shape: tuple, causal: bool, label: str) -> dict:
     """The flash wrapper against its fp32 plain version at one [B, H, S, D]
     shape (asserted within BOUND), and the kernel's, the plain version's and
@@ -362,6 +430,14 @@ def check_flash(timer, bf16, shape: tuple, causal: bool, label: str) -> dict:
     err = (got.float() - want).abs().max().item()
     assert err <= BOUND, f"flash {label}: max abs err {err} > {BOUND}"
     fb, fh, fs, fd = shape
+    # the plain version without the first or the last (ragged) key tile:
+    # what a kernel that lost the tile would give, which BOUND must catch
+    dropped = {}
+    if not causal and fs > flash_key_tile():
+        for name, lo_tile in (("first_tile_dropped", True), ("last_tile_dropped", False)):
+            lost = tile_dropping_flash(lo_tile)(q.float(), k.float(), v.float())
+            dropped[name] = (lost - want).abs().max().item()
+            assert dropped[name] > BOUND, f"flash {label}: the bound {BOUND} misses {name} ({dropped[name]})"
     pairs = fs * (fs + 1) // 2 if causal else fs * fs
     bms, by = bound_ms(4 * 2 * fb * fh * fs * fd, 4.0 * fd * fb * fh * pairs)
     return with_shares(dict(
@@ -372,6 +448,7 @@ def check_flash(timer, bf16, shape: tuple, causal: bool, label: str) -> dict:
         bound_ms=bms,
         bound_by=by,
         library_ms=timer(lambda: sdpa(q, k, v, is_causal=causal)),
+        max_abs_err_with_a_tile_dropped=dropped,
     ))
 
 
@@ -388,11 +465,56 @@ def recorded_flash_shapes(shapes: set):
         shapes.add((tuple(q.shape), causal))
         return saved(q, k, v, causal=causal)
 
+    with swapped_flash(attn):
+        yield
+
+
+@contextlib.contextmanager
+def swapped_flash(attn):
+    """The models' flash call replaced by ``attn`` for the duration."""
+    import cosmos_curate_tpu_torch.models.layers as layers
+
+    saved = layers.flash_attention
     layers.flash_attention = attn
     try:
         yield
     finally:
         layers.flash_attention = saved
+
+
+def tile_dropping_flash(lo_tile: bool):
+    """The plain flash version without the first (``lo_tile``) or the last,
+    ragged key tile of every sequence longer than one tile: what a kernel
+    that skipped the tile would give."""
+    from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    tile = flash_key_tile()
+
+    def attn(q, k, v, *, causal=False):
+        s = q.shape[2]
+        if s <= tile:
+            return flash_attention_plain(q, k, v, causal=causal)
+        lo, hi = (0, tile) if lo_tile else ((s - 1) // tile * tile, s)
+        keep = torch.cat([torch.arange(0, lo), torch.arange(hi, s)]).to(q.device)
+        return flash_attention_plain(q, k[:, :, keep], v[:, :, keep], causal=causal)
+
+    return attn
+
+
+def random_clip_tasks(rng, name: str, key: str, n_frames: int, size: int) -> list:
+    """EMBED_STAGE_TASK_BATCH tasks of EMBED_CLIPS_PER_TASK one-second clips,
+    each ``n_frames`` random uint8 ``size``^2 frames under ``key``."""
+    from cosmos_curate_tpu_torch.data.model import Clip, SplitPipeTask, Video
+    from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import EMBED_STAGE_TASK_BATCH
+
+    tasks = []
+    for t in range(EMBED_STAGE_TASK_BATCH):
+        video = f"{name}-{t}"
+        clips = [Clip(source_video=video, span=(float(i), float(i + 1)),
+                      extracted_frames={key: rng.integers(0, 256, (n_frames, size, size, 3), dtype=np.uint8)})
+                 for i in range(EMBED_CLIPS_PER_TASK)]
+        tasks.append(SplitPipeTask(video=Video(path=f"{video}.mp4", clips=clips)))
+    return tasks
 
 
 def check_kernels(timer, dev) -> dict:
@@ -410,8 +532,7 @@ def check_kernels(timer, dev) -> dict:
     rng = np.random.default_rng(SEED)
     hk, g, d, bs = 8, 2, 64, 16
 
-    def bf16(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    bf16 = random_bf16(rng, dev)
 
     def i32(x):
         return torch.as_tensor(np.asarray(x, np.int32), device=dev)
@@ -618,16 +739,12 @@ def drive_embed(dev) -> dict:
     (variant "video", VIDEO_EMBED_BASE, seeded) over EMBED_CALLS stage calls
     of EMBED_STAGE_TASK_BATCH tasks x EMBED_CLIPS_PER_TASK clips x 8 random
     uint8 224x224 frames (extraction at 8 fps over 1 s clips)."""
-    import cosmos_curate_tpu_torch.models.layers as layers
     from cosmos_curate_tpu_torch.core.stage import WorkerMetadata
-    from cosmos_curate_tpu_torch.data.model import Clip, FrameExtractionSignature, SplitPipeTask, Video
+    from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature
     from cosmos_curate_tpu_torch.models.embedder import EMBED_MICRO_BATCH, VIDEO_EMBED_BASE
     from cosmos_curate_tpu_torch.ops import kernels
     from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention_plain
-    from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import (
-        EMBED_STAGE_TASK_BATCH,
-        ClipEmbeddingStage,
-    )
+    from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import ClipEmbeddingStage
 
     cfg = VIDEO_EMBED_BASE
     extraction = FrameExtractionSignature("fps", 8.0)
@@ -636,21 +753,7 @@ def drive_embed(dev) -> dict:
     rng = np.random.default_rng(SEED + 2)
 
     def make_tasks(call: int) -> list:
-        tasks = []
-        for t in range(EMBED_STAGE_TASK_BATCH):
-            name = f"video-{call}-{t}"
-            clips = [
-                Clip(
-                    source_video=name,
-                    span=(float(i), float(i + 1)),
-                    extracted_frames={
-                        key: rng.integers(0, 256, (cfg.num_frames, size, size, 3), dtype=np.uint8)
-                    },
-                )
-                for i in range(EMBED_CLIPS_PER_TASK)
-            ]
-            tasks.append(SplitPipeTask(video=Video(path=f"{name}.mp4", clips=clips)))
-        return tasks
+        return random_clip_tasks(rng, f"video-{call}", key, cfg.num_frames, size)
 
     t0 = time.monotonic()
     stage = ClipEmbeddingStage(variant="video", extraction=extraction, device=dev)
@@ -692,29 +795,11 @@ def drive_embed(dev) -> dict:
     first = batches[1]
     with_kernel = [c.embeddings[stage.model_name].copy() for t in first for c in t.video.clips]
 
-    tile = flash_key_tile()
-
-    def dropping(lo: int, hi: int):
-        def attn(q, k, v, *, causal=False):
-            s = q.shape[2]
-            if s <= tile:
-                return flash_attention_plain(q, k, v, causal=causal)
-            keep = torch.cat([torch.arange(0, lo), torch.arange(min(hi, s), s)]).to(q.device)
-            return flash_attention_plain(q, k[:, :, keep], v[:, :, keep], causal=causal)
-
-        return attn
-
-    s_vit = cfg.vit.num_patches + 1  # with the class token
-    last = (s_vit - 1) // tile * tile
     errs = {}
-    for label, attn in (("plain", flash_attention_plain), ("first_tile_dropped", dropping(0, tile)),
-                        ("last_tile_dropped", dropping(last, s_vit))):
-        saved = layers.flash_attention
-        try:
-            layers.flash_attention = attn
+    for label, attn in (("plain", flash_attention_plain), ("first_tile_dropped", tile_dropping_flash(True)),
+                        ("last_tile_dropped", tile_dropping_flash(False))):
+        with swapped_flash(attn):
             stage.process_data(first)
-        finally:
-            layers.flash_attention = saved
         got = [c.embeddings[stage.model_name] for t in first for c in t.video.clips]
         errs[label] = max(float(np.abs(a - b).max()) for a, b in zip(with_kernel, got))
     plain_err = errs["plain"]
@@ -1474,16 +1559,16 @@ def write_corpus_video(vids: Path, i: int) -> Path:
     return path
 
 
-def make_corpus(vids: Path) -> list[Path]:
-    """bench.py's corpus, one spawned worker process per core: the frame
-    generator runs numpy on the interpreter's thread, so threads would
-    share one lock."""
+def make_corpus(vids: Path, n: int = SPLIT_VIDEOS) -> list[Path]:
+    """The first ``n`` videos of bench.py's corpus, one spawned worker
+    process per core: the frame generator runs numpy on the interpreter's
+    thread, so threads would share one lock."""
     import multiprocessing
 
     vids.mkdir(parents=True)
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=os.cpu_count() or 1, mp_context=ctx) as pool:
-        return list(pool.map(write_corpus_video, [vids] * SPLIT_VIDEOS, range(SPLIT_VIDEOS)))
+        return list(pool.map(write_corpus_video, [vids] * n, range(n)))
 
 
 @contextlib.contextmanager
@@ -1541,18 +1626,108 @@ def peak_rss(out: dict):
         thread.join(timeout=5)
 
 
-def drive_split(dev, timer) -> dict:
+@contextlib.contextmanager
+def split_corpus(n: int = SPLIT_VIDEOS):
+    """The first ``n`` videos of bench.py's corpus in a temporary directory,
+    removed at exit: (root, video paths, seconds to build them)."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_split-"))
+    try:
+        t0 = time.monotonic()
+        corpus = make_corpus(root / "videos", n)
+        yield root, corpus, time.monotonic() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def subset(root: Path, corpus: list[Path], name: str, n: int) -> Path:
+    """A directory of links to the corpus's first ``n`` videos."""
+    d = root / name
+    d.mkdir()
+    for path in corpus[:n]:
+        (d / path.name).symlink_to(path)
+    return d
+
+
+def stage_busy(spans: list, wall: float) -> dict:
+    """Per stage: calls, tasks, clips, busy seconds and share of the wall,
+    the host threads it ran on (from ``timed_stages``' spans)."""
+    by = collections.defaultdict(lambda: {"calls": 0, "tasks": 0, "clips": 0, "busy_s": 0.0, "threads": set()})
+    for name, thread, n_tasks, n_clips, t0, t1 in spans:
+        rec = by[name]
+        rec["calls"] += 1
+        rec["tasks"] += n_tasks
+        rec["clips"] += n_clips
+        rec["busy_s"] += t1 - t0
+        rec["threads"].add(thread)
+    return {name: {**rec, "threads": sorted(rec["threads"]), "busy_share": rec["busy_s"] / wall,
+                   "busy_ms_per_call": 1e3 * rec["busy_s"] / rec["calls"]} for name, rec in by.items()}
+
+
+def split_run(dev, a, runner, stage_classes) -> dict:
+    """One run_split with every launch counter zeroed just before it:
+    summary, wall, launches, stage spans, flash shapes, peaks."""
+    from cosmos_curate_tpu_torch.ops import kernels
+    from cosmos_curate_tpu_torch.pipelines.video import split
+
+    ks = kernels()
+    for k in ks.values():
+        k.launches = 0
+    spans: list = []
+    rss: dict = {}
+    shapes: set = set()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with timed_stages(stage_classes, spans), peak_rss(rss), recorded_flash_shapes(shapes):
+        t0 = time.monotonic()
+        summary = split.run_split(a, runner=runner)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    return dict(summary=summary, wall=wall, launches={name: k.launches for name, k in ks.items()},
+                spans=spans, flash_shapes=shapes, peak_device=torch.cuda.max_memory_allocated(dev),
+                peak_rss=rss["bytes"], start_rss=rss["start"])
+
+
+def split_outputs(out: Path, model: str) -> tuple[dict, dict, set]:
+    """(uuid -> meta of every kept clip, uuid -> ``model``'s embedding,
+    output file names)."""
+    import pyarrow.parquet as pq
+
+    metas = {p.stem: json.loads(p.read_text()) for p in (out / "metas" / "v0").glob("*.json")}
+    embs = {}
+    for path in (out / "embeddings" / model).glob("*.parquet"):
+        table = pq.read_table(path).to_pydict()
+        for uuid, emb in zip(table["clip_uuid"], table["embedding"], strict=True):
+            assert uuid not in embs, f"{uuid} embedded twice"
+            embs[uuid] = np.asarray(emb, np.float32)
+    files = {str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()}
+    return metas, embs, files
+
+
+def check_unit_embeddings(embs: dict, dim: int, label: str) -> None:
+    for uuid, emb in embs.items():
+        assert emb.shape == (dim,) and np.isfinite(emb).all(), f"{label}: embedding of {uuid}"
+        assert abs(float(np.linalg.norm(emb)) - 1.0) < 1e-2, f"{label}: embedding of {uuid} is not unit-norm"
+
+
+def check_new_flash_shapes(timer, shapes: set, seed: int) -> dict:
+    """Flash at every shape in ``shapes`` that ``FLASH_CASES`` does not
+    hold, against its plain version, timed."""
+    checked = {(shape, causal) for _, shape, causal in FLASH_CASES}
+    bf16 = random_bf16(np.random.default_rng(seed), "cuda")
+    return {f"{'x'.join(map(str, shape))}{'_causal' if causal else ''}": check_flash(timer, bf16, shape, causal, "split")
+            for shape, causal in sorted(shapes - checked)}
+
+
+def drive_split(dev, timer, root: Path, corpus: list[Path], corpus_s: float) -> dict:
     """The whole main path through ``run_split``, on bench.py's corpus.
     Every flash shape the runs give the wrapper is one the kernels phase
     checked and timed (run A's embed dispatches must be), or is checked and
     timed here."""
-    import pyarrow.parquet as pq
-
     from cosmos_curate_tpu_torch.core.pipelined_runner import PipelinedRunner
     from cosmos_curate_tpu_torch.core.runner import RUNNER_ENV, SequentialRunner, default_runner
     from cosmos_curate_tpu_torch.models.embedder import VIDEO_EMBED_VARIANTS
     from cosmos_curate_tpu_torch.models.vlm import SharedCaptionEngine
-    from cosmos_curate_tpu_torch.ops import kernels
     from cosmos_curate_tpu_torch.pipelines.video import split
     from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_split_tasks
     from cosmos_curate_tpu_torch.pipelines.video.stages.writer import ClipWriterStage
@@ -1566,176 +1741,356 @@ def drive_split(dev, timer) -> dict:
     cfg, model = VIDEO_EMBED_VARIANTS["video"]
     checked_shapes = {(shape, causal) for _, shape, causal in FLASH_CASES}
     os.environ.pop(RUNNER_ENV, None)
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_split-"))
+
+    def args(videos: Path, out: str, **kw) -> split.SplitPipelineArgs:
+        return split.SplitPipelineArgs(
+            input_path=str(videos), output_path=str(root / out), fixed_stride_len_s=1.0, min_clip_len_s=0.5,
+            extract_fps=(8.0,), extract_resize_hw=(224, 224), embedding_model="video", **kw)
+
+    # run A: bench.py's headline row through the default runner
+    runner = default_runner()
+    assert isinstance(runner, PipelinedRunner), f"default runner is {type(runner).__name__}"
+    a = split_run(dev, args(root / "videos", "out_a"), runner, stage_classes)
+    summary = a["summary"]
+    for key in ("num_clips", "num_transcoded", "num_with_embeddings"):
+        assert summary[key] == SPLIT_CLIPS, f"run A: {key} = {summary[key]}, not {SPLIT_CLIPS}"
+    assert summary["num_videos"] == SPLIT_VIDEOS and summary["num_errors"] == 0, summary
+    assert runner.dlq is None or runner.dlq.recorded == 0, "run A dropped a batch"
+    metas, embs, files = split_outputs(root / "out_a", model)
+    assert len(metas) == SPLIT_CLIPS, f"run A: {len(metas)} metas"
+    assert len(embs) == SPLIT_CLIPS and set(embs) == set(metas), f"run A: {len(embs)} parquet rows"
+    assert sum(f.startswith("clips/") for f in files) == SPLIT_CLIPS, "run A: clip files"
+    assert sum(f.startswith("processed_videos/") for f in files) == SPLIT_VIDEOS, "run A: resume records"
+    check_unit_embeddings(embs, cfg.output_dim, "run A")
+    codecs = sorted({m["codec"] for m in metas.values()})
+    assert len(codecs) == 1 and codecs[0], f"run A: codecs {codecs}"
+    assert a["launches"]["flash"] > 0, "run A: flash was not launched"
+    # the kernels phase checked and timed flash at every embed dispatch
+    off_cases = a["flash_shapes"] - checked_shapes
+    assert not off_cases, f"run A: flash cases off the split path: {sorted(off_cases)}"
+    run_a = dict(
+        videos=SPLIT_VIDEOS, clips=summary["num_clips"], num_transcoded=summary["num_transcoded"],
+        num_with_embeddings=summary["num_with_embeddings"], metas=len(metas), parquet_rows=len(embs),
+        wall_s=a["wall"], clips_per_s=summary["num_clips"] / a["wall"],
+        pipeline_run_time_s=summary["pipeline_run_time_s"],
+        video_hours_per_day_per_chip=summary["video_hours_per_day_per_chip"],
+        codec=codecs[0], native_h264=h264_status(), stages=stage_busy(a["spans"], a["wall"]),
+        overlap_frac=runner.overlap_frac, launches=a["launches"],
+        peak_device_memory_bytes=a["peak_device"], peak_host_rss_bytes=a["peak_rss"],
+        host_rss_at_start_bytes=a["start_rss"],
+    )
+
+    # resume: a second run_split on run A's output finds every video done
+    assert discover_split_tasks(str(root / "videos"), str(root / "out_a")) == [], "resume: videos rediscovered"
+    again = split_run(dev, args(root / "videos", "out_a"), default_runner(), stage_classes)
+    assert again["summary"]["num_videos"] == 0, f"resume: {again['summary']['num_videos']} videos rerun"
+
+    # run B: split-annotate on the first videos, captions at VLM_BASE
+    SharedCaptionEngine.reset()
     try:
-        t0 = time.monotonic()
-        corpus = make_corpus(root / "videos")
-        corpus_s = time.monotonic() - t0
-
-        def subset(name: str, n: int) -> Path:
-            d = root / name
-            d.mkdir()
-            for path in corpus[:n]:
-                (d / path.name).symlink_to(path)
-            return d
-
-        def args(videos: Path, out: str, **kw) -> split.SplitPipelineArgs:
-            return split.SplitPipelineArgs(
-                input_path=str(videos), output_path=str(root / out), fixed_stride_len_s=1.0, min_clip_len_s=0.5,
-                extract_fps=(8.0,), extract_resize_hw=(224, 224), embedding_model="video", **kw)
-
-        def run(a: split.SplitPipelineArgs, runner) -> dict:
-            """One run_split with every launch counter zeroed just before it:
-            summary, wall, launches, stage spans, flash shapes, peaks."""
-            ks = kernels()
-            for k in ks.values():
-                k.launches = 0
-            spans: list = []
-            rss: dict = {}
-            shapes: set = set()
-            gc.collect()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            with timed_stages(stage_classes, spans), peak_rss(rss), recorded_flash_shapes(shapes):
-                t0 = time.monotonic()
-                summary = split.run_split(a, runner=runner)
-                torch.cuda.synchronize()
-                wall = time.monotonic() - t0
-            return dict(summary=summary, wall=wall, launches={name: k.launches for name, k in ks.items()},
-                        spans=spans, flash_shapes=shapes, peak_device=torch.cuda.max_memory_allocated(dev),
-                        peak_rss=rss["bytes"], start_rss=rss["start"])
-
-        def outputs(out: Path) -> tuple[dict, dict, set]:
-            """(uuid -> meta, uuid -> embedding, output file names)."""
-            metas = {p.stem: json.loads(p.read_text()) for p in (out / "metas" / "v0").glob("*.json")}
-            embs = {}
-            for path in (out / "embeddings" / model).glob("*.parquet"):
-                table = pq.read_table(path).to_pydict()
-                for uuid, emb in zip(table["clip_uuid"], table["embedding"], strict=True):
-                    assert uuid not in embs, f"{uuid} embedded twice"
-                    embs[uuid] = np.asarray(emb, np.float32)
-            files = {str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()}
-            return metas, embs, files
-
-        def stage_busy(spans: list, wall: float) -> dict:
-            by = collections.defaultdict(lambda: {"calls": 0, "tasks": 0, "clips": 0, "busy_s": 0.0, "threads": set()})
-            for name, thread, n_tasks, n_clips, t0, t1 in spans:
-                rec = by[name]
-                rec["calls"] += 1
-                rec["tasks"] += n_tasks
-                rec["clips"] += n_clips
-                rec["busy_s"] += t1 - t0
-                rec["threads"].add(thread)
-            return {name: {**rec, "threads": sorted(rec["threads"]), "busy_share": rec["busy_s"] / wall,
-                           "busy_ms_per_call": 1e3 * rec["busy_s"] / rec["calls"]} for name, rec in by.items()}
-
-        def check_embeddings(embs: dict, label: str) -> None:
-            for uuid, emb in embs.items():
-                assert emb.shape == (cfg.output_dim,) and np.isfinite(emb).all(), f"{label}: embedding of {uuid}"
-                assert abs(float(np.linalg.norm(emb)) - 1.0) < 1e-2, f"{label}: embedding of {uuid} is not unit-norm"
-
-        # run A: bench.py's headline row through the default runner
-        runner = default_runner()
-        assert isinstance(runner, PipelinedRunner), f"default runner is {type(runner).__name__}"
-        a = run(args(root / "videos", "out_a"), runner)
-        summary = a["summary"]
-        for key in ("num_clips", "num_transcoded", "num_with_embeddings"):
-            assert summary[key] == SPLIT_CLIPS, f"run A: {key} = {summary[key]}, not {SPLIT_CLIPS}"
-        assert summary["num_videos"] == SPLIT_VIDEOS and summary["num_errors"] == 0, summary
-        assert runner.dlq is None or runner.dlq.recorded == 0, "run A dropped a batch"
-        metas, embs, files = outputs(root / "out_a")
-        assert len(metas) == SPLIT_CLIPS, f"run A: {len(metas)} metas"
-        assert len(embs) == SPLIT_CLIPS and set(embs) == set(metas), f"run A: {len(embs)} parquet rows"
-        assert sum(f.startswith("clips/") for f in files) == SPLIT_CLIPS, "run A: clip files"
-        assert sum(f.startswith("processed_videos/") for f in files) == SPLIT_VIDEOS, "run A: resume records"
-        check_embeddings(embs, "run A")
-        codecs = sorted({m["codec"] for m in metas.values()})
-        assert len(codecs) == 1 and codecs[0], f"run A: codecs {codecs}"
-        assert a["launches"]["flash"] > 0, "run A: flash was not launched"
-        # the kernels phase checked and timed flash at every embed dispatch
-        off_cases = a["flash_shapes"] - checked_shapes
-        assert not off_cases, f"run A: flash cases off the split path: {sorted(off_cases)}"
-        run_a = dict(
-            videos=SPLIT_VIDEOS, clips=summary["num_clips"], num_transcoded=summary["num_transcoded"],
-            num_with_embeddings=summary["num_with_embeddings"], metas=len(metas), parquet_rows=len(embs),
-            wall_s=a["wall"], clips_per_s=summary["num_clips"] / a["wall"],
-            pipeline_run_time_s=summary["pipeline_run_time_s"],
-            video_hours_per_day_per_chip=summary["video_hours_per_day_per_chip"],
-            codec=codecs[0], native_h264=h264_status(), stages=stage_busy(a["spans"], a["wall"]),
-            overlap_frac=runner.overlap_frac, launches=a["launches"],
-            peak_device_memory_bytes=a["peak_device"], peak_host_rss_bytes=a["peak_rss"],
-            host_rss_at_start_bytes=a["start_rss"],
-        )
-
-        # resume: a second run_split on run A's output finds every video done
-        assert discover_split_tasks(str(root / "videos"), str(root / "out_a")) == [], "resume: videos rediscovered"
-        again = run(args(root / "videos", "out_a"), default_runner())
-        assert again["summary"]["num_videos"] == 0, f"resume: {again['summary']['num_videos']} videos rerun"
-
-        # run B: split-annotate on the first videos, captions at VLM_BASE
-        SharedCaptionEngine.reset()
-        try:
-            b = run(args(subset("videos_b", SPLIT_CAPTION_VIDEOS), "out_b", captioning=True, caption_model="base"),
-                    default_runner())
-        finally:
-            SharedCaptionEngine.reset()
-        b_metas, b_embs, _ = outputs(root / "out_b")
-        b_clips = SPLIT_CAPTION_VIDEOS * SPLIT_CLIPS // SPLIT_VIDEOS
-        windows = [w for m in b_metas.values() for w in m["windows"]]
-        assert len(b_metas) == b_clips and len(b_embs) == b_clips, f"run B: {len(b_metas)} metas"
-        assert all(m["windows"] for m in b_metas.values()), "run B: a clip has no caption window"
-        assert all(w["captions"].get("default") for w in windows), "run B: a window has no caption"
-        assert b["summary"]["num_with_captions"] == b_clips, b["summary"]
-        check_embeddings(b_embs, "run B")
-        for name in PIPELINE_KERNELS:
-            assert b["launches"][name] > 0, f"run B: kernel {name} was not launched"
-        run_b = dict(videos=SPLIT_CAPTION_VIDEOS, clips=len(b_metas), windows_captioned=len(windows),
-                     wall_s=b["wall"], clips_per_s=len(b_metas) / b["wall"],
-                     video_hours_per_day_per_chip=b["summary"]["video_hours_per_day_per_chip"],
-                     stages=stage_busy(b["spans"], b["wall"]), launches=b["launches"],
-                     peak_device_memory_bytes=b["peak_device"], peak_host_rss_bytes=b["peak_rss"],
-                     host_rss_at_start_bytes=b["start_rss"])
-
-        # the two runners on the same videos
-        videos_c = subset("videos_c", SPLIT_AGREEMENT_VIDEOS)
-        seq = run(args(videos_c, "out_seq"), SequentialRunner())
-        piped = run(args(videos_c, "out_piped"), default_runner())
-        s_metas, s_embs, s_files = outputs(root / "out_seq")
-        p_metas, p_embs, p_files = outputs(root / "out_piped")
-        assert set(s_metas) == set(p_metas) and len(s_metas) == SPLIT_AGREEMENT_VIDEOS * 4, "runners: clip uuids"
-        assert {f for f in s_files if f != "summary.json"} == {f for f in p_files if f != "summary.json"}, \
-            "runners: output files"
-        emb_diff = max(float(np.abs(s_embs[u] - p_embs[u]).max()) for u in s_embs)
-        assert emb_diff <= EMBED_BOUND, f"runners: embeddings differ by {emb_diff} > {EMBED_BOUND}"
-        for key in ("num_clips", "num_transcoded", "num_with_embeddings"):
-            assert seq["summary"][key] == piped["summary"][key] == SPLIT_AGREEMENT_VIDEOS * 4, key
-
-        # flash at every shape of the phase the kernels phase did not check
-        # (the caption ViT tower's batches of run B), against its plain version
-        rng = np.random.default_rng(SEED + 7)
-
-        def bf16(*shape):
-            return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
-
-        ran = set().union(*(r["flash_shapes"] for r in (a, again, b, seq, piped)))
-        flash_here = {f"{'x'.join(map(str, shape))}{'_causal' if causal else ''}": check_flash(
-            timer, bf16, shape, causal, "split") for shape, causal in sorted(ran - checked_shapes)}
-        return dict(
-            cpu_count=os.cpu_count(), corpus={"videos": SPLIT_VIDEOS, "size": [SPLIT_FRAME_W, SPLIT_FRAME_H],
-                                              "seconds": SPLIT_NUM_SCENES * SPLIT_SCENE_FRAMES / 24,
-                                              "build_s": corpus_s},
-            run_a=run_a, run_b=run_b,
-            runners={"clips": len(s_metas), "same_clip_uuids": True, "same_output_files": True,
-                     "max_abs_embedding_diff": emb_diff, "embed_bound": EMBED_BOUND,
-                     "sequential_wall_s": seq["wall"], "pipelined_wall_s": piped["wall"]},
-            resume={"videos_discovered": again["summary"]["num_videos"], "wall_s": again["wall"]},
-            flash_shapes={"run_a": [list(shape) for shape, _ in sorted(a["flash_shapes"])],
-                          "run_b": [list(shape) for shape, _ in sorted(b["flash_shapes"])],
-                          "checked_here": flash_here},
-            split_launches={name: run_a["launches"][name] + run_b["launches"][name] for name in run_a["launches"]},
-        )
+        b = split_run(dev, args(subset(root, corpus, "videos_b", SPLIT_CAPTION_VIDEOS), "out_b", captioning=True,
+                                caption_model="base"), default_runner(), stage_classes)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        SharedCaptionEngine.reset()
+    b_metas, b_embs, _ = split_outputs(root / "out_b", model)
+    b_clips = SPLIT_CAPTION_VIDEOS * SPLIT_CLIPS // SPLIT_VIDEOS
+    windows = [w for m in b_metas.values() for w in m["windows"]]
+    assert len(b_metas) == b_clips and len(b_embs) == b_clips, f"run B: {len(b_metas)} metas"
+    assert all(m["windows"] for m in b_metas.values()), "run B: a clip has no caption window"
+    assert all(w["captions"].get("default") for w in windows), "run B: a window has no caption"
+    assert b["summary"]["num_with_captions"] == b_clips, b["summary"]
+    check_unit_embeddings(b_embs, cfg.output_dim, "run B")
+    for name in PIPELINE_KERNELS:
+        assert b["launches"][name] > 0, f"run B: kernel {name} was not launched"
+    run_b = dict(videos=SPLIT_CAPTION_VIDEOS, clips=len(b_metas), windows_captioned=len(windows),
+                 wall_s=b["wall"], clips_per_s=len(b_metas) / b["wall"],
+                 video_hours_per_day_per_chip=b["summary"]["video_hours_per_day_per_chip"],
+                 stages=stage_busy(b["spans"], b["wall"]), launches=b["launches"],
+                 peak_device_memory_bytes=b["peak_device"], peak_host_rss_bytes=b["peak_rss"],
+                 host_rss_at_start_bytes=b["start_rss"])
+
+    # the two runners on the same videos
+    videos_c = subset(root, corpus, "videos_c", SPLIT_AGREEMENT_VIDEOS)
+    seq = split_run(dev, args(videos_c, "out_seq"), SequentialRunner(), stage_classes)
+    piped = split_run(dev, args(videos_c, "out_piped"), default_runner(), stage_classes)
+    s_metas, s_embs, s_files = split_outputs(root / "out_seq", model)
+    p_metas, p_embs, p_files = split_outputs(root / "out_piped", model)
+    assert set(s_metas) == set(p_metas) and len(s_metas) == SPLIT_AGREEMENT_VIDEOS * 4, "runners: clip uuids"
+    assert {f for f in s_files if f != "summary.json"} == {f for f in p_files if f != "summary.json"}, \
+        "runners: output files"
+    emb_diff = max(float(np.abs(s_embs[u] - p_embs[u]).max()) for u in s_embs)
+    assert emb_diff <= EMBED_BOUND, f"runners: embeddings differ by {emb_diff} > {EMBED_BOUND}"
+    for key in ("num_clips", "num_transcoded", "num_with_embeddings"):
+        assert seq["summary"][key] == piped["summary"][key] == SPLIT_AGREEMENT_VIDEOS * 4, key
+
+    # flash at every shape of the phase the kernels phase did not check
+    # (the caption ViT tower's batches of run B), against its plain version
+    ran = set().union(*(r["flash_shapes"] for r in (a, again, b, seq, piped)))
+    flash_here = check_new_flash_shapes(timer, ran, SEED + 7)
+    return dict(
+        cpu_count=os.cpu_count(), corpus={"videos": SPLIT_VIDEOS, "size": [SPLIT_FRAME_W, SPLIT_FRAME_H],
+                                          "seconds": SPLIT_NUM_SCENES * SPLIT_SCENE_FRAMES / 24,
+                                          "build_s": corpus_s},
+        run_a=run_a, run_b=run_b,
+        runners={"clips": len(s_metas), "same_clip_uuids": True, "same_output_files": True,
+                 "max_abs_embedding_diff": emb_diff, "embed_bound": EMBED_BOUND,
+                 "sequential_wall_s": seq["wall"], "pipelined_wall_s": piped["wall"]},
+        resume={"videos_discovered": again["summary"]["num_videos"], "wall_s": again["wall"]},
+        flash_shapes={"run_a": [list(shape) for shape, _ in sorted(a["flash_shapes"])],
+                      "run_b": [list(shape) for shape, _ in sorted(b["flash_shapes"])],
+                      "checked_here": flash_here},
+        split_launches={name: run_a["launches"][name] + run_b["launches"][name] for name in run_a["launches"]},
+    )
+
+
+@contextlib.contextmanager
+def recorded_transitions(probs: list):
+    """Every TransNetV2 ``predict_transitions`` result of the duration
+    appended to ``probs``."""
+    from cosmos_curate_tpu_torch.models.transnetv2 import TransNetV2
+
+    saved = TransNetV2.predict_transitions
+
+    def predict(self, frames):
+        p = saved(self, frames)
+        probs.append(p)
+        return p
+
+    TransNetV2.predict_transitions = predict
+    try:
+        yield
+    finally:
+        TransNetV2.predict_transitions = saved
+
+
+def drive_canonical(dev, timer, root: Path, corpus: list[Path]) -> dict:
+    """Run C: the canonical split (TransNetV2 shot detection -> transcode ->
+    frames -> aesthetic filter -> CLIP embeddings -> writer) through
+    ``run_split`` on the split corpus, then the detector and the L/14 tower
+    held against their plain versions."""
+    from cosmos_curate_tpu_torch.core.runner import default_runner
+    from cosmos_curate_tpu_torch.models.clip import CLIPImageEmbeddings
+    from cosmos_curate_tpu_torch.models.transnetv2 import INPUT_H, INPUT_W, TransNet, TransNetV2, transition_windows
+    from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention_plain
+    from cosmos_curate_tpu_torch.pipelines.video import split
+    from cosmos_curate_tpu_torch.pipelines.video.stages.writer import ClipWriterStage
+    from cosmos_curate_tpu_torch.video.decode import decode_frames, extract_video_metadata
+    from cosmos_curate_tpu_torch.video.splitter import scene_spans_from_predictions
+
+    stage_classes = (split.VideoDownloadStage, split.TransNetV2ClipExtractionStage, split.ClipTranscodingStage,
+                     split.ClipFrameExtractionStage, split.AestheticFilterStage, split.ClipEmbeddingStage,
+                     ClipWriterStage)
+    out = root / "out_canonical"
+    args = split.SplitPipelineArgs(
+        input_path=str(corpus[0].parent), output_path=str(out), splitting_algorithm="transnetv2",
+        transnetv2_threshold=CANONICAL_SHOT_THRESHOLD, min_clip_len_s=0.5, max_clip_len_s=CANONICAL_CLIP_LEN_S,
+        extract_fps=(8.0,), extract_resize_hw=(224, 224), aesthetic_threshold=AESTHETIC_THRESHOLD,
+        embedding_model="clip")
+    runner = default_runner()
+    probs: list = []
+    with recorded_transitions(probs):
+        c = split_run(dev, args, runner, stage_classes)
+    summary = c["summary"]
+    assert summary["num_videos"] == len(corpus) and summary["num_errors"] == 0, summary
+    kept, embs, _ = split_outputs(out, "clip-vit-b16-tpu")
+    filtered = {p.stem: json.loads(p.read_text()) for p in (out / "metas" / "filtered").glob("*.json")}
+    scores = {u: m["aesthetic_score"] for u, m in {**kept, **filtered}.items()}
+    ordered = sorted(scores.values())
+    # no frame is a cut: each 4 s video is one scene, four 1 s clips
+    assert summary["num_clips"] == len(scores) == SPLIT_CLIPS, (summary, len(scores))
+    assert all(isinstance(v, float) and np.isfinite(v) for v in ordered), "a clip's meta has no aesthetic score"
+    assert all(scores[u] >= AESTHETIC_THRESHOLD and not m["filtered_by"] for u, m in kept.items()), ordered
+    assert all(scores[u] < AESTHETIC_THRESHOLD and m["filtered_by"] == "aesthetic" for u, m in filtered.items())
+    assert summary["num_filtered_by_aesthetic"] == len(filtered), summary
+    assert set(embs) == set(kept), "a kept clip has no CLIP embedding, or a filtered one has"
+    check_unit_embeddings(embs, 512, "run C")
+    assert c["launches"]["flash"] > 0, "run C: flash was not launched"
+    flash_here = check_new_flash_shapes(timer, c["flash_shapes"], SEED + 8)
+
+    # the detector's probabilities in the run, and what the default
+    # threshold would have cut
+    assert len(probs) == len(corpus), f"the detector ran {len(probs)} times"
+    allp = np.concatenate(probs)
+    assert allp.max() < CANONICAL_SHOT_THRESHOLD
+    fps = extract_video_metadata(str(corpus[0])).fps
+    scenes = sum(len(scene_spans_from_predictions(p, fps, threshold=0.4)) for p in probs)
+    # bf16 detector (the stage's seeded init) vs the fp32 module on one
+    # video's windows (cuDNN's TF32 off: the fp32 convolutions are fp32)
+    detector = TransNetV2(device=dev)
+    detector.setup()
+    _, windows = transition_windows(decode_frames(str(corpus[0]), resize_hw=(INPUT_H, INPUT_W)))
+    with torch.device(dev):
+        ref = TransNet(detector.cfg, dtype=torch.float32)
+    ref.load_state_dict(detector.model.state_dict())
+    x = torch.from_numpy(windows).to(dev)
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        det_err = (torch.sigmoid(detector.model(x)) - torch.sigmoid(ref(x))).abs().max().item()
+    assert det_err <= TRANSNET_BOUND, f"detector: bf16 vs fp32 {det_err} > {TRANSNET_BOUND}"
+    del ref, detector
+
+    # the L/14 tower on every third frame of the first kept clips (32
+    # frames) with the flash kernel, with its plain version, and with that
+    # version short of a key tile
+    tower = CLIPImageEmbeddings("clip-vit-l14-tpu", device=dev)
+    tower.setup()
+    frames = np.concatenate([decode_frames(str(out / "clips" / f"{u}.mp4"), stride=3, resize_hw=(224, 224))
+                             for u in sorted(kept)[:CANONICAL_L14_CLIPS]])
+    with_kernel = tower.encode_frames(frames)
+    l14 = {}
+    for label, attn in (("plain", flash_attention_plain), ("first_tile_dropped", tile_dropping_flash(True)),
+                        ("last_tile_dropped", tile_dropping_flash(False))):
+        with swapped_flash(attn):
+            l14[label] = float(np.abs(tower.encode_frames(frames) - with_kernel).max())
+    assert l14["plain"] <= EMBED_BOUND, f"L/14: kernel vs plain flash {l14['plain']} > {EMBED_BOUND}"
+    # a lost 64-key first tile shows in the embeddings; the last tile holds
+    # one key of 257, whose loss moves them less than the kernel's own
+    # rounding does (PERF.md): the kernels phase's check at [32,16,257,64]
+    # is the one that catches it (BOUND against the plain version)
+    assert l14["first_tile_dropped"] > EMBED_BOUND, f"L/14: the bound misses a dropped first tile ({l14})"
+    del tower
+    result = dict(
+        videos=len(corpus), wall_s=c["wall"], clips=summary["num_clips"], kept=len(kept),
+        filtered=len(filtered), aesthetic_threshold=AESTHETIC_THRESHOLD, aesthetic_scores=ordered,
+        clips_per_s=summary["num_clips"] / c["wall"],
+        video_hours_per_day_per_chip=summary["video_hours_per_day_per_chip"],
+        stages=stage_busy(c["spans"], c["wall"]), overlap_frac=runner.overlap_frac, launches=c["launches"],
+        flash_shapes=[list(shape) for shape, _ in sorted(c["flash_shapes"])], flash_checked_here=flash_here,
+        peak_device_memory_bytes=c["peak_device"], peak_host_rss_bytes=c["peak_rss"],
+        detector={"shot_threshold": CANONICAL_SHOT_THRESHOLD, "frames": int(allp.size),
+                  "prob_min": float(allp.min()), "prob_mean": float(allp.mean()), "prob_max": float(allp.max()),
+                  "cut_frames_at_0.4": int((allp >= 0.4).sum()), "scenes_at_0.4": scenes,
+                  "max_abs_err_bf16_vs_fp32": det_err, "bound": TRANSNET_BOUND, "windows_checked": len(windows)},
+        l14_frames=len(frames), l14_max_abs_err_vs_plain_flash=l14["plain"], embed_bound=EMBED_BOUND,
+        l14_max_abs_err_vs_plain_flash_with_a_tile_dropped={k: v for k, v in l14.items() if k != "plain"},
+    )
+    assert kept and filtered, f"the threshold {AESTHETIC_THRESHOLD} does not split the scores: {json.dumps(result)}"
+    return result
+
+
+def drive_iv2(dev) -> dict:
+    """ClipEmbeddingStage(variant="iv2") at IV2_1B on a seeded state_dict
+    with LayerScale drawn uniform 0.05-0.2 (numpy), over IV2_CALLS calls of
+    EMBED_STAGE_TASK_BATCH tasks x 4 clips x 8 random 224^2 frames."""
+    import cosmos_curate_tpu_torch.models.internvideo2 as iv2
+    from cosmos_curate_tpu_torch.core.stage import WorkerMetadata
+    from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature
+    from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import ClipEmbeddingStage
+
+    cfg = iv2.IV2_1B
+    extraction = FrameExtractionSignature("fps", 8.0)
+    key = extraction.key()
+
+    # no params and no staged checkpoint: the stage refuses to serve noise
+    bare = ClipEmbeddingStage(variant="iv2", extraction=extraction, device=dev)
+    try:
+        bare.setup(WorkerMetadata(stage_name="iv2"))
+    except RuntimeError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("ClipEmbeddingStage(variant='iv2') set up without weights")
+    assert bare.model.model is None
+
+    t0 = time.monotonic()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    with torch.device(dev):
+        ref = iv2.InternVideo2Tower(cfg, dtype=torch.float32)
+    ref.init_weights(gen)
+    rng = np.random.default_rng(SEED + 11)
+    with torch.no_grad():
+        for block in ref.blocks:
+            for ls in (block.ls1, block.ls2):
+                ls.copy_(torch.from_numpy(rng.uniform(0.05, 0.2, cfg.embed_dim).astype(np.float32)))
+    ref.eval().requires_grad_(False)
+    stage = ClipEmbeddingStage(variant="iv2", extraction=extraction, params=ref.state_dict(), device=dev)
+    stage.setup(WorkerMetadata(stage_name="iv2"))
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    batches = [random_clip_tasks(rng, f"iv2-{c}", key, cfg.num_frames, cfg.img_size) for c in range(IV2_CALLS + 1)]
+    stage.process_data(batches[0])  # warm-up
+    torch.cuda.synchronize()
+
+    pipeline = stage.model.device_pipeline
+    pipeline.records.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    for tasks in batches[1:]:
+        stage.process_data(tasks)
+    torch.cuda.synchronize()
+    elapsed = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    records = list(pipeline.records)
+    clips = [c for tasks in batches[1:] for t in tasks for c in t.video.clips]
+    check_unit_embeddings({str(c.uuid): c.embeddings[stage.model_name] for c in clips}, cfg.proj_dim, "iv2")
+
+    # the attention's share of one call's device time: CUDA events around
+    # every attention call, over the dispatch's compute interval
+    spans = []
+    plain_attention = iv2.attention
+
+    def timed_attention(q, k, v, dtype):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain_attention(q, k, v, dtype)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    iv2.attention = timed_attention
+    try:
+        pipeline.records.clear()
+        stage.process_data(batches[1])
+        torch.cuda.synchronize()
+    finally:
+        iv2.attention = plain_attention
+    attn_ms = sum(a.elapsed_time(b) for a, b in spans)
+    call_compute_ms = 1e3 * sum(r.compute_s for r in pipeline.records)
+
+    # bf16 stage embeddings vs the same module in fp32, on one 4-clip batch
+    check = [c.extracted_frames[key] for c in batches[1][0].video.clips[:IV2_CHECK_CLIPS]]
+    got = stage.model.encode_clips(check)
+    with torch.inference_mode():
+        want = ref(torch.from_numpy(np.stack(check)).to(dev)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    assert err <= IV2_BOUND, f"iv2: bf16 vs fp32 {err} > {IV2_BOUND}"
+    n_disp = len(records)
+    out = dict(
+        config={"embed_dim": cfg.embed_dim, "depth": cfg.depth, "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+                "mlp_hidden": cfg.mlp_hidden, "num_frames": cfg.num_frames, "img_size": cfg.img_size,
+                "tokens": cfg.num_patches + 1, "proj_dim": cfg.proj_dim,
+                "attention_chunk_clips": iv2.ATTN_CHUNK_CLIPS},
+        refusal_without_weights=refusal, setup_s=setup_s, stage_calls=IV2_CALLS, clips=len(clips),
+        dispatches=n_disp, elapsed_s=elapsed, clips_per_s=len(clips) / elapsed,
+        h2d_ms_per_dispatch=1e3 * sum(r.h2d_s for r in records) / n_disp,
+        compute_ms_per_dispatch=1e3 * sum(r.compute_s for r in records) / n_disp,
+        d2h_ms_per_dispatch=1e3 * sum(r.d2h_s for r in records) / n_disp,
+        gap_ms_per_dispatch=1e3 * sum(r.gap_s for r in records) / n_disp,
+        rows_per_dispatch=[r.rows for r in records], peak_memory_bytes=peak,
+        attention_ms_per_call=attn_ms, compute_ms_per_call=call_compute_ms,
+        attention_share_of_compute=attn_ms / call_compute_ms, attention_calls_per_call=len(spans),
+        max_abs_err_bf16_vs_fp32=err, bound=IV2_BOUND, clips_checked=len(check),
+    )
+    del stage, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_prologue(dev) -> tuple:
+    """What ``scripts/*_phase.py`` run before their phases: every kernel
+    built, the card line printed, flash checked and timed at
+    ``FLASH_CASES`` (a ``flash`` line). Returns (timer, build seconds)."""
+    from cosmos_curate_tpu_torch.ops import _build
+
+    t0 = time.monotonic()
+    _build.build_all()
+    build_s = time.monotonic() - t0
+    print(card_line(), flush=True)
+    timer = Timer(dev)
+    bf16 = random_bf16(np.random.default_rng(SEED), dev)
+    flash = {label: check_flash(timer, bf16, shape, causal, label) for label, shape, causal in FLASH_CASES}
+    emit({"phase": "flash", "bound": BOUND, "cases": flash})
+    return timer, build_s
 
 
 def main() -> int:
@@ -1747,6 +2102,7 @@ def main() -> int:
     from cosmos_curate_tpu_torch.models.vlm import VLM_BASE
     from cosmos_curate_tpu_torch.ops import _build, kernels
 
+    started = time.monotonic()
     dev = torch.device("cuda", 0)
     card = card_line()
     emit({"phase": "device", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1808,8 +2164,12 @@ def main() -> int:
     for name in PIPELINE_KERNELS:
         assert pipeline["launches"][name] > 0, f"kernel {name} was not launched on the pipeline path"
 
-    split_run = drive_split(dev, timer)
-    emit({"phase": "split", **split_run})
+    with split_corpus() as (root, corpus, corpus_s):
+        split_run = drive_split(dev, timer, root, corpus, corpus_s)
+        emit({"phase": "split", **split_run})
+        canonical = drive_canonical(dev, timer, root, corpus)
+        emit({"phase": "canonical", **canonical})
+    emit({"phase": "iv2", **drive_iv2(dev)})
 
     launches = {"embed": embed["launches"], "slice": record["launches"], "gather": gather["launches"]}
     for path, counts in launches.items():
@@ -1826,7 +2186,9 @@ def main() -> int:
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], bound_share=c["bound_share"], vs_library=c["vs_library"],
             pipeline_launches=pipeline["launches"][name], split_launches=split_run["split_launches"][name],
+            canonical_launches=canonical["launches"][name],
         ))
+    emit({"phase": "timing", "script_s": time.monotonic() - started})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import abc
 
+import torch
+
 
 class ModelInterface(abc.ABC):
     """Base class for all models driven by pipeline stages."""
@@ -35,3 +37,15 @@ class ModelInterface(abc.ABC):
     @abc.abstractmethod
     def setup(self) -> None:
         """Load weights and build the inference callable (inside a worker)."""
+
+
+def model_device(device: str | torch.device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device where CUDA is not
+    available raises: a model never falls back to the CPU by itself."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} runs on the GPU by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain versions on the CPU"
+        )
+    return device

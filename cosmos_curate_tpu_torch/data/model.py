@@ -3,8 +3,8 @@
 embed and caption stages read and write; each later stage's port adds the
 fields it uses).
 
-Not ported with their stages: the motion, aesthetic, text and semantic
-scores, tracks, previews and T5 embeddings (ROADMAP queue A item 8), and
+Not ported with their stages: the motion, text and semantic scores,
+tracks, previews and T5 embeddings (ROADMAP queue A item 8), and
 ``SplitPipeTask.aux_videos`` / ``Video.camera`` of multicam sessions
 (item 11). The writer's meta still writes their keys with the reference's
 empty values.
@@ -137,6 +137,7 @@ class Clip:
     # model name -> float32 embedding
     embeddings: dict[str, np.ndarray] = field(default_factory=dict)
     windows: list[Window] = field(default_factory=list)
+    aesthetic_score: float | None = None
     filtered_by: str = ""  # which filter removed this clip ("" = kept)
     errors: dict[str, str] = field(default_factory=dict)
 

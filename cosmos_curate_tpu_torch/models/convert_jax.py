@@ -6,11 +6,13 @@ The port names its modules after the flax ones, so the map is mechanical:
 - path parts ``layer_{i}`` / ``block_{i}`` -> ``layers.{i}`` / ``blocks.{i}``,
   ``layers_{i}`` (an ``nn.Sequential`` child, e.g. the projector) -> ``{i}``;
 - Dense ``kernel [in, out]`` -> ``Linear.weight [out, in]``;
-- Conv ``kernel`` HWIO -> ``Conv2d.weight`` OIHW;
+- Conv ``kernel`` HWIO -> ``Conv2d.weight`` OIHW, and a 3-D conv's
+  ``[kt, kh, kw, in, out]`` -> ``Conv3d.weight [out, in, kt, kh, kw]``;
 - ``Embed.embedding`` -> ``Embedding.weight``;
 - LayerNorm / RMSNorm ``scale`` -> ``weight`` (``bias`` stays ``bias``);
 - raw params (``cls``, ``pos_embed``, the pooler's ``query`` and
-  ``time_embed``) keep their names;
+  ``time_embed``, InternVideo2's LayerScale ``ls1`` / ``ls2``) keep their
+  names;
 - other module names carry over as they are: the video embedder's
   ``vit/...`` and ``pooler/t{i}/...`` become ``vit....`` and
   ``pooler.t{i}....``, because the port's pooler names its blocks ``t{i}``.
@@ -47,6 +49,8 @@ def _leaf(name: str, value) -> tuple[str, np.ndarray]:
             return "weight", arr.T
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 5:
+            return "weight", arr.transpose(4, 3, 0, 1, 2)
         raise ValueError(f"kernel of rank {arr.ndim} has no torch layout here")
     if name in ("embedding", "scale"):
         return "weight", arr

@@ -9,9 +9,9 @@ ViT-B/16, 4 in the base pooler) runs the flash kernel
 
 Weights: :meth:`VideoEmbedder.setup` initialises from a seed with flax's
 initialisers, or loads a ``state_dict`` given as ``params`` (for example
-the JAX model's parameters through ``models/convert_jax.py``). The JAX
-package's msgpack checkpoint loader is not ported (no such checkpoint is in
-the repository).
+the JAX model's parameters through ``models/convert_jax.py``); unlike the
+canonical path's models, it does not read a staged checkpoint through
+``models/registry.py`` yet (no such checkpoint is in the repository).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cosmos_curate_tpu_torch.core.model import ModelInterface
+from cosmos_curate_tpu_torch.core.model import ModelInterface, model_device
 from cosmos_curate_tpu_torch.models.device_pipeline import DevicePipeline
 from cosmos_curate_tpu_torch.models.layers import LayerNorm, Linear, TransformerBlock
 from cosmos_curate_tpu_torch.models.vit import VIT_B_16, VIT_TINY_TEST, ViT, ViTConfig, preprocess_frames
@@ -137,12 +137,7 @@ class VideoEmbedder(ModelInterface):
     ) -> None:
         """``params``: a ``state_dict`` of :class:`VideoEmbedModel`, or None
         to initialise from ``setup``'s seed."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "VideoEmbedder runs on the GPU by default and no CUDA device is "
-                "available; pass device='cpu' to run the plain versions on the CPU"
-            )
+        self.device = model_device(device, "VideoEmbedder")
         self.cfg = cfg
         self.model_id = model_id or self.MODEL_ID
         self.params = params

@@ -25,6 +25,16 @@ def _use_flash(x, mask) -> bool:
     return mask is None and x.device.type == "cuda"
 
 
+@torch.no_grad()
+def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's default kernel init in place: a normal truncated at two
+    standard deviations, scaled to variance 1 / fan-in (``w[0]``'s size for
+    torch's out-first Linear and Conv weights)."""
+    std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
+    unit = torch.nn.init.trunc_normal_(torch.empty_like(w), a=-2.0, b=2.0, generator=gen)
+    w.copy_(unit * std)
+
+
 class Linear(nn.Linear):
     """flax ``Dense(dtype=dtype, param_dtype=float32)``: weight ``[out, in]``
     (the transpose of flax's ``kernel [in, out]``); input, weight and bias

@@ -190,3 +190,25 @@ def load_params(
         model_id, local_dir_for(model_id) / "params.msgpack",
     )
     return init_fn(seed)
+
+
+def load_module(
+    module: torch.nn.Module,
+    model_id: str,
+    params: dict[str, torch.Tensor] | None = None,
+    *,
+    require: bool = False,
+) -> None:
+    """Fill ``module`` with ``params`` (its ``state_dict``) when given, else
+    with ``load_params(model_id)``: the staged checkpoint, or the module's
+    own seeded init (``module.init_weights(generator)``)."""
+    if params is None:
+
+        def init(s: int) -> dict[str, torch.Tensor]:
+            gen = torch.Generator(device=next(module.parameters()).device)
+            gen.manual_seed(s)
+            module.init_weights(gen)
+            return module.state_dict()
+
+        params = load_params(model_id, init, require=require)
+    module.load_state_dict(params, strict=True)

@@ -7,14 +7,13 @@ layout (``[B, H, W, 3]``) at the public functions.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cosmos_curate_tpu_torch.models.layers import LayerNorm, Linear, TransformerBlock
+from cosmos_curate_tpu_torch.models.layers import LayerNorm, Linear, TransformerBlock, lecun_normal_
 
 
 @dataclass(frozen=True)
@@ -39,6 +38,7 @@ class ViTConfig:
         return (self.image_size // self.patch_size) ** 2
 
 
+VIT_L_14 = ViTConfig()
 VIT_B_16 = ViTConfig(patch_size=16, width=768, layers=12, heads=12, projection_dim=512)
 VIT_TINY_TEST = ViTConfig(image_size=32, patch_size=8, width=64, layers=2, heads=4, projection_dim=32)
 
@@ -67,12 +67,8 @@ class ViT(nn.Module):
         """flax initialisers: lecun-normal (truncated) conv, normal(0.02)
         cls / pos, xavier-uniform dense (norms keep their construction-time
         unit scale and zero bias)."""
+        lecun_normal_(self.patch_embed.weight, gen)
         with torch.no_grad():
-            fan_in = self.patch_embed.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            w = self.patch_embed.weight
-            unit = torch.nn.init.trunc_normal_(torch.empty_like(w), a=-2.0, b=2.0, generator=gen)
-            w.copy_(unit * std)
             self.cls.normal_(0.0, 0.02, generator=gen)
             self.pos_embed.normal_(0.0, 0.02, generator=gen)
         for m in self.modules():

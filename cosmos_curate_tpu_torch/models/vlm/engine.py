@@ -37,6 +37,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from cosmos_curate_tpu_torch.core.model import model_device
 from cosmos_curate_tpu_torch.models.batching import next_pow2
 from cosmos_curate_tpu_torch.models.tokenizer import ByteTokenizer, default_caption_tokenizer
 from cosmos_curate_tpu_torch.models.vlm.model import VLM, VLMConfig, build_mrope_positions, init_cache
@@ -271,12 +272,7 @@ class CaptionEngine:
         ``models/convert_jax.py``), or None to initialise from ``setup``'s
         seed. ``device``: where the model and the KV pool live; "cuda"
         unless the caller asks for the CPU."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "CaptionEngine runs on the GPU by default and no CUDA device is "
-                "available; pass device='cpu' to run the plain versions on the CPU"
-            )
+        self.device = model_device(device, "CaptionEngine")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported yet (ROADMAP queue A: TP)"

@@ -1,9 +1,9 @@
 """The split-annotate pipeline: assembly + entry point (port of
 ``cosmos_curate_tpu/pipelines/video/split.py``).
 
-download → fixed-stride clips → transcode → frame extraction → [embed] →
-[caption prep → caption] → writer, through the port's own
-``run_pipeline``. The model stages run on ``SplitPipelineArgs.device``
+download → clips (fixed stride, or TransNetV2 shot detection) → transcode →
+frame extraction → [aesthetic filter] → [embed] → [caption prep →
+caption] → writer, through the port's own ``run_pipeline``. The model stages run on ``SplitPipelineArgs.device``
 ("cuda" unless the caller asks for the CPU).
 
 ``assemble_stages`` raises ``NotImplementedError``, naming the ROADMAP item,
@@ -29,6 +29,7 @@ from cosmos_curate_tpu_torch.core.runner import RunnerInterface, default_runner
 from cosmos_curate_tpu_torch.core.stage import Stage, StageSpec
 from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature
 from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_split_tasks
+from cosmos_curate_tpu_torch.pipelines.video.stages.aesthetic_filter import AestheticFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.captioning import CaptionPrepStage, CaptionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.clip_extraction import (
     ClipTranscodingStage,
@@ -37,6 +38,7 @@ from cosmos_curate_tpu_torch.pipelines.video.stages.clip_extraction import (
 from cosmos_curate_tpu_torch.pipelines.video.stages.download import VideoDownloadStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import ClipEmbeddingStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.frame_extraction import ClipFrameExtractionStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.shot_detection import TransNetV2ClipExtractionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.writer import INDEX_NOT_PORTED, ClipWriterStage
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 from cosmos_curate_tpu_torch.utils.summary import build_summary, write_summary
@@ -84,7 +86,7 @@ class SplitPipelineArgs:
     text_filter_threshold: float = 0.5
     semantic_filter: str = "disable"  # disable | score-only | enable
     semantic_filter_prompt: str = "default"
-    embedding_model: str = ""  # "" | "video" (| "clip", not ported)
+    embedding_model: str = ""  # "" | "clip" | "video" (and its widths) | "iv2"
     # persistent corpus index and incremental dedup
     corpus_index: bool = False
     index_path: str = ""
@@ -121,11 +123,9 @@ _LEGS = "ROADMAP queue A item 8"
 _OBSERVABILITY = "tracing, live status and the observability wrappers (ROADMAP queue A item 14)"
 # (option as set, whether args set it, what it waits for)
 _NOT_PORTED: tuple[tuple[str, Callable[[SplitPipelineArgs], bool], str], ...] = (
-    ("splitting_algorithm='transnetv2'", lambda a: a.splitting_algorithm == "transnetv2", f"shot detection, {_LEGS}"),
     ("sr", lambda a: a.sr, f"super resolution, {_LEGS}"),
     ("motion_filter", lambda a: a.motion_filter != "disable",
      "mv_extract.c with the motion filter (ROADMAP queue A item 16)"),
-    ("aesthetic_threshold", lambda a: a.aesthetic_threshold is not None, f"the canonical filters, {_LEGS}"),
     ("text_filter", lambda a: a.text_filter != "disable", f"OCR, {_LEGS}"),
     ("semantic_filter", lambda a: a.semantic_filter != "disable", f"the semantic filter, {_LEGS}"),
     ("incremental_dedup", lambda a: a.incremental_dedup != "disable", f"dedup, {_LEGS}"),
@@ -151,15 +151,24 @@ def assemble_stages(args: SplitPipelineArgs) -> list[Stage | StageSpec]:
     if refused:
         raise NotImplementedError("split options not ported yet: " + "; ".join(refused))
     primary_sig = FrameExtractionSignature("fps", args.extract_fps[0])
-    stages: list[Stage | StageSpec] = [
-        VideoDownloadStage(),
-        FixedStrideExtractorStage(clip_len_s=args.fixed_stride_len_s, min_clip_len_s=args.min_clip_len_s),
+    stages: list[Stage | StageSpec] = [VideoDownloadStage()]
+    if args.splitting_algorithm == "transnetv2":
+        stages.append(TransNetV2ClipExtractionStage(
+            threshold=args.transnetv2_threshold, min_clip_len_s=args.min_clip_len_s,
+            max_clip_len_s=args.max_clip_len_s, device=args.device))
+    else:
+        stages.append(FixedStrideExtractorStage(clip_len_s=args.fixed_stride_len_s,
+                                                min_clip_len_s=args.min_clip_len_s))
+    stages += [
         ClipTranscodingStage(num_threads=args.transcode_cpus, chunk_size=args.clip_chunk_size),
         ClipFrameExtractionStage(
             signatures=tuple(FrameExtractionSignature("fps", f) for f in args.extract_fps),
             resize_hw=args.extract_resize_hw,
         ),
     ]
+    if args.aesthetic_threshold is not None:
+        stages.append(AestheticFilterStage(threshold=args.aesthetic_threshold, extraction=primary_sig,
+                                           device=args.device))
     if args.embedding_model:
         stages.append(ClipEmbeddingStage(variant=args.embedding_model, extraction=primary_sig, device=args.device))
     if args.captioning:

@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from cosmos_curate_tpu_torch.core.model import ModelInterface
+from cosmos_curate_tpu_torch.core.model import ModelInterface, model_device
 from cosmos_curate_tpu_torch.core.stage import Resources, Stage
 from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature, SplitPipeTask, Window
 from cosmos_curate_tpu_torch.engine.metrics import get_metrics
@@ -122,12 +122,7 @@ class _CaptionVLM(ModelInterface):
         kv_lanes: tuple[tuple[int, int], ...] | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "the caption stage runs on the GPU by default and no CUDA device is "
-                "available; pass device='cpu' to run the plain versions on the CPU"
-            )
+        self.device = model_device(device, "the caption stage")
         self.cfg = cfg
         self.max_batch = max_batch
         self.model_id = model_id or self.MODEL_ID

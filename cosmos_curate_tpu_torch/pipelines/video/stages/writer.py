@@ -10,7 +10,7 @@ Writing the resume record **last** is the crash-safety contract: a video is
 only skipped on re-run if all its chunks finished writing.
 
 A clip meta carries every key of the reference's. The keys of stages not
-ported yet (motion, aesthetic, text and semantic scores, dedup, tracks, event
+ported yet (motion, text and semantic scores, dedup, tracks, event
 captions, enhanced captions, T5 embeddings) hold the reference's empty
 values, so the file format stays the same.
 
@@ -49,7 +49,7 @@ def _clip_meta(clip: Clip, provenance: dict | None = None) -> dict:
         "codec": clip.encoding_codec,
         "motion_score_global": None,
         "motion_score_per_patch_min": None,
-        "aesthetic_score": None,
+        "aesthetic_score": clip.aesthetic_score,
         "artificial_text_score": None,
         "semantic_pass": None,
         "filtered_by": clip.filtered_by,

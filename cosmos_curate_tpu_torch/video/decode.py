@@ -56,6 +56,42 @@ def extract_video_metadata(source: str | bytes) -> VideoMetadata:
         )
 
 
+def decode_frames(
+    source: str | bytes,
+    *,
+    start_frame: int = 0,
+    num_frames: int | None = None,
+    stride: int = 1,
+    resize_hw: tuple[int, int] | None = None,
+) -> np.ndarray:
+    """Decode frames to RGB uint8 ``[T, H, W, 3]``, every ``stride``-th from
+    ``start_frame``, resized (``INTER_AREA``) to ``resize_hw`` when given.
+    Frames are grabbed in order (seeking by frame index is unreliable
+    across codecs)."""
+    frames: list[np.ndarray] = []
+    with _open_capture(source) as cap:
+        idx = 0
+        wanted = start_frame
+        while True:
+            ok = cap.grab()
+            if not ok:
+                break
+            if idx == wanted:
+                ok, bgr = cap.retrieve()
+                if not ok:
+                    break
+                if resize_hw is not None:
+                    bgr = cv2.resize(bgr, (resize_hw[1], resize_hw[0]), interpolation=cv2.INTER_AREA)
+                frames.append(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+                if num_frames is not None and len(frames) >= num_frames:
+                    break
+                wanted += stride
+            idx += 1
+    if not frames:
+        return np.zeros((0, 0, 0, 3), np.uint8)
+    return np.stack(frames)
+
+
 def extract_frames_multi(
     source: str | bytes,
     signatures: tuple[FrameExtractionSignature, ...] | list[FrameExtractionSignature],

@@ -1,11 +1,11 @@
-"""Span math for clip extraction (port of ``cosmos_curate_tpu/video/splitter.py``,
-its fixed-stride part).
-
-Not ported: ``scene_spans_from_predictions``, which turns shot-detection
-scores into spans and waits for shot detection (ROADMAP queue A item 8).
+"""Span math for clip extraction (port of ``cosmos_curate_tpu/video/splitter.py``):
+fixed-stride spans, and the scene spans that shot detection's per-frame
+transition probabilities give.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from cosmos_curate_tpu_torch.data.model import Clip, deterministic_id
 
@@ -31,6 +31,51 @@ def fixed_stride_spans(
         if end - t >= min_clip_len_s:
             spans.append((t, end))
         t += stride
+    return spans
+
+
+def scene_spans_from_predictions(
+    predictions: np.ndarray,
+    fps: float,
+    *,
+    threshold: float = 0.4,
+    min_scene_len_s: float = 2.0,
+    max_scene_len_s: float = 60.0,
+    crop_s: float = 0.0,
+    timestamps_s: np.ndarray | None = None,
+) -> list[tuple[float, float]]:
+    """Per-frame shot-transition probabilities -> scene spans in seconds.
+
+    Frames with probability >= ``threshold`` are cut points; scenes shorter
+    than ``min_scene_len_s`` are dropped, longer than ``max_scene_len_s``
+    split into max-length pieces; ``crop_s`` is trimmed off both ends.
+    ``timestamps_s`` (per-frame PTS, one per prediction) makes the frame to
+    time map exact on variable-frame-rate sources; without it the constant
+    ``fps`` map is used."""
+    if predictions.size == 0:
+        return []
+    n = int(predictions.size)
+    if timestamps_s is not None and len(timestamps_s) == n:
+        tail = float(np.median(np.diff(timestamps_s))) if n > 1 else 1.0 / max(fps, 1.0)
+        frame_time = np.append(np.asarray(timestamps_s, np.float64), timestamps_s[-1] + tail)
+    elif fps > 0:
+        frame_time = np.arange(n + 1, dtype=np.float64) / fps
+    else:
+        return []
+    cuts = np.flatnonzero(predictions >= threshold)
+    boundaries = [0, *(int(c) + 1 for c in cuts), n]
+    spans: list[tuple[float, float]] = []
+    for a, b in zip(boundaries[:-1], boundaries[1:]):
+        if b <= a:
+            continue
+        start, end = float(frame_time[a]) + crop_s, float(frame_time[b]) - crop_s
+        if end - start < min_scene_len_s:
+            continue
+        while end - start > max_scene_len_s:
+            spans.append((start, start + max_scene_len_s))
+            start += max_scene_len_s
+        if end - start >= min_scene_len_s:
+            spans.append((start, end))
     return spans
 
 

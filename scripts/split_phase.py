@@ -17,9 +17,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
-
-import numpy as np
 
 
 def main() -> int:
@@ -30,23 +27,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.getcwd())
     import chip_smoke
-    from cosmos_curate_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
-    t0 = time.monotonic()
-    _build.build_all()
-    build_s = time.monotonic() - t0
-    print(chip_smoke.card_line(), flush=True)
-    timer = chip_smoke.Timer(dev)
-    rng = np.random.default_rng(chip_smoke.SEED)
-
-    def bf16(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
-
-    flash = {label: chip_smoke.check_flash(timer, bf16, shape, causal, label)
-             for label, shape, causal in chip_smoke.FLASH_CASES}
-    chip_smoke.emit({"phase": "flash", "bound": chip_smoke.BOUND, "cases": flash})
-    chip_smoke.emit({"phase": "split", "build_s": build_s, **chip_smoke.drive_split(dev, timer)})
+    timer, build_s = chip_smoke.phase_prologue(dev)
+    with chip_smoke.split_corpus() as (root, corpus, corpus_s):
+        result = chip_smoke.drive_split(dev, timer, root, corpus, corpus_s)
+    chip_smoke.emit({"phase": "split", "build_s": build_s, **result})
     return 0
 
 

@@ -426,6 +426,7 @@ def test_contiguous_decode_is_one_launch_and_leaves_counters_zero(dev):
     "shape,causal",
     [
         ((8, 12, 197, 64), False),  # ViT-B/16 at 224^2: a ragged last key tile
+        ((4, 16, 257, 64), False),  # CLIP ViT-L/14 at 224^2: one key in the last tile
         ((32, 8, 9, 64), False),  # the base pooler: one mostly-padded tile
         ((2, 3, 1, 64), False),
         ((2, 3, 63, 64), False),

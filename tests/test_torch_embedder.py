@@ -278,12 +278,19 @@ def test_stage_matches_jax_stage(frames):
     assert n == 6
 
 
-def test_stage_refuses_what_is_not_ported():
-    for variant in ("clip", "iv2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstage.ClipEmbeddingStage(variant=variant, device="cpu")
+def test_stage_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """What the stage refuses: a variant neither package has, and ``iv2``
+    (which requires trained weights) with neither ``params`` nor a staged
+    checkpoint, at setup and before it builds the 1B tower, as the JAX
+    stage's ``require_weights`` does: never a fallback to noise."""
+    monkeypatch.setenv("CURATE_MODEL_WEIGHTS_DIR", str(tmp_path / "weights"))
     with pytest.raises(ValueError, match="unknown embedding variant"):
         tstage.ClipEmbeddingStage(variant="bogus", device="cpu")
+    iv2 = tstage.ClipEmbeddingStage(variant="iv2", device="cpu")
+    assert iv2.model_name == "internvideo2-1b-tpu" and iv2.model.require_weights
+    with pytest.raises(RuntimeError, match="requires trained weights"):
+        iv2.setup(WorkerMetadata())
+    assert iv2.model.model is None
     stage = tstage.ClipEmbeddingStage(variant="video-256", device="cpu")
     assert stage.model.embedding_dim == 256 and stage.model_name == "video-embed-256-tpu"
     assert stage.resources.gpus == 0.0 and stage.batch_size == 8  # on the CPU: no card claimed

@@ -27,6 +27,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
             or m.startswith(("jax.", "flax.", "cosmos_curate_tpu."))
         )
         print(len(names), bad)
+        print(" ".join(names))
         sys.exit(1 if bad else 0)
         """
     )
@@ -34,8 +35,13 @@ def test_port_imports_no_jax_flax_or_reference_package():
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 32
+    lines = out.stdout.splitlines()
+    n_modules = int(lines[0].split()[0])
+    assert n_modules >= 71
+    names = set(lines[1].split())
+    for module in ("models.clip", "models.internvideo2", "models.transnetv2", "pipelines.video.stages.aesthetic_filter",
+                   "pipelines.video.stages.shot_detection"):
+        assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
 def test_engine_defaults_to_the_gpu():
@@ -61,6 +67,32 @@ def test_embed_leg_defaults_to_the_gpu(entry):
             return VideoEmbedder(VIDEO_EMBED_TINY_TEST, **kw).device
         return ClipEmbeddingStage(video_cfg=VIDEO_EMBED_TINY_TEST, **kw).model.device
 
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert make(device="cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["clip", "aesthetic", "iv2", "transnet", "aesthetic_stage", "shot_stage"])
+def test_canonical_models_default_to_the_gpu(entry):
+    import torch
+
+    from cosmos_curate_tpu_torch.models.clip import CLIPAestheticScorer, CLIPImageEmbeddings
+    from cosmos_curate_tpu_torch.models.internvideo2 import IV2_TINY_TEST, IV2Embedder
+    from cosmos_curate_tpu_torch.models.transnetv2 import TransNetV2
+    from cosmos_curate_tpu_torch.pipelines.video.stages.aesthetic_filter import AestheticFilterStage
+    from cosmos_curate_tpu_torch.pipelines.video.stages.shot_detection import TransNetV2ClipExtractionStage
+
+    make = {
+        "clip": lambda **kw: CLIPImageEmbeddings(**kw).device,
+        "aesthetic": lambda **kw: CLIPAestheticScorer(**kw).device,
+        "iv2": lambda **kw: IV2Embedder(IV2_TINY_TEST, **kw).device,
+        "transnet": lambda **kw: TransNetV2(**kw).device,
+        "aesthetic_stage": lambda **kw: AestheticFilterStage(**kw).model.device,
+        "shot_stage": lambda **kw: TransNetV2ClipExtractionStage(**kw).model.device,
+    }[entry]
     if torch.cuda.is_available():
         assert make().type == "cuda"
     else:
@@ -119,3 +151,24 @@ def test_native_writer_rebuilds_a_cached_library_that_does_not_load(tmp_path, mo
     else:
         assert native.h264_error() is None
         assert stale.read_bytes()[:4] == b"\x7fELF"
+
+
+@pytest.mark.parametrize("model", ["clip", "aesthetic_mlp", "iv2", "transnet"])
+def test_canonical_models_build_every_parameter_on_the_context_device(model):
+    """A model built under ``torch.device(d)`` holds every parameter on d
+    (the stages build theirs that way on the card); checked on ``meta``."""
+    import torch
+
+    from cosmos_curate_tpu_torch.models.clip import _CONFIGS, AestheticMLP, CLIPImageModel
+    from cosmos_curate_tpu_torch.models.internvideo2 import IV2_TINY_TEST, InternVideo2Tower
+    from cosmos_curate_tpu_torch.models.transnetv2 import TRANSNET_TINY_TEST, TransNet
+
+    build = {
+        "clip": lambda: CLIPImageModel(_CONFIGS["clip-vit-tiny-test"]),
+        "aesthetic_mlp": lambda: AestheticMLP(32),
+        "iv2": lambda: InternVideo2Tower(IV2_TINY_TEST),
+        "transnet": lambda: TransNet(TRANSNET_TINY_TEST),
+    }[model]
+    with torch.device("meta"):
+        module = build()
+    assert {p.device.type for p in module.state_dict().values()} == {"meta"}

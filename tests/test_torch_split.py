@@ -35,6 +35,7 @@ status, not ported: ROADMAP queue A item 14); file-name comparisons leave
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from pathlib import Path
 
@@ -43,11 +44,17 @@ import numpy as np
 import pyarrow.parquet as pq
 import pytest
 
+import jax
+import jax.numpy as jnp
+
 from cosmos_curate_tpu.core.runner import SequentialRunner as JSequentialRunner
 from cosmos_curate_tpu.core.stage import WorkerMetadata as JWorkerMetadata
 from cosmos_curate_tpu.data import model as jdata
+from cosmos_curate_tpu.models import clip as jclip_model
 from cosmos_curate_tpu.models import embedder as jemb
 from cosmos_curate_tpu.models import registry as jregistry
+from cosmos_curate_tpu.models import transnetv2 as jtn
+from cosmos_curate_tpu.models import vit as jvit
 from cosmos_curate_tpu.models.vlm import SharedCaptionEngine as JShared
 from cosmos_curate_tpu.models.vlm import VLM_TINY_TEST as J_TINY
 from cosmos_curate_tpu.models.vlm import CaptionEngine as JEngine
@@ -55,13 +62,16 @@ from cosmos_curate_tpu.pipelines.video import split as jsplit
 from cosmos_curate_tpu.pipelines.video.stages import captioning as jcap
 from cosmos_curate_tpu.pipelines.video.stages import clip_extraction as jclip
 from cosmos_curate_tpu.pipelines.video.stages import embedding as jembed
+from cosmos_curate_tpu.pipelines.video.stages import shot_detection as jshot
 from cosmos_curate_tpu.video import decode as jdecode
 from cosmos_curate_tpu.video import encode as jencode
 from cosmos_curate_tpu.video import splitter as jsplitter
 from cosmos_curate_tpu_torch.core.pipelined_runner import PipelinedRunner
 from cosmos_curate_tpu_torch.core.runner import SequentialRunner, default_runner
 from cosmos_curate_tpu_torch.data import model as tdata
+from cosmos_curate_tpu_torch.models import clip as tclip_model
 from cosmos_curate_tpu_torch.models import embedder as temb
+from cosmos_curate_tpu_torch.models import transnetv2 as ttn
 from cosmos_curate_tpu_torch.models.convert_jax import flax_to_state_dict
 from cosmos_curate_tpu_torch.models.vlm import SharedCaptionEngine
 from cosmos_curate_tpu_torch.pipelines.video import split as tsplit
@@ -69,6 +79,7 @@ from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_spl
 from cosmos_curate_tpu_torch.pipelines.video.stages import captioning as tcap
 from cosmos_curate_tpu_torch.pipelines.video.stages import clip_extraction as tclip
 from cosmos_curate_tpu_torch.pipelines.video.stages import embedding as tembed
+from cosmos_curate_tpu_torch.pipelines.video.stages import shot_detection as tshot
 from cosmos_curate_tpu_torch.pipelines.video.stages.writer import ClipWriterStage
 from cosmos_curate_tpu_torch.video import decode as tdecode
 from cosmos_curate_tpu_torch.video import encode as tencode
@@ -424,9 +435,9 @@ def jax_annotated(annotate_videos, tmp_path_factory):
         mp.undo()
 
 
-def _embeddings(out: Path) -> dict[str, np.ndarray]:
+def _embeddings(out: Path, model_id: str = EMBED_MODEL_ID) -> dict[str, np.ndarray]:
     rows = {}
-    for path in (out / "embeddings" / EMBED_MODEL_ID).glob("*.parquet"):
+    for path in (out / "embeddings" / model_id).glob("*.parquet"):
         table = pq.read_table(path).to_pydict()
         for uuid, emb in zip(table["clip_uuid"], table["embedding"]):
             rows[uuid] = np.asarray(emb, np.float32)
@@ -525,10 +536,8 @@ def test_chunked_split_matches_jax(long_videos, runner, tmp_path):
 # -- (e) refusals --------------------------------------------------------------
 
 REFUSED_OPTIONS = {
-    "transnetv2": dict(splitting_algorithm="transnetv2"),
     "sr": dict(sr=True),
     "motion_filter": dict(motion_filter="score-only"),
-    "aesthetic_threshold": dict(aesthetic_threshold=3.5),
     "text_filter": dict(text_filter="enable"),
     "semantic_filter": dict(semantic_filter="score-only"),
     "incremental_dedup": dict(incremental_dedup="enable", embedding_model="video"),
@@ -541,8 +550,6 @@ REFUSED_OPTIONS = {
     "tracking": dict(tracking=True),
     "tracking_annotated": dict(tracking_annotated=True),
     "per_event_captions": dict(per_event_captions=True),
-    "clip_embeddings": dict(embedding_model="clip", device="cpu"),
-    "iv2_embeddings": dict(embedding_model="iv2", device="cpu"),
     "qwen_captions": dict(captioning=True, caption_model="qwen2vl-2b", device="cpu"),
     "tracing": dict(tracing=True),
     "perf_profile": dict(perf_profile=True),
@@ -576,7 +583,9 @@ def test_unported_options_raise(case, videos, tmp_path, monkeypatch):
 # -- (f) no silent CPU ---------------------------------------------------------
 
 
-@pytest.mark.parametrize("option", [dict(embedding_model="video"), dict(captioning=True, caption_model="tiny-test")])
+@pytest.mark.parametrize("option", [dict(embedding_model="video"), dict(captioning=True, caption_model="tiny-test"),
+                                    dict(splitting_algorithm="transnetv2"), dict(aesthetic_threshold=3.5),
+                                    dict(embedding_model="clip"), dict(embedding_model="iv2")])
 def test_split_model_stages_default_to_the_gpu(option, videos, tmp_path):
     import torch
 
@@ -586,3 +595,139 @@ def test_split_model_stages_default_to_the_gpu(option, videos, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsplit.run_split(args, runner=SequentialRunner())
     assert not (tmp_path / "out").exists()
+
+
+# -- (g) the canonical split: shot detection -> aesthetic filter -> CLIP -----
+
+# the stage attributes assemble_stages sets from the arguments
+STAGE_ARGS = ("threshold", "min_clip_len_s", "max_clip_len_s", "reduction", "score_only", "variant", "clip_len_s",
+              "window_len", "prompt_variant", "num_threads", "chunk_size", "resize_hw")
+
+
+@pytest.mark.parametrize("option", [
+    dict(splitting_algorithm="transnetv2", aesthetic_threshold=2.5, embedding_model="clip"),
+    dict(splitting_algorithm="transnetv2", transnetv2_threshold=0.6, min_clip_len_s=1.0, max_clip_len_s=8.0,
+         embedding_model="iv2", extract_fps=(4.0, 1.0)),
+    dict(aesthetic_threshold=-1.0, embedding_model="video", captioning=True, caption_model="tiny-test"),
+], ids=["transnet-aesthetic-clip", "transnet-iv2", "fixed-aesthetic-video-caption"])
+def test_assemble_stages_puts_each_stage_where_the_reference_does(option):
+    """The same stages in the same order as the JAX assembly, each with the
+    same arguments, every model on the arguments' device."""
+    j_stages = jsplit.assemble_stages(jsplit.SplitPipelineArgs(**option))
+    t_stages = tsplit.assemble_stages(tsplit.SplitPipelineArgs(device="cpu", **option))
+    assert [type(s).__name__ for s in t_stages] == [type(s).__name__ for s in j_stages]
+    for t_stage, j_stage in zip(t_stages, j_stages):
+        for attr in STAGE_ARGS:
+            if hasattr(j_stage, attr) and hasattr(t_stage, attr):
+                assert getattr(t_stage, attr) == getattr(j_stage, attr), (type(t_stage).__name__, attr)
+        if hasattr(j_stage, "extraction"):
+            assert t_stage.extraction.key() == j_stage.extraction.key()
+        if j_stage.model is not None:
+            assert t_stage.model.model_id_names == j_stage.model.model_id_names
+            assert t_stage.model.device.type == "cpu" and t_stage.resources.gpus == 0.0
+
+
+@pytest.fixture(scope="module")
+def canonical_weights(tmp_path_factory) -> Path:
+    """One ``params.msgpack`` per registry id of the canonical path, written
+    by the JAX registry at tiny widths (the test serves the tiny configs
+    under the real ids): TransNetV2 at ``TRANSNET_TINY_TEST``, both CLIP
+    towers at ``clip-vit-tiny-test`` (other seeds), the aesthetic head over
+    its 32-d embeddings."""
+    root = tmp_path_factory.mktemp("canonical_weights")
+    key = jax.random.PRNGKey
+    jregistry.save_params("transnetv2-tpu", jax.jit(jtn.TransNet(jtn.TRANSNET_TINY_TEST).init)(
+        key(1), jnp.zeros((1, 4, 8, 8, 3), jnp.uint8)), root=root)
+    vit_init = jax.jit(jvit.ViT(jclip_model._CONFIGS["clip-vit-tiny-test"]).init)
+    for seed, model_id in ((2, "clip-vit-l14-tpu"), (3, "clip-vit-b16-tpu")):
+        jregistry.save_params(model_id, vit_init(key(seed), jnp.zeros((1, 32, 32, 3))), root=root)
+    jregistry.save_params("aesthetics-mlp-tpu", jclip_model.AestheticMLP().init(key(4), jnp.zeros((1, 32))), root=root)
+    return root
+
+
+@pytest.fixture
+def canonical_tiny(canonical_weights, monkeypatch):
+    """Both packages serve the tiny configs under the canonical path's
+    registry ids, from the staged checkpoints (the JAX registry's template
+    init runs jitted: the same values, faster)."""
+    monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(canonical_weights))
+    for mod in (jclip_model, tclip_model):
+        for model_id in ("clip-vit-l14-tpu", "clip-vit-b16-tpu"):
+            monkeypatch.setitem(mod._CONFIGS, model_id, mod._CONFIGS["clip-vit-tiny-test"])
+    monkeypatch.setattr(jshot, "TransNetV2TPU", functools.partial(jtn.TransNetV2TPU, cfg=jtn.TRANSNET_TINY_TEST))
+    monkeypatch.setattr(tshot, "TransNetV2", functools.partial(ttn.TransNetV2, cfg=ttn.TRANSNET_TINY_TEST))
+    load_params = jregistry.load_params
+    monkeypatch.setattr(jregistry, "load_params",
+                        lambda model_id, init_fn, **kw: load_params(model_id, jax.jit(init_fn), **kw))
+
+
+def _gap_threshold(j_values, t_values, *, upper_half: bool = False) -> float:
+    """A threshold in the widest gap between the JAX values (of their upper
+    half, to cut only a few), which the port's values (within the bf16
+    bound of them) straddle alike."""
+    j_values, t_values = np.asarray(j_values), np.asarray(t_values)
+    diff = float(np.abs(t_values - j_values).max())
+    assert diff <= EMBED_TOL
+    ordered = np.sort(j_values)
+    lo = len(ordered) // 2 if upper_half else 0
+    i = lo + int(np.argmax(ordered[lo + 1 :] - ordered[lo:-1]))
+    assert ordered[i + 1] - ordered[i] > 2 * diff, (ordered, diff)
+    return float(ordered[i] + ordered[i + 1]) / 2
+
+
+def _all_metas(out: Path) -> dict[str, dict]:
+    return {p.stem: json.loads(p.read_text()) for p in (out / "metas").rglob("*.json")}
+
+
+@pytest.mark.parametrize("runner", ["sequential", "default"])
+def test_canonical_split_matches_jax(annotate_videos, canonical_tiny, runner, tmp_path):
+    """transnetv2 -> aesthetic filter -> ``embedding_model="clip"`` through
+    both packages' ``run_split``: a shot threshold and an aesthetic
+    threshold that each cut (from the JAX run's own values), then the same
+    clip uuids, the same kept / filtered partition and output files,
+    ``aesthetic_score`` written in every meta within the bf16 bound, and
+    CLIP embeddings within it."""
+    paths = sorted(annotate_videos.glob("*.mp4"))
+    j_det, t_det = jtn.TransNetV2TPU(cfg=jtn.TRANSNET_TINY_TEST), ttn.TransNetV2(cfg=ttn.TRANSNET_TINY_TEST, device="cpu")
+    j_det.setup()
+    t_det.setup()
+    frames = [jdecode.decode_frames(str(p), resize_hw=(27, 48)) for p in paths]
+    shot = _gap_threshold(np.concatenate([j_det.predict_transitions(f) for f in frames]),
+                          np.concatenate([t_det.predict_transitions(f) for f in frames]), upper_half=True)
+    kw = dict(extract_fps=(8.0,), extract_resize_hw=(32, 32), splitting_algorithm="transnetv2",
+              transnetv2_threshold=shot, min_clip_len_s=0.25, embedding_model="clip")
+
+    def j_run(out: Path, aesthetic: float) -> dict:
+        return jsplit.run_split(jsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(out),
+                                                         aesthetic_threshold=aesthetic, **kw),
+                                runner=JSequentialRunner())
+
+    def t_run(out: Path, aesthetic: float) -> dict:
+        return tsplit.run_split(tsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(out),
+                                                         aesthetic_threshold=aesthetic, device="cpu", **kw),
+                                runner=_runner(runner))
+
+    # every clip kept: the scores the aesthetic threshold is chosen from
+    j_run(tmp_path / "j_all", -1e9)
+    t_run(tmp_path / "t_all", -1e9)
+    j_scored, t_scored = _all_metas(tmp_path / "j_all"), _all_metas(tmp_path / "t_all")
+    assert set(t_scored) == set(j_scored) and len(j_scored) > len(paths)  # the detector cut
+    uuids = sorted(j_scored)
+    aesthetic = _gap_threshold([j_scored[u]["aesthetic_score"] for u in uuids],
+                               [t_scored[u]["aesthetic_score"] for u in uuids])
+
+    j_summary, summary = j_run(tmp_path / "jout", aesthetic), t_run(tmp_path / "out", aesthetic)
+    assert _counts(summary) == _counts(j_summary)
+    assert 0 < summary["num_filtered_by_aesthetic"] < summary["num_clips"]
+    assert _files(tmp_path / "out") == _files(tmp_path / "jout")
+    metas, j_metas = _all_metas(tmp_path / "out"), _all_metas(tmp_path / "jout")
+    assert set(metas) == set(j_metas) == set(uuids)
+    for uuid, j_meta in j_metas.items():
+        meta = metas[uuid]
+        assert abs(meta.pop("aesthetic_score") - j_meta.pop("aesthetic_score")) <= EMBED_TOL
+        assert meta == j_meta, uuid
+        assert (meta["filtered_by"] == "aesthetic") == (t_scored[uuid]["aesthetic_score"] < aesthetic)
+    embs, j_embs = _embeddings(tmp_path / "out", "clip-vit-b16-tpu"), _embeddings(tmp_path / "jout", "clip-vit-b16-tpu")
+    assert set(embs) == set(j_embs) == {u for u, m in metas.items() if not m["filtered_by"]}
+    for uuid, j_emb in j_embs.items():
+        np.testing.assert_allclose(embs[uuid], j_emb, atol=EMBED_TOL)
