@@ -9,8 +9,8 @@ and prints one JSON line per phase:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA,
    which optional modules import (``cv2``, ``msgpack``, ``cloudpickle``,
-   ``prometheus_client``, ``pyarrow``), and which FFmpeg libraries and
-   headers are installed;
+   ``prometheus_client``, ``pyarrow``, ``regex``), and which FFmpeg
+   libraries and headers are installed;
 2. build: seconds to compile every kernel (one ``nvcc`` per source, in
    parallel), and the HGMMA / UTMALDG / FFMA counts of the tensor-core
    kernels' SASS (flash, prefill, paged: each must hold wgmma and TMA loads);
@@ -31,6 +31,10 @@ and prints one JSON line per phase:
    ``vs_library`` (kernel time / SDPA time). A ``card_state`` line before
    and after the phase reads the SM clock, its maximum, the power draw and
    the temperature, so a slow card and a slow kernel can be told apart;
+   qwen_kernels: kernels 1-4 the same way at the Qwen caption drives'
+   shapes (``check_qwen_kernels``: Qwen2-VL-2B's Hkv 2, G 6, D 128 and
+   Qwen2.5-VL-7B's Hkv 4, G 7; the 1024-key lane, a 256-token chunk and
+   the 512-token bucket after the 45-token chat prefix, the prefix build);
 4. embed: ``ClipEmbeddingStage(variant="video")`` at ``VIDEO_EMBED_BASE``
    with seeded random weights embeds the main path's shapes (8 stage calls
    of 8 tasks x 4 clips x 8 random uint8 224x224 frames, 32 clips per call
@@ -142,6 +146,31 @@ and prints one JSON line per phase:
    on the card; and the stage without ``params`` and without a staged
    checkpoint must raise.
 
+13. qwen: ``CaptionEngine(VLM_QWEN2_2B)`` at full width and depth
+   (28 layers, 1536 wide, GQA 12 / 2 of 128, vocab 151936, the 32-block
+   1280-wide tower) with seeded weights on the flavor's KV lanes serves 8
+   chat requests (``build_qwen_vl_chat`` around the default caption
+   prompt over byte-level ids: ``HFVocabTokenizer`` over a generated
+   byte vocabulary; 8 random 224^2 frames: 4 temporal patches, 1024
+   tower tokens, 256 vision tokens; 64 greedy tokens), paged and then
+   gather: tok/s end to end and decoding, ms a decode step, the profiled
+   decode window (device idle share, launches a step), device peak, each
+   kernel's launches, the measured requests' paged prefill calls by
+   (B, T) (each (B, T) the qwen kernels phase did not check is checked
+   against the plain version and timed there), and the two engines' agreement
+   (reported, not asserted). The paged engine's model runs one request's
+   prefill with its kernels against the same module in fp32 with the
+   plain attention (max abs logit difference within
+   ``QWEN_FORWARD_BOUND``), and its tower runs one 8-frame call in bf16
+   against fp32 (within ``QWEN_TOWER_BOUND`` of the output's largest
+   magnitude) with its plain attention's share of the call (CUDA events);
+   qwen_7b: ``VLM_QWEN25_7B`` at full width and depth serves 2 requests
+   at 2 fps (the time-scaled m-rope), and its windowed tower is checked
+   the same way; qwen_stage: ``CaptionStage(model_flavor="qwen2vl-2b")``
+   refuses to set up without staged tokenizer files and without weights,
+   and ``CaptionStage(model_flavor="qwen-chat-tiny-test")`` captions 8
+   windows through ``run_pipeline``.
+
 Every path's run zeroes the launch counters just before it and reads them
 just after; each kernel must have launched on the path that uses it
 (``KERNEL_PATH``).
@@ -156,6 +185,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -256,14 +286,34 @@ IV2_BOUND = 5e-3
 IV2_CHECK_CLIPS = 4
 # modules and FFmpeg libraries the port's later slices may need (split
 # assembly decodes and encodes through cv2 and a native H.264 writer over
-# libavcodec, and writes parquet with pyarrow); the device phase reports
-# which are here
-OPTIONAL_MODULES = ("cv2", "msgpack", "cloudpickle", "prometheus_client", "pyarrow")
+# libavcodec, and writes parquet with pyarrow; the Qwen flavors' tokenizer
+# splits with regex); the device phase reports which are here
+OPTIONAL_MODULES = ("cv2", "msgpack", "cloudpickle", "prometheus_client", "pyarrow", "regex")
 FFMPEG_LIBRARIES = ("avcodec", "avformat", "avutil", "swscale", "x264")
 # embed phase: stage calls timed, clips per task (4 one-second clips of
 # bench.py's videos), so each call is one 32-clip dispatch
 EMBED_CALLS = 8
 EMBED_CLIPS_PER_TASK = 4
+# qwen phase: the dense Qwen-VL caption flavors at full width and depth,
+# seeded weights. Chat requests: a 45-token chat prefix, 8 frames of 224^2
+# (4 temporal patches: 1024 tower tokens, 256 vision tokens) and a
+# 120-token suffix around the default caption prompt (byte-level ids), 64
+# greedy tokens; 8 through the 2B (paged, then gather), 2 through the 7B at
+# 2 fps. Bounds (stated before the first run): the 28-layer prefill logits
+# in bf16 with the kernels vs the module in fp32 with the plain attention,
+# max abs difference (the seeded logits' std is about 0.8); each tower's
+# bf16 output vs fp32, max abs difference over the fp32 output's largest
+# magnitude
+QWEN_FLAVORS = ("qwen2vl-2b", "qwen25vl-7b")
+QWEN_REQUESTS = 8
+QWEN_7B_REQUESTS = 2
+QWEN_FRAMES = 8
+QWEN_FPS = 2.0
+QWEN_PREFIX = 45
+QWEN_SUFFIX = 376  # 256 vision tokens + the 120-token text suffix
+QWEN_STAGE_TASKS = 4
+QWEN_FORWARD_BOUND = 0.25
+QWEN_TOWER_BOUND = 5e-2
 # flash shapes timed: ViT-B/16 at 224^2 over the embed phase's 16-clip x
 # 8-frame dispatch (the row of the kernels line) and over 32 clips, CLIP
 # ViT-L/14 at 224^2 over the canonical phase's 32-frame aesthetic dispatch
@@ -517,86 +567,73 @@ def random_clip_tasks(rng, name: str, key: str, n_frames: int, size: int) -> lis
     return tasks
 
 
-def check_kernels(timer, dev) -> dict:
-    from cosmos_curate_tpu_torch.ops import kernels
-    from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
-    from cosmos_curate_tpu_torch.ops.paged_attention import (
-        decode_split_count,
-        decode_split_plain,
-        paged_attention,
-        paged_attention_plain,
-    )
-    from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
-
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rng = np.random.default_rng(SEED)
-    hk, g, d, bs = 8, 2, 64, 16
-
-    bf16 = random_bf16(rng, dev)
-
+def int32s(dev):
     def i32(x):
         return torch.as_tensor(np.asarray(x, np.int32), device=dev)
 
-    results = {}
+    return i32
 
-    def paged_case(name, b, t, write, kv_len, nbl, idle_row=False):
-        n_blocks = b * nbl + 1
-        pk, pv = bf16(2, n_blocks, bs, hk, d), bf16(2, n_blocks, bs, hk, d)
-        tables = rng.permutation(np.arange(1, n_blocks))[: b * nbl].reshape(b, nbl)
-        if idle_row:
-            tables[-1] = 0  # garbage block 0, kv_len 1
-        q = bf16(b, t, hk, g, d)
-        tb, wi, kl = i32(tables), i32(write), i32(kv_len)
 
-        def run():
-            return paged_attention(q, pk, pv, tb, wi, kl, layer_index=1)
+def check_paged(timer, rng, dev, name, b, t, write, kv_len, nbl, heads, bs=16, idle_row=False) -> dict:
+    """Paged attention (decode at t = 1, prefill above) against its fp32
+    plain version over a shuffled pool (layer 1 of 2), asserted within
+    BOUND; a prefill chunk must equal ``cct_prefill`` on the gathered rows
+    bit for bit. ``heads``: (Hkv, G, D)."""
+    from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+    from cosmos_curate_tpu_torch.ops.prefill_attention import prefill_attention
 
-        def plain():
-            return paged_attention_plain(q, pk, pv, tb, wi, kl, layer_index=1, sm_scale=d**-0.5)
+    hk, g, d = heads
+    bf16, i32 = random_bf16(rng, dev), int32s(dev)
+    n_blocks = b * nbl + 1
+    pk, pv = bf16(2, n_blocks, bs, hk, d), bf16(2, n_blocks, bs, hk, d)
+    tables = rng.permutation(np.arange(1, n_blocks))[: b * nbl].reshape(b, nbl)
+    if idle_row:
+        tables[-1] = 0  # garbage block 0, kv_len 1
+    q = bf16(b, t, hk, g, d)
+    tb, wi, kl = i32(tables), i32(write), i32(kv_len)
 
-        got = run()
-        want = paged_attention_plain(
-            q.float(), pk.float(), pv.float(), tb, wi, kl, layer_index=1, sm_scale=d**-0.5
+    def run():
+        return paged_attention(q, pk, pv, tb, wi, kl, layer_index=1)
+
+    def plain():
+        return paged_attention_plain(q, pk, pv, tb, wi, kl, layer_index=1, sm_scale=d**-0.5)
+
+    got = run()
+    want = paged_attention_plain(q.float(), pk.float(), pv.float(), tb, wi, kl, layer_index=1, sm_scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all(), f"{name}: non-finite output"
+    err = (got.float() - want).abs().max().item()
+    assert err <= BOUND, f"{name}: max abs err {err} > {BOUND}"
+    gk = pk[1][tb.long()].reshape(b, nbl * bs, hk, d)
+    gv = pv[1][tb.long()].reshape(b, nbl * bs, hk, d)
+    if t > 1:  # one body, one geometry: bit-equal to cct_prefill on the gathered rows
+        assert torch.equal(got, prefill_attention(q, gk.contiguous(), gv.contiguous(), wi, kl)), (
+            f"{name}: not bit-equal to the contiguous prefill kernel on gathered rows"
         )
-        torch.cuda.synchronize()
-        assert torch.isfinite(got.float()).all(), f"{name}: non-finite output"
-        err = (got.float() - want).abs().max().item()
-        assert err <= BOUND, f"{name}: max abs err {err} > {BOUND}"
-        gk = pk[1][tb.long()].reshape(b, nbl * bs, hk, d)
-        gv = pv[1][tb.long()].reshape(b, nbl * bs, hk, d)
-        if t > 1:  # one body, one geometry: bit-equal to cct_prefill on the gathered rows
-            assert torch.equal(got, prefill_attention(q, gk.contiguous(), gv.contiguous(), wi, kl)), (
-                f"{name}: not bit-equal to the contiguous prefill kernel on gathered rows"
-            )
-        qs, ks, vs, mask = sdpa_inputs(q, gk, gv, wi, kl)
-        n_bytes, flops = attention_work(q.shape, np.asarray(write), np.asarray(kv_len), hk, d)
-        bms, by = bound_ms(n_bytes, flops)
-        return dict(
-            shape=dict(B=b, T=t, Hkv=hk, G=g, D=d, bs=bs, nbl=nbl),
-            max_abs_err=err,
-            kernel_ms=timer(run),
-            plain_ms=timer(plain),
-            bound_ms=bms,
-            bound_by=by,
-            library_ms=timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)),
-            bit_equal_to_prefill=t > 1 or None,
-        )
+    qs, ks, vs, mask = sdpa_inputs(q, gk, gv, wi, kl)
+    bms, by = bound_ms(*attention_work(q.shape, np.asarray(write), np.asarray(kv_len), hk, d))
+    return with_shares(dict(
+        shape=dict(B=b, T=t, Hkv=hk, G=g, D=d, bs=bs, nbl=nbl),
+        max_abs_err=err,
+        kernel_ms=timer(run),
+        plain_ms=timer(plain),
+        bound_ms=bms,
+        bound_by=by,
+        library_ms=timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        bit_equal_to_prefill=t > 1 or None,
+    ))
 
-    # decode: each lane of 4 slots (1024 and 256 keys), random lengths, the
-    # last row idle; the long lane is the kernels line's row
-    decode = {}
-    for label, nbl in (("lane_1024", 64), ("lane_256", 16)):
-        kv = rng.integers(64, nbl * bs, 4)
-        kv[-1] = 1
-        decode[label] = with_shares(paged_case(f"paged_decode {label}", 4, 1, kv - 1, kv, nbl, idle_row=True))
-    results["paged_decode"] = {**decode["lane_1024"], "cases": decode}
-    # paged prefill: a 256-token chunk, one fresh row and one mid-context row
-    results["paged_prefill"] = paged_case("paged_prefill", 2, 256, np.array([0, 300]), np.array([256, 556]), 64)
 
-    # contiguous prefill: the long prompt's shared-prefix build, S = T = 1024
-    s, t, kv_len = 1024, 1024, 686
-    q, k, v = bf16(1, t, hk, g, d), bf16(1, s, hk, d), bf16(1, s, hk, d)
-    wi, kl = i32([0]), i32([kv_len])
+def check_prefill(timer, rng, dev, name, b, t, s, write, kv_len, heads) -> dict:
+    """Contiguous prefill against its fp32 plain version on a [B, S, Hkv, D]
+    cache, asserted within BOUND. ``heads``: (Hkv, G, D)."""
+    from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
+
+    hk, g, d = heads
+    bf16, i32 = random_bf16(rng, dev), int32s(dev)
+    q, k, v = bf16(b, t, hk, g, d), bf16(b, s, hk, d), bf16(b, s, hk, d)
+    wi, kl = i32(write), i32(kv_len)
 
     def run():
         return prefill_attention(q, k, v, wi, kl)
@@ -604,74 +641,132 @@ def check_kernels(timer, dev) -> dict:
     got = run()
     want = chunk_attention_plain(q.float(), k.float(), v.float(), wi, kl, d**-0.5)
     torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all(), f"{name}: non-finite output"
     err = (got.float() - want).abs().max().item()
+    assert err <= BOUND, f"{name}: max abs err {err} > {BOUND}"
     qs, ks, vs, mask = sdpa_inputs(q, k, v, wi, kl)
-    n_bytes, flops = attention_work(q.shape, np.array([0]), np.array([kv_len]), hk, d)
-    bms, by = bound_ms(n_bytes, flops)
-    results["prefill"] = dict(
-        shape=dict(B=1, T=t, S=s, Hkv=hk, G=g, D=d, kv_len=kv_len),
+    bms, by = bound_ms(*attention_work(q.shape, np.asarray(write), np.asarray(kv_len), hk, d))
+    return with_shares(dict(
+        shape=dict(B=b, T=t, S=s, Hkv=hk, G=g, D=d, write=list(map(int, write)), kv_len=list(map(int, kv_len))),
         max_abs_err=err,
         kernel_ms=timer(run),
         plain_ms=timer(lambda: chunk_attention_plain(q, k, v, wi, kl, d**-0.5)),
         bound_ms=bms,
         bound_by=by,
-        library_ms=timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)),
-    )
-    assert err <= BOUND, f"prefill: max abs err {err} > {BOUND}"
+        library_ms=timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+    ))
 
+
+def check_decode(timer, rng, dev, name, b, s, kv, heads, bs=16) -> dict:
+    """Contiguous decode over a [B, S, Hkv, D] cache against its fp32 plain
+    version and its split mirror (within BOUND), and bit-equal to paged
+    decode on the same rows scattered into a shuffled pool: one split body,
+    one split count, one merge order. ``heads``: (Hkv, G, D)."""
+    from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from cosmos_curate_tpu_torch.ops.paged_attention import decode_split_count, decode_split_plain, paged_attention
+
+    hk, g, d = heads
+    bf16, i32 = random_bf16(rng, dev), int32s(dev)
+    nbl = s // bs
+    q, k, v = bf16(b, hk, g, d), bf16(b, s, hk, d), bf16(b, s, hk, d)
+    kl = i32(kv)
+
+    def run():
+        return decode_attention(q, k, v, kl)
+
+    got = run()
+    want = decode_attention_plain(q.float(), k.float(), v.float(), kl, sm_scale=d**-0.5)
+    n_split = decode_split_count(s, b * hk, torch.cuda.get_device_properties(dev).multi_processor_count)
+    mirror = decode_split_plain(q.float(), k.float(), v.float(), kl, sm_scale=d**-0.5, n_split=n_split)
+    n_blocks = b * nbl + 1
+    tables = i32(rng.permutation(np.arange(1, n_blocks)).reshape(b, nbl))
+    pk = torch.zeros(2, n_blocks, bs, hk, d, dtype=torch.bfloat16, device=dev)
+    pv = torch.zeros_like(pk)
+    pk[1][tables.long()] = k.reshape(b, nbl, bs, hk, d)
+    pv[1][tables.long()] = v.reshape(b, nbl, bs, hk, d)
+    paged = paged_attention(q[:, None], pk, pv, tables, kl - 1, kl, layer_index=1)[:, 0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all(), f"{name}: non-finite output"
+    err = (got.float() - want).abs().max().item()
+    mirror_err = (got.float() - mirror).abs().max().item()
+    assert max(err, mirror_err) <= BOUND, f"{name}: max abs err {err}, {mirror_err} > {BOUND}"
+    assert torch.equal(got, paged), f"{name}: not bit-equal to paged decode on the same rows"
+    qs, ks, vs, mask = sdpa_inputs(q[:, None], k, v, kl - 1, kl)
+    bms, by = bound_ms(*attention_work((b, 1, hk, g, d), np.asarray(kv) - 1, np.asarray(kv), hk, d))
+    return with_shares(dict(
+        shape=dict(B=b, S=s, Hkv=hk, G=g, D=d, kv_len=list(map(int, kv)), n_split=n_split),
+        max_abs_err=err,
+        max_abs_err_vs_split_mirror=mirror_err,
+        kernel_ms=timer(run),
+        plain_ms=timer(lambda: decode_attention_plain(q, k, v, kl, sm_scale=d**-0.5)),
+        bound_ms=bms,
+        bound_by=by,
+        library_ms=timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        bit_equal_to_paged_decode=True,
+    ))
+
+
+def lane_lengths(rng, b: int, width: int, low: int = 64) -> np.ndarray:
+    """Random key counts of a lane's rows in [low, width], the last row idle
+    at 1."""
+    kv = rng.integers(low, width + 1, b)
+    kv[-1] = 1
+    return kv
+
+
+def check_kernels(timer, dev) -> dict:
+    from cosmos_curate_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED)
+    heads = (8, 2, 64)  # VLM_BASE: 16 query heads over 8 KV heads of 64
+    results = {}
+    # paged decode: each lane of 4 slots (1024 and 256 keys), random lengths,
+    # the last row idle; the long lane is the kernels line's row
+    decode = {}
+    for label, nbl in (("lane_1024", 64), ("lane_256", 16)):
+        kv = lane_lengths(rng, 4, nbl * 16 - 1)
+        decode[label] = check_paged(timer, rng, dev, f"paged_decode {label}", 4, 1, kv - 1, kv, nbl, heads,
+                                    idle_row=True)
+    results["paged_decode"] = {**decode["lane_1024"], "cases": decode}
+    # paged prefill: a 256-token chunk, one fresh row and one mid-context row
+    results["paged_prefill"] = check_paged(
+        timer, rng, dev, "paged_prefill", 2, 256, np.array([0, 300]), np.array([256, 556]), 64, heads)
+    # contiguous prefill: the long prompt's shared-prefix build, S = T = 1024
+    results["prefill"] = check_prefill(timer, rng, dev, "prefill", 1, 1024, 1024, [0], [686], heads)
     # contiguous decode: each lane of the gather engine (4 slots, caches of
     # 1024 and 256 keys), random lengths, the last row at 1; the long lane is
-    # the kernels line's row. The same rows scattered into a shuffled pool
-    # must give paged decode's output bit for bit: one split body, one split
-    # count, one merge order.
-    decode = {}
-    for label, s in (("lane_1024", 1024), ("lane_256", 256)):
-        b, nbl = 4, s // bs
-        kv = rng.integers(64, s + 1, b)
-        kv[-1] = 1
-        q, k, v = bf16(b, hk, g, d), bf16(b, s, hk, d), bf16(b, s, hk, d)
-        kl = i32(kv)
-
-        def run():
-            return decode_attention(q, k, v, kl)
-
-        got = run()
-        want = decode_attention_plain(q.float(), k.float(), v.float(), kl, sm_scale=d**-0.5)
-        n_split = decode_split_count(s, b * hk, torch.cuda.get_device_properties(dev).multi_processor_count)
-        mirror = decode_split_plain(q.float(), k.float(), v.float(), kl, sm_scale=d**-0.5, n_split=n_split)
-        n_blocks = b * nbl + 1
-        tables = i32(rng.permutation(np.arange(1, n_blocks)).reshape(b, nbl))
-        pk = torch.zeros(2, n_blocks, bs, hk, d, dtype=torch.bfloat16, device=dev)
-        pv = torch.zeros_like(pk)
-        pk[1][tables.long()] = k.reshape(b, nbl, bs, hk, d)
-        pv[1][tables.long()] = v.reshape(b, nbl, bs, hk, d)
-        paged = paged_attention(q[:, None], pk, pv, tables, kl - 1, kl, layer_index=1)[:, 0]
-        torch.cuda.synchronize()
-        assert torch.isfinite(got.float()).all(), f"decode {label}: non-finite output"
-        err = (got.float() - want).abs().max().item()
-        mirror_err = (got.float() - mirror).abs().max().item()
-        assert max(err, mirror_err) <= BOUND, f"decode {label}: max abs err {err}, {mirror_err} > {BOUND}"
-        assert torch.equal(got, paged), f"decode {label}: not bit-equal to paged decode on the same rows"
-        qs, ks, vs, mask = sdpa_inputs(q[:, None], k, v, kl - 1, kl)
-        bms, by = bound_ms(*attention_work((b, 1, hk, g, d), kv - 1, kv, hk, d))
-        decode[label] = with_shares(dict(
-            shape=dict(B=b, S=s, Hkv=hk, G=g, D=d, kv_len=kv.tolist(), n_split=n_split),
-            max_abs_err=err,
-            max_abs_err_vs_split_mirror=mirror_err,
-            kernel_ms=timer(run),
-            plain_ms=timer(lambda: decode_attention_plain(q, k, v, kl, sm_scale=d**-0.5)),
-            bound_ms=bms,
-            bound_by=by,
-            library_ms=timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)),
-            bit_equal_to_paged_decode=True,
-        ))
+    # the kernels line's row
+    decode = {label: check_decode(timer, rng, dev, f"decode {label}", 4, s, lane_lengths(rng, 4, s), heads)
+              for label, s in (("lane_1024", 1024), ("lane_256", 256))}
     results["decode"] = {**decode["lane_1024"], "cases": decode}
-
+    bf16 = random_bf16(rng, dev)
     flash = {label: check_flash(timer, bf16, shape, causal, label) for label, shape, causal in FLASH_CASES}
-    results = {name: r if "cases" in r else with_shares(r) for name, r in results.items()}
     results["flash"] = {**flash[FLASH_CASES[0][0]], "cases": flash}
     assert set(results) == set(kernels())
     return results
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The caption LM's three attention calls (paged, contiguous prefill,
+    contiguous decode) replaced by their plain versions for the duration."""
+    import cosmos_curate_tpu_torch.models.vlm.model as vlm_model
+    from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention_plain
+    from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention_plain
+    from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain
+
+    saved = vlm_model.paged_attention, vlm_model.prefill_attention, vlm_model.decode_attention
+    vlm_model.paged_attention = lambda q, pk, pv, tb, wi, kl, *, layer_index=0: paged_attention_plain(
+        q, pk, pv, tb, wi, kl, layer_index=layer_index, sm_scale=q.shape[-1] ** -0.5
+    )
+    vlm_model.prefill_attention = lambda q, k, v, wi, kl: chunk_attention_plain(q, k, v, wi, kl, q.shape[-1] ** -0.5)
+    vlm_model.decode_attention = lambda q, k, v, kl: decode_attention_plain(q, k, v, kl, sm_scale=q.shape[-1] ** -0.5)
+    try:
+        yield
+    finally:
+        vlm_model.paged_attention, vlm_model.prefill_attention, vlm_model.decode_attention = saved
 
 
 def check_forward(model, dev) -> dict:
@@ -679,11 +774,7 @@ def check_forward(model, dev) -> dict:
     kernel swapped for its plain version (paged prefill + decode on a
     fragmented pool, a contiguous prefix build and a contiguous decode step
     on top of it)."""
-    import cosmos_curate_tpu_torch.models.vlm.model as vlm_model
     from cosmos_curate_tpu_torch.models.vlm.model import init_cache
-    from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention_plain
-    from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention_plain
-    from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain
 
     cfg = model.cfg
     rng = np.random.default_rng(SEED + 1)
@@ -711,20 +802,8 @@ def check_forward(model, dev) -> dict:
         return pre.float(), dec.float(), con.float(), cdec.float()
 
     got = run()
-    saved = vlm_model.paged_attention, vlm_model.prefill_attention, vlm_model.decode_attention
-    try:
-        vlm_model.paged_attention = lambda q, pk, pv, tb, wi, kl, *, layer_index=0: paged_attention_plain(
-            q, pk, pv, tb, wi, kl, layer_index=layer_index, sm_scale=q.shape[-1] ** -0.5
-        )
-        vlm_model.prefill_attention = lambda q, k, v, wi, kl: chunk_attention_plain(
-            q, k, v, wi, kl, q.shape[-1] ** -0.5
-        )
-        vlm_model.decode_attention = lambda q, k, v, kl: decode_attention_plain(
-            q, k, v, kl, sm_scale=q.shape[-1] ** -0.5
-        )
+    with plain_attention():
         want = run()
-    finally:
-        vlm_model.paged_attention, vlm_model.prefill_attention, vlm_model.decode_attention = saved
     out = {}
     names = ("paged_prefill", "paged_decode", "contiguous_prefill", "contiguous_decode")
     for name, a, w in zip(names, got, want, strict=True):
@@ -880,23 +959,25 @@ def sweep_micro_batch(batches, key: str, dev, rounds: int = SWEEP_ROUNDS) -> dic
     }
 
 
-def record_greedy(engine):
+def record_greedy(engine, keep_rows: bool = True):
     """Record each request's greedy choices in ``engine``, step by step,
     from the first token's logits and each decode step's: request id ->
-    step -> (the id the engine chose, that step's fp32 logits). Returns the
-    record and a function that gives the engine its own methods back."""
-    steps: dict[str, dict[int, tuple[int, np.ndarray]]] = {}
+    step -> (the id the engine chose, that step's fp32 logits, or None
+    without ``keep_rows``). Returns the record and a function that gives
+    the engine its own methods back."""
+    steps: dict[str, dict[int, tuple[int, np.ndarray | None]]] = {}
     start_slot, decode = engine._start_slot, engine._decode
 
     def first(lane, slot_idx, req, t_valid, next_rope, logits_row):
         row = np.asarray(logits_row, np.float32)
-        steps.setdefault(req.request_id, {})[0] = (int(np.argmax(row)), row)  # sample_token's greedy choice
+        # sample_token's greedy choice
+        steps.setdefault(req.request_id, {})[0] = (int(np.argmax(row)), row if keep_rows else None)
         return start_slot(lane, slot_idx, req, t_valid, next_rope, logits_row)
 
     def step(tables, tokens, positions, rope_positions):
         greedy, logits = decode(tables, tokens, positions, rope_positions)
         lane = next(lane for lane in engine.lanes if lane.table is tables)
-        rows = logits.float().cpu().numpy()
+        rows = logits.float().cpu().numpy() if keep_rows else [None] * len(greedy)
         for i, slot in lane.slots.items():
             steps.setdefault(slot.request.request_id, {})[len(slot.generated)] = (int(greedy[i]), rows[i])
         return greedy, logits
@@ -909,35 +990,48 @@ def record_greedy(engine):
     return steps, restore
 
 
-def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))) -> tuple:
+def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4)), *, tokenizer=None,
+                prompts=None, n_frames=4, frame_fps=None, n_requests=8, keep_logits=True,
+                during=contextlib.nullcontext) -> tuple:
     """The caption benchmark's base workload through CaptionEngine (its
-    lanes: half the slots at 256 positions, half at max_seq). Returns the
-    record, the engine, the request factory, request id -> text, and each
-    request's greedy choices (``record_greedy``)."""
+    lanes: half the slots at 256 positions, half at max_seq), or, given
+    ``prompts`` ((prefix_ids, prompt_ids) pairs, taken in turn) and the
+    ``tokenizer`` they were encoded with, that workload's shape with other
+    prompts: ``n_requests`` requests of ``n_frames`` random frames at the
+    tower's size, 64 greedy tokens each. ``during()`` is a context entered
+    around the measured requests only (after the warm-up). Returns the
+    record, the engine,
+    the request factory, request id -> text, and each request's greedy
+    choices (``record_greedy``)."""
     from cosmos_curate_tpu_torch.models.prompts import get_caption_prompt
     from cosmos_curate_tpu_torch.models.vlm import CaptionEngine, CaptionRequest, SamplingConfig
     from cosmos_curate_tpu_torch.ops import kernels
 
     t0 = time.monotonic()
     engine = CaptionEngine(
-        cfg, max_batch=8, kv_lanes=kv_lanes, async_prep=True, paged_attention=paged_attention, device=dev
+        cfg, max_batch=8, kv_lanes=kv_lanes, async_prep=True, paged_attention=paged_attention, device=dev,
+        tokenizer=tokenizer,
     )
     engine.setup(seed=SEED)
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
-    tok = engine.tokenizer
-    prompt = get_caption_prompt("default")
-    prompt_ids = tok.encode(prompt)
-    long_ids = tok.encode(prompt + " transcript: " + "the camera pans across the scene. " * 40)
+    if prompts is None:
+        tok = engine.tokenizer
+        prompt = get_caption_prompt("default")
+        prompt_ids = tok.encode(prompt)
+        long_ids = tok.encode(prompt + " transcript: " + "the camera pans across the scene. " * 40)
+        prompts = [(prompt_ids, []), (prompt_ids, []), (long_ids, [])]
     rng = np.random.default_rng(SEED)
-    size = cfg.vision.image_size
+    size = cfg.qwen_vision.image_size if cfg.vision_variant == "qwen2" else cfg.vision.image_size
 
     def make_request(rid: str, i: int, max_new: int = 64) -> CaptionRequest:
+        prefix_ids, prompt_ids = prompts[i % len(prompts)]
         return CaptionRequest(
             request_id=rid,
-            prefix_ids=list(long_ids if i % 3 == 2 else prompt_ids),
-            prompt_ids=[],
-            frames=rng.integers(0, 255, (4, size, size, 3), dtype=np.uint8),
+            prefix_ids=list(prefix_ids),
+            prompt_ids=list(prompt_ids),
+            frames=rng.integers(0, 255, (n_frames, size, size, 3), dtype=np.uint8),
+            frame_fps=frame_fps,
             sampling=SamplingConfig(max_new_tokens=max_new),
         )
 
@@ -957,14 +1051,14 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
     # its pipeline's bound forward); free them so the peak is this drive's
     gc.collect()
     torch.cuda.reset_peak_memory_stats(dev)
-    n_requests = 8
-    greedy, restore = record_greedy(engine)
-    t0 = time.monotonic()
-    for i in range(n_requests):
-        engine.add_request(make_request(f"r{i}", i))
-    results = engine.run_until_complete()
-    torch.cuda.synchronize()
-    elapsed = time.monotonic() - t0
+    greedy, restore = record_greedy(engine, keep_logits)
+    with during():
+        t0 = time.monotonic()
+        for i in range(n_requests):
+            engine.add_request(make_request(f"r{i}", i))
+        results = engine.run_until_complete()
+        torch.cuda.synchronize()
+        elapsed = time.monotonic() - t0
     launches = {name: k.launches for name, k in ks.items()}
     restore()
 
@@ -979,9 +1073,11 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
         paged_attention=paged_attention,
         config={"dim": cfg.dim, "n_layers": cfg.n_layers, "n_heads": cfg.n_heads,
                 "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim, "vocab": cfg.vocab,
-                "vision_width": cfg.vision.width, "vision_layers": cfg.vision.layers},
+                **({"vision": dataclasses.asdict(cfg.qwen_vision)} if cfg.vision_variant == "qwen2" else
+                   {"vision_width": cfg.vision.width, "vision_layers": cfg.vision.layers})},
         requests=len(results),
-        prompt_tokens={"short": len(prompt_ids), "long": len(long_ids)},
+        prompt_tokens=[[len(a), len(b)] for a, b in prompts],
+        vision_tokens=engine._vision_token_count(n_frames),
         output_tokens=out_tokens,
         decode_tokens=engine.decode_tokens,
         elapsed_s=elapsed,
@@ -1271,17 +1367,22 @@ def profile_window(run, steps: int, unit: str, focus: str | None = None) -> dict
     }
 
 
-def profile_decode(engine, make_request, focus: str, steps: int = 16) -> dict:
-    """Where a decode step's time goes, with both lanes decoding: first
-    ``steps`` engine steps with no profiler (wall time per step), then
-    ``steps`` more under torch.profiler tracing the device only, with the
-    decode kernel (its name holds ``focus``) apart. The idle share is one
-    window's: 1 - device busy / wall of the traced window."""
+def profile_decode(engine, make_request, focus: str, steps: int = 16, full=None) -> dict:
+    """Where a decode step's time goes, with both lanes decoding (or, given
+    ``full``, once it holds): first ``steps`` engine steps with no profiler
+    (wall time per step), then ``steps`` more under torch.profiler tracing
+    the device only, with the decode kernel (its name holds ``focus``)
+    apart. The idle share is one window's: 1 - device busy / wall of the
+    traced window."""
+    full = full or (lambda: all(lane.slots for lane in engine.lanes))
     for i in range(8):
         engine.add_request(make_request(f"profile-{i}", i))
     deadline = time.monotonic() + 120
-    while not all(lane.slots for lane in engine.lanes):
-        assert time.monotonic() < deadline, "profile workload never reached both lanes"
+    # prep holds the engine lock only to hand a request over: a step loop
+    # spinning on an idle engine can starve it, so let it take every request
+    assert engine.wait_prep_idle(120.0), "the prep thread never took the profile workload"
+    while not full():
+        assert time.monotonic() < deadline, "profile workload never filled the decode batch"
         engine.step()
     for _ in range(4):  # let the rest of the burst join the batch
         engine.step()
@@ -1290,7 +1391,7 @@ def profile_decode(engine, make_request, focus: str, steps: int = 16) -> dict:
     # so the window holds decode steps without prep's overlap
     assert engine.wait_prep_idle(max(deadline - time.monotonic(), 0.0)), "the prep thread never went idle"
     out = profile_window(engine.step, steps, "engine step", focus)
-    assert all(lane.slots for lane in engine.lanes), "a lane drained inside the profiled window"
+    assert full(), "a lane drained inside the profiled window"
     engine.run_until_complete()
     return out
 
@@ -1974,6 +2075,7 @@ def drive_iv2(dev) -> dict:
     import cosmos_curate_tpu_torch.models.internvideo2 as iv2
     from cosmos_curate_tpu_torch.core.stage import WorkerMetadata
     from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature
+    from cosmos_curate_tpu_torch.models.layers import ATTN_CHUNK_CLIPS
     from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import ClipEmbeddingStage
 
     cfg = iv2.IV2_1B
@@ -2026,23 +2128,23 @@ def drive_iv2(dev) -> dict:
     # the attention's share of one call's device time: CUDA events around
     # every attention call, over the dispatch's compute interval
     spans = []
-    plain_attention = iv2.attention
+    plain_attention = iv2.chunked_attention
 
-    def timed_attention(q, k, v, dtype):
+    def timed_attention(q, k, v, dtype, **kw):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = plain_attention(q, k, v, dtype)
+        out = plain_attention(q, k, v, dtype, **kw)
         end.record()
         spans.append((start, end))
         return out
 
-    iv2.attention = timed_attention
+    iv2.chunked_attention = timed_attention
     try:
         pipeline.records.clear()
         stage.process_data(batches[1])
         torch.cuda.synchronize()
     finally:
-        iv2.attention = plain_attention
+        iv2.chunked_attention = plain_attention
     attn_ms = sum(a.elapsed_time(b) for a, b in spans)
     call_compute_ms = 1e3 * sum(r.compute_s for r in pipeline.records)
 
@@ -2058,7 +2160,7 @@ def drive_iv2(dev) -> dict:
         config={"embed_dim": cfg.embed_dim, "depth": cfg.depth, "heads": cfg.num_heads, "head_dim": cfg.head_dim,
                 "mlp_hidden": cfg.mlp_hidden, "num_frames": cfg.num_frames, "img_size": cfg.img_size,
                 "tokens": cfg.num_patches + 1, "proj_dim": cfg.proj_dim,
-                "attention_chunk_clips": iv2.ATTN_CHUNK_CLIPS},
+                "attention_chunk_clips": ATTN_CHUNK_CLIPS},
         refusal_without_weights=refusal, setup_s=setup_s, stage_calls=IV2_CALLS, clips=len(clips),
         dispatches=n_disp, elapsed_s=elapsed, clips_per_s=len(clips) / elapsed,
         h2d_ms_per_dispatch=1e3 * sum(r.h2d_s for r in records) / n_disp,
@@ -2073,6 +2175,388 @@ def drive_iv2(dev) -> dict:
     del stage, ref
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def check_qwen_kernels(timer, dev) -> dict:
+    """Kernels 1-4 at the Qwen caption drives' shapes (bf16, each against
+    its fp32 plain version within BOUND, the bit-equal pairs asserted): per
+    flavor, its heads and its 1024-key lane of ``kv_lanes`` slots, a
+    QWEN_PREFIX-token chat prefix and a QWEN_SUFFIX-token suffix (256 vision
+    tokens and the prompt). Paged decode on that lane (and the 2B's
+    4096-key lane), paged prefill as a 256-token chunk (a fresh row after
+    the prefix, a second chunk) and as the whole batch's 512-token bucket,
+    contiguous prefill as the prefix build (T = S = 64) and as the gather
+    engine's bucket, contiguous decode on the lane."""
+    from cosmos_curate_tpu_torch.models.vlm.model import vlm_flavor
+
+    rng = np.random.default_rng(SEED + 9)
+    pre, total = QWEN_PREFIX, QWEN_PREFIX + QWEN_SUFFIX
+    out = {}
+    for flavor in QWEN_FLAVORS:
+        cfg = vlm_flavor(flavor).cfg
+        heads = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
+        lanes = dict(vlm_flavor(flavor).kv_lanes)
+        b = lanes[1024]
+        r = {"paged_decode": {}, "paged_prefill": {}, "prefill": {}, "decode": {}}
+        for width, n in sorted(lanes.items())[: 2 if flavor == "qwen2vl-2b" else 1]:
+            kv = lane_lengths(rng, n, width - 1, low=total)
+            r["paged_decode"][f"lane_{width}"] = check_paged(
+                timer, rng, dev, f"{flavor} paged_decode lane_{width}", n, 1, kv - 1, kv, width // 16, heads,
+                idle_row=True)
+        r["paged_prefill"]["chunk_256"] = check_paged(
+            timer, rng, dev, f"{flavor} paged_prefill chunk_256", 2, 256, np.array([pre, pre + 256]),
+            np.array([pre + 256, pre + 512]), 64, heads)
+        r["paged_prefill"]["bucket_512"] = check_paged(
+            timer, rng, dev, f"{flavor} paged_prefill bucket_512", b, 512, np.full(b, pre), np.full(b, total), 64,
+            heads)
+        r["prefill"]["prefix_64"] = check_prefill(
+            timer, rng, dev, f"{flavor} prefill prefix_64", 1, 64, 64, [0], [pre], heads)
+        r["prefill"]["bucket_512"] = check_prefill(
+            timer, rng, dev, f"{flavor} prefill bucket_512", b, 512, 1024, np.full(b, pre), np.full(b, total), heads)
+        r["decode"]["lane_1024"] = check_decode(
+            timer, rng, dev, f"{flavor} decode lane_1024", b, 1024, lane_lengths(rng, b, 1024, low=total), heads)
+        out[flavor] = r
+    return out
+
+
+def write_byte_vocab(directory: Path) -> None:
+    """A GPT-2-format tokenizer (vocab.json + merges.txt) of the 256 byte
+    tokens at ids 0-255 and no merges: what a real checkpoint's staged files
+    look like, at ids every config's embedding holds."""
+    from cosmos_curate_tpu_torch.models.tokenizer import _gpt2_byte_encoder
+
+    enc = _gpt2_byte_encoder()
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "vocab.json").write_text(json.dumps({enc[b]: b for b in range(256)}))
+    (directory / "merges.txt").write_text("#version: 0.2\n")
+
+
+def qwen_tokenizer(directory: Path):
+    """The Qwen drives' tokenizer: the port's ``HFVocabTokenizer`` (Qwen2's
+    special ids) over ``write_byte_vocab``'s files."""
+    from cosmos_curate_tpu_torch.models.tokenizer import HFVocabTokenizer
+
+    write_byte_vocab(directory)
+    return HFVocabTokenizer.from_gpt2_files(directory / "vocab.json", directory / "merges.txt")
+
+
+@contextlib.contextmanager
+def counted_paged_prefill(shapes: collections.Counter):
+    """Count the caption LM's paged prefill calls by (B, T) for the duration
+    (one count a layer call). Launches are still counted only by the
+    wrapper."""
+    import cosmos_curate_tpu_torch.models.vlm.model as vlm_model
+
+    saved = vlm_model.paged_attention
+
+    def attn(q, pk, pv, tb, wi, kl, *, layer_index=0):
+        if q.shape[1] > 1:
+            shapes[(q.shape[0], q.shape[1])] += 1
+        return saved(q, pk, pv, tb, wi, kl, layer_index=layer_index)
+
+    vlm_model.paged_attention = attn
+    try:
+        yield
+    finally:
+        vlm_model.paged_attention = saved
+
+
+def check_prefill_shapes(timer, flavor: str, shapes: collections.Counter, checks: dict) -> dict:
+    """A Qwen drive's paged prefill calls by (B, T), and paged prefill
+    checked against its plain version and timed (``check_paged``) at every
+    (B, T) of them that ``check_qwen_kernels`` did not check for
+    ``flavor``: B fresh rows after the chat prefix, as far into the prompt
+    as T reaches, on the 1024-key lane."""
+    from cosmos_curate_tpu_torch.models.vlm.model import vlm_flavor
+
+    cfg = vlm_flavor(flavor).cfg
+    heads = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
+    checked = {(c["shape"]["B"], c["shape"]["T"]) for c in checks[flavor]["paged_prefill"].values()}
+    rng = np.random.default_rng(SEED + 10)
+    pre = QWEN_PREFIX
+    unchecked = {}
+    for b, t in sorted(set(shapes) - checked):
+        kv = np.full(b, pre + min(t, QWEN_SUFFIX))
+        unchecked[f"{b}x{t}"] = check_paged(
+            timer, rng, "cuda", f"{flavor} paged_prefill drive {b}x{t}", b, t, np.full(b, pre), kv,
+            max(64, -(-(pre + t) // 16)), heads)
+    return {
+        "paged_prefill_calls_by_shape": {f"{b}x{t}": n // cfg.n_layers for (b, t), n in shapes.most_common()},
+        "paged_prefill_checked_shapes": sorted(f"{b}x{t}" for b, t in checked),
+        "paged_prefill_checked_here": unchecked,
+    }
+
+
+def check_tower(tower, dev, label: str) -> dict:
+    """One 8-frame call of a Qwen vision tower: its bf16 output against the
+    same weights in fp32 (max abs difference over the fp32 output's largest
+    magnitude, asserted within QWEN_TOWER_BOUND), the call's device time and
+    its plain attention's share of it (CUDA events around each attention
+    call and around the call)."""
+    from cosmos_curate_tpu_torch.models.vlm import vision_qwen
+    from cosmos_curate_tpu_torch.models.vlm.vision_qwen import QwenVisionTower, frames_to_patches
+
+    cfg = tower.cfg
+    rng = np.random.default_rng(SEED + 6)
+    frames = torch.as_tensor(
+        rng.integers(0, 256, (1, QWEN_FRAMES, cfg.image_size, cfg.image_size, 3), dtype=np.uint8), device=dev)
+    with torch.device(dev):
+        ref = QwenVisionTower(cfg, dtype=torch.float32)
+    ref.load_state_dict(tower.state_dict())
+    spans = []
+    plain = vision_qwen.chunked_attention
+
+    def timed(q, k, v, dtype, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        o = plain(q, k, v, dtype, **kw)
+        end.record()
+        spans.append((start, end))
+        return o
+
+    with torch.inference_mode():
+        patches, grid = frames_to_patches(frames, cfg)
+        tower(patches, grid)  # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        vision_qwen.chunked_attention = timed
+        try:
+            start.record()
+            got = tower(patches, grid)
+            end.record()
+        finally:
+            vision_qwen.chunked_attention = plain
+        want = ref(patches, grid)
+    torch.cuda.synchronize()
+    rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+    assert torch.isfinite(got.float()).all() and got.shape == (1, cfg.tokens_out(QWEN_FRAMES), cfg.hidden_size)
+    assert rel <= QWEN_TOWER_BOUND, f"{label} tower: bf16 vs fp32 {rel} > {QWEN_TOWER_BOUND}"
+    call_ms = start.elapsed_time(end)
+    attn_ms = sum(a.elapsed_time(b) for a, b in spans)
+    del ref
+    return dict(
+        variant=cfg.variant, grid=list(grid), tokens=int(np.prod(grid)), head_dim=cfg.head_dim,
+        encode_ms=call_ms, attention_ms=attn_ms, attention_share=attn_ms / call_ms, attention_calls=len(spans),
+        max_abs_err_over_max_abs=rel, bound=QWEN_TOWER_BOUND,
+    )
+
+
+def check_qwen_forward(model, dev, prefix: list, suffix: list) -> dict:
+    """One request's prefill through the engine's bf16 model with its
+    kernels (paged prefill over a shuffled pool) against the same module in
+    fp32 with the plain attention (contiguous cache), on the same input
+    embeddings: the chat prefix, QWEN_FRAMES frames' vision tokens and the
+    suffix, under m-rope positions. Max abs logit difference asserted within
+    QWEN_FORWARD_BOUND; the greedy agreement and the logits' scale
+    reported."""
+    from cosmos_curate_tpu_torch.models.vlm.model import VLM, build_mrope_positions, init_cache
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 5)
+    size = cfg.qwen_vision.image_size
+    frames = torch.as_tensor(rng.integers(0, 256, (1, QWEN_FRAMES, size, size, 3), dtype=np.uint8), device=dev)
+    with torch.device(dev):
+        ref = VLM(cfg, dtype=torch.float32)
+    ref.load_state_dict(model.state_dict())
+    ref.eval()
+    with torch.inference_mode():
+        ids = [torch.as_tensor(x, dtype=torch.int32, device=dev) for x in (prefix, suffix)]
+        embeds = torch.cat([model.embed_tokens(ids[0]), model.encode_images(frames)[0], model.embed_tokens(ids[1])])
+        embeds = embeds[None].float()
+    t = embeds.shape[1]
+    rope, _ = build_mrope_positions(len(prefix), cfg.qwen_vision.merged_grid(QWEN_FRAMES), len(suffix))
+    pos = torch.as_tensor(rope, device=dev)[None]
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    bs = 16
+    nbl = -(-t // bs)
+    tables = torch.as_tensor(rng.permutation(np.arange(1, nbl + 1))[None].astype(np.int32), device=dev)
+    shape = (cfg.n_layers, nbl + 1, bs, cfg.n_kv_heads, cfg.head_dim)
+    pk = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    pv = torch.zeros_like(pk)
+    with torch.inference_mode():
+        got, _, _ = model.paged_forward(embeds, pk, pv, pos, zero, zero + t, tables)
+        ck, cv = init_cache(cfg, 1, dtype=torch.float32, length=t, device=dev)
+        with plain_attention():
+            want, _, _ = ref(embeds, ck, cv, pos, zero, zero + t)
+    got = got.float()
+    torch.cuda.synchronize()
+    assert got.shape == (1, t, cfg.vocab) and torch.isfinite(got).all(), "qwen forward: logits"
+    err = (got - want).abs().max().item()
+    out = dict(
+        tokens=t, max_abs_logit_diff=err, bound=QWEN_FORWARD_BOUND,
+        fp32_logit_max_abs=want.abs().max().item(), fp32_logit_std=want.std().item(),
+        greedy_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+    )
+    del ref, ck, cv, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert err <= QWEN_FORWARD_BOUND, f"qwen forward: {err} > {QWEN_FORWARD_BOUND}"
+    return out
+
+
+def release_memory() -> None:
+    """Free what the dropped references held, on the host and the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def drive_qwen(dev, timer, root: Path, checks: dict) -> dict:
+    """The dense Qwen-VL caption flavors on the card, seeded weights.
+
+    ``CaptionEngine(VLM_QWEN2_2B)`` at full width and depth on the
+    flavor's KV lanes: QWEN_REQUESTS chat requests (``build_qwen_vl_chat``
+    around the default caption prompt; QWEN_FRAMES random 224^2 frames:
+    4 temporal patches, 1024 tower tokens, 256 vision tokens), 64 greedy
+    tokens, paged and then gather, each with the profiled decode window,
+    the measured requests' paged prefill calls counted by (B, T) and each
+    (B, T) that ``checks`` (``check_qwen_kernels``) lacks checked on the
+    spot; the two engines' agreement reported;
+    the prefill forward against fp32 and the 2B tower against fp32. Then
+    ``VLM_QWEN25_7B`` at full width and depth serves QWEN_7B_REQUESTS
+    requests at QWEN_FPS (Qwen2.5-VL's time-scaled m-rope), and its
+    windowed tower is checked against fp32; its prefill shapes are
+    counted and checked the same way."""
+    from cosmos_curate_tpu_torch.models.prompts import get_caption_prompt
+    from cosmos_curate_tpu_torch.models.vlm.chat import build_qwen_vl_chat
+    from cosmos_curate_tpu_torch.models.vlm.model import VLM_QWEN2_2B, VLM_QWEN25_7B, vlm_flavor
+
+    tok = qwen_tokenizer(root / "byte-vocab")
+    prefix, suffix = build_qwen_vl_chat(tok, get_caption_prompt("default"))
+    assert (len(prefix), len(suffix)) == (QWEN_PREFIX, QWEN_SUFFIX - VLM_QWEN2_2B.qwen_vision.tokens_out(QWEN_FRAMES))
+    prompts = [(prefix, suffix)]
+    out = {"tokenizer": type(tok).__name__, "prompt": {"prefix": len(prefix), "suffix_text": len(suffix)}}
+
+    def full(engine):
+        return lambda: len(engine.slots) >= QWEN_REQUESTS
+
+    lanes = vlm_flavor("qwen2vl-2b").kv_lanes
+    tokens = {}
+    for mode, focus in (("auto", "PagedKV"), ("gather", "ContiguousKV")):
+        shapes = collections.Counter()
+        record, engine, make_request, _, greedy = drive_slice(
+            dev, VLM_QWEN2_2B, mode, lanes, tokenizer=tok, prompts=prompts, n_frames=QWEN_FRAMES,
+            n_requests=QWEN_REQUESTS, keep_logits=False, during=lambda s=shapes: counted_paged_prefill(s))
+        # seeded weights choose ids past the byte vocabulary, which decode to
+        # nothing: compare the engines' token ids
+        tokens[mode] = {rid: [steps[k][0] for k in sorted(steps)] for rid, steps in greedy.items()}
+        record.update(check_prefill_shapes(timer, "qwen2vl-2b", shapes, checks))
+        record["breakdown"] = profile_decode(engine, make_request, focus, full=full(engine))
+        if mode == "auto":
+            record["forward"] = check_qwen_forward(engine.model, dev, prefix, suffix)
+            record["tower"] = check_tower(engine.model.vision, dev, "qwen2vl-2b")
+        out[mode] = record
+        engine.shutdown()
+        del engine, make_request
+        release_memory()
+    out["gather"]["token_agreement_with_paged"] = agreement(tokens["auto"], tokens["gather"])
+    for name in ("paged_decode", "paged_prefill", "prefill"):
+        assert out["auto"]["launches"][name] > 0, f"qwen: {name} was not launched on the paged drive"
+    for name in ("decode", "prefill"):
+        assert out["gather"]["launches"][name] > 0, f"qwen: {name} was not launched on the gather drive"
+    for name in ("paged_decode", "paged_prefill"):
+        assert out["gather"]["launches"][name] == 0, f"qwen: the gather engine launched {name}"
+
+    shapes = collections.Counter()
+    record, engine, _, _, _ = drive_slice(
+        dev, VLM_QWEN25_7B, "auto", vlm_flavor("qwen25vl-7b").kv_lanes, tokenizer=tok, prompts=prompts,
+        n_frames=QWEN_FRAMES, frame_fps=QWEN_FPS, n_requests=QWEN_7B_REQUESTS,
+        during=lambda: counted_paged_prefill(shapes))
+    record.update(check_prefill_shapes(timer, "qwen25vl-7b", shapes, checks))
+    for name in ("paged_decode", "paged_prefill", "prefill"):
+        assert record["launches"][name] > 0, f"qwen 7b: {name} was not launched"
+    record["tower"] = check_tower(engine.model.vision, dev, "qwen25vl-7b")
+    out["qwen25vl_7b"] = record
+    engine.shutdown()
+    del engine
+    release_memory()
+    return out
+
+
+@contextlib.contextmanager
+def staged_weights(root: Path):
+    """``CURATE_MODEL_WEIGHTS_DIR`` at ``root`` for the duration."""
+    from cosmos_curate_tpu_torch.models.registry import WEIGHTS_DIR_ENV
+
+    saved = os.environ.get(WEIGHTS_DIR_ENV)
+    os.environ[WEIGHTS_DIR_ENV] = str(root)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(WEIGHTS_DIR_ENV)
+        else:
+            os.environ[WEIGHTS_DIR_ENV] = saved
+
+
+def drive_qwen_stage(dev, root: Path) -> dict:
+    """The Qwen flavors through the caption stage on the card:
+    ``qwen2vl-2b`` refuses to set up without staged tokenizer files, and
+    with them but without weights; ``qwen-chat-tiny-test`` (its tokenizer
+    files staged, seeded weights) captions QWEN_STAGE_TASKS tasks of 2
+    one-window clips x 8 random 224^2 frames through ``run_pipeline``
+    (caption prep -> caption, the default runner)."""
+    from cosmos_curate_tpu_torch.core.pipeline import run_pipeline
+    from cosmos_curate_tpu_torch.data.model import Clip, FrameExtractionSignature, SplitPipeTask, Video, VideoMetadata
+    from cosmos_curate_tpu_torch.models.vlm import SharedCaptionEngine
+    from cosmos_curate_tpu_torch.ops import kernels
+    from cosmos_curate_tpu_torch.pipelines.video.stages.captioning import CaptionPrepStage, CaptionStage
+
+    weights = root / "weights"
+    out = {}
+    with staged_weights(weights):
+        refusals = {}
+        for staged in ("nothing", "tokenizer"):
+            if staged == "tokenizer":
+                write_byte_vocab(weights / "caption-qwen2vl-2b-tpu")
+            try:
+                CaptionStage(model_flavor="qwen2vl-2b", device=dev).setup(None)
+            except (FileNotFoundError, RuntimeError) as e:
+                refusals[staged] = f"{type(e).__name__}: {e}"
+            else:
+                raise AssertionError(f"qwen2vl-2b set up with {staged} staged")
+        want = {"nothing": "FileNotFoundError", "tokenizer": "RuntimeError"}
+        for staged, kind in want.items():
+            assert refusals[staged].startswith(kind), f"qwen2vl-2b with {staged} staged: {refusals[staged]}"
+        out["qwen2vl_2b_refusals"] = refusals
+        write_byte_vocab(weights / "caption-vlm-tpu")
+        sig = FrameExtractionSignature("fps", 8.0)
+        rng = np.random.default_rng(SEED + 7)
+        tasks = [
+            SplitPipeTask(video=Video(
+                path=f"qwen-{t}.mp4",
+                metadata=VideoMetadata(width=224, height=224, fps=30.0, num_frames=60, duration_s=2.0),
+                clips=[Clip(source_video=f"qwen-{t}", span=(float(i), float(i + 1)),
+                            extracted_frames={sig.key(): rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)})
+                       for i in range(2)],
+            ))
+            for t in range(QWEN_STAGE_TASKS)
+        ]
+        ks = kernels()
+        for k in ks.values():
+            k.launches = 0
+        # 32 new tokens: the byte-level chat prompt (~170 ids with the vision
+        # block) and the stage's default 128 would overrun the flavor's 256
+        stage = CaptionStage(model_flavor="qwen-chat-tiny-test", max_new_tokens=32, device=dev)
+        t0 = time.monotonic()
+        done = run_pipeline(tasks, [CaptionPrepStage(extraction=sig), stage])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        windows = [w for t in done for c in t.video.clips for w in c.windows]
+        # seeded weights may choose only ids the byte vocabulary decodes to
+        # nothing: every window must hold a caption entry and tokens decoded
+        decoded = sum(t.stage_perf["caption_decode_tokens"] for t in done)
+        assert len(windows) == 2 * QWEN_STAGE_TASKS and all("default" in w.caption for w in windows), (
+            "qwen-chat-tiny-test: a window has no caption")
+        assert decoded > 0, "qwen-chat-tiny-test: no tokens decoded"
+        out["qwen_chat_tiny_test"] = dict(
+            windows_captioned=len(windows), non_empty_captions=sum(bool(w.caption["default"]) for w in windows),
+            decode_tokens=decoded, wall_s=wall, tokenizer=type(stage.model.tokenizer).__name__,
+            eos_id=stage.model.tokenizer.eos_id, prompt_tokens=[len(x) for x in stage._encoded_prompt],
+            launches={name: k.launches for name, k in ks.items()},
+        )
+        for name in ("paged_decode", "paged_prefill", "prefill"):
+            assert ks[name].launches > 0, f"qwen-chat-tiny-test: {name} was not launched"
+        SharedCaptionEngine.reset()
     return out
 
 
@@ -2121,6 +2605,8 @@ def main() -> int:
           "library": "scaled_dot_product_attention: on K/V already gathered to contiguous "
                      "[B, Hkv, S, D] with a boolean mask for the cache kernels (the gather is "
                      "not timed), on the same [B, H, S, D] q/k/v for flash"})
+    qwen_checks = check_qwen_kernels(timer, dev)
+    emit({"phase": "qwen_kernels", "bound": BOUND, "results": qwen_checks})
 
     embed = drive_embed(dev)
     emit({"phase": "embed", **embed})
@@ -2171,6 +2657,13 @@ def main() -> int:
         emit({"phase": "canonical", **canonical})
     emit({"phase": "iv2", **drive_iv2(dev)})
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
+        qwen = drive_qwen(dev, timer, Path(tmp), qwen_checks)
+        qwen_7b = qwen.pop("qwen25vl_7b")
+        emit({"phase": "qwen", **qwen})
+        emit({"phase": "qwen_7b", **qwen_7b})
+        emit({"phase": "qwen_stage", **drive_qwen_stage(dev, Path(tmp))})
+
     launches = {"embed": embed["launches"], "slice": record["launches"], "gather": gather["launches"]}
     for path, counts in launches.items():
         for name, n in counts.items():
@@ -2187,6 +2680,9 @@ def main() -> int:
             library_ms=c["library_ms"], bound_share=c["bound_share"], vs_library=c["vs_library"],
             pipeline_launches=pipeline["launches"][name], split_launches=split_run["split_launches"][name],
             canonical_launches=canonical["launches"][name],
+            qwen_launches=qwen["gather" if name == "decode" else "auto"]["launches"][name],
+            qwen_7b_launches=qwen_7b["launches"][name],
+            qwen=qwen_checks["qwen2vl-2b"].get(name),
         ))
     emit({"phase": "timing", "script_s": time.monotonic() - started})
     emit({"kernels": rows})

@@ -5,7 +5,9 @@ The port names its modules after the flax ones, so the map is mechanical:
 
 - path parts ``layer_{i}`` / ``block_{i}`` -> ``layers.{i}`` / ``blocks.{i}``,
   ``layers_{i}`` (an ``nn.Sequential`` child, e.g. the projector) -> ``{i}``;
-- Dense ``kernel [in, out]`` -> ``Linear.weight [out, in]``;
+- Dense ``kernel [in, out]`` -> ``Linear.weight [out, in]`` (a fused
+  kernel, such as the Qwen tower's ``qkv``, transposes whole, so its
+  outputs keep their ``(3, heads, head_dim)`` split order);
 - Conv ``kernel`` HWIO -> ``Conv2d.weight`` OIHW, and a 3-D conv's
   ``[kt, kh, kw, in, out]`` -> ``Conv3d.weight [out, in, kt, kh, kw]``;
 - ``Embed.embedding`` -> ``Embedding.weight``;

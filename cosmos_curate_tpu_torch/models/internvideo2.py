@@ -15,7 +15,7 @@ The attention is plain PyTorch (matmul, fp32 softmax, matmul), as the JAX
 package computes it in einsums outside any Pallas kernel; its head dim (88
 at ``IV2_1B``) is outside the flash kernel's. Its fp32 logits are ``[n,
 heads, S, S]`` (268 MB a clip at ``IV2_1B``'s S = 2049), so the blocks run
-the attention over chunks of ``ATTN_CHUNK_CLIPS`` clips: the same math,
+the attention over chunks of clips (``layers.chunked_attention``): the same math,
 a peak bounded whatever the micro-batch.
 """
 
@@ -33,10 +33,8 @@ from torch import nn
 from cosmos_curate_tpu_torch.core.model import ModelInterface, model_device
 from cosmos_curate_tpu_torch.models import registry
 from cosmos_curate_tpu_torch.models.device_pipeline import DevicePipeline
-from cosmos_curate_tpu_torch.models.layers import LayerNorm, Linear
+from cosmos_curate_tpu_torch.models.layers import LayerNorm, Linear, chunked_attention
 
-# clips per attention chunk: 4 x 268 MB of fp32 logits at IV2_1B
-ATTN_CHUNK_CLIPS = 4
 
 
 @dataclass(frozen=True)
@@ -159,24 +157,6 @@ class IV2RMSNorm(nn.Module):
         return (normed * self.weight).to(x.dtype)
 
 
-def attention(q, k, v, dtype):
-    """``[B, Sq, H, D]`` q against ``[B, Sk, H, D]`` k / v -> ``[B, Sq, H, D]``:
-    fp32 logits scaled after the product, fp32 softmax, probabilities cast
-    to ``dtype`` for the value product. Over chunks of ``ATTN_CHUNK_CLIPS``
-    rows of the batch, which bounds the logits' memory."""
-    scale = q.shape[-1] ** -0.5
-    outs = []
-    for i in range(0, q.shape[0], ATTN_CHUNK_CLIPS):
-        sl = slice(i, i + ATTN_CHUNK_CLIPS)
-        qc = q[sl].float().transpose(1, 2)  # [b, H, Sq, D]
-        kc = k[sl].float().transpose(1, 2)
-        logits = torch.matmul(qc, kc.transpose(-1, -2)) * scale
-        probs = torch.softmax(logits, dim=-1).to(dtype)
-        del logits
-        outs.append(torch.matmul(probs, v[sl].to(dtype).transpose(1, 2)).transpose(1, 2))
-    return torch.cat(outs) if len(outs) > 1 else outs[0]
-
-
 class IV2Block(nn.Module):
     def __init__(self, cfg: IV2Config, dtype=torch.float32):
         super().__init__()
@@ -205,7 +185,7 @@ class IV2Block(nn.Module):
             # over the FULL flattened width, not per head (the reference's)
             q = self.q_norm(q.reshape(b, n, c)).reshape(b, n, h, d)
             k = self.k_norm(k.reshape(b, n, c)).reshape(b, n, h, d)
-        attn = self.attn_out(attention(q, k, v, self.dtype).reshape(b, n, c))
+        attn = self.attn_out(chunked_attention(q, k, v, self.dtype).reshape(b, n, c))
         x = x + (attn.float() * self.ls1).to(x.dtype)
         y = self.fc2(F.gelu(self.fc1(self.ln2(x))))  # exact erf, as torch's nn.GELU
         return x + (y.float() * self.ls2).to(x.dtype)
@@ -236,7 +216,7 @@ class IV2AttentionPool(nn.Module):
         q = self.q(self.ln_q(x.mean(dim=1, keepdim=True).float())).reshape(b, 1, h, d)
         k = self.k(self.ln_k(x.float())).reshape(b, n, h, d)
         v = self.v(self.ln_v(x.float())).reshape(b, n, h, d)
-        pooled = attention(q, k, v, self.dtype).reshape(b, 1, c)
+        pooled = chunked_attention(q, k, v, self.dtype).reshape(b, 1, c)
         return self.out(pooled)[:, 0]
 
 

@@ -91,6 +91,35 @@ def gelu(x):
 
 _ACTIVATIONS = {"gelu": gelu, "quick_gelu": quick_gelu}
 
+# clips per plain-attention chunk (the InternVideo2 and Qwen towers): 4 x
+# 268 MB of fp32 logits at IV2_1B, 4 x 64 MB at a Qwen tower's 8 frames
+ATTN_CHUNK_CLIPS = 4
+
+
+def chunked_attention(q, k, v, dtype, *, mask=None, scale_q=False):
+    """``[B, Sq, H, D]`` q against ``[B, Sk, H, D]`` k / v -> ``[B, Sq, H, D]``,
+    plain PyTorch as the JAX towers' einsums: fp32 logits scaled by
+    ``D**-0.5`` (on the fp32 q before the product where ``scale_q``, as the
+    Qwen towers do, else on the logits, as InternVideo2 does), set to
+    ``-1e30`` where the ``[Sq, Sk]`` bool ``mask`` is False, fp32 softmax,
+    probabilities cast to ``dtype`` for the value product. Over chunks of
+    ``ATTN_CHUNK_CLIPS`` rows of the batch, which bounds the logits' memory."""
+    scale = q.shape[-1] ** -0.5
+    outs = []
+    for i in range(0, q.shape[0], ATTN_CHUNK_CLIPS):
+        sl = slice(i, i + ATTN_CHUNK_CLIPS)
+        qc = q[sl].float()
+        qc = (qc * scale if scale_q else qc).transpose(1, 2)  # [b, H, Sq, D]
+        logits = torch.matmul(qc, k[sl].float().transpose(1, 2).transpose(-1, -2))
+        if not scale_q:
+            logits = logits * scale
+        if mask is not None:
+            logits = logits.masked_fill_(~mask, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(dtype)
+        del logits
+        outs.append(torch.matmul(probs, v[sl].to(dtype).transpose(1, 2)).transpose(1, 2))
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
 
 class Attention(nn.Module):
     """Multi-head self-attention. The einsum path has the reference's

@@ -1461,6 +1461,8 @@ class CaptionEngine:
                 with self._stats_lock:
                     self._vision_time += time.monotonic() - t0
                     self._vision_encodes += 1
+                if self.cfg.vision_variant == "qwen2":
+                    grid_merged = self.cfg.qwen_vision.merged_grid(frames.shape[0])
                 req.vision_features = _VisionFeatures(
                     embeds=vis_embeds,
                     grid=grid_merged,
@@ -1488,7 +1490,15 @@ class CaptionEngine:
             if grid_merged is None and n_vis:
                 # vit-variant vision tokens: treat as a 1 x 1 x n_vis row
                 grid_merged = (1, 1, n_vis)
-            rope_pos, next_rope = build_mrope_positions(n_pre, grid_merged, len(req.prompt_ids))
+            # Qwen2.5-VL scales the temporal component to absolute time:
+            # t_scale = tokens_per_second * second_per_grid_t, with
+            # second_per_grid_t = temporal_patch_size / the frames' sampled
+            # rate (HF get_rope_index); Qwen2-VL keeps the unscaled arange
+            t_scale = 1.0
+            qv = self.cfg.qwen_vision
+            if qv is not None and qv.tokens_per_second and eff_fps and grid_merged is not None:
+                t_scale = qv.tokens_per_second * qv.temporal_patch_size / eff_fps
+            rope_pos, next_rope = build_mrope_positions(n_pre, grid_merged, len(req.prompt_ids), t_scale)
         else:
             rope_pos = np.arange(total, dtype=np.int32)
             next_rope = total

@@ -11,9 +11,11 @@
   block pools ``[L, NB, bs, Hkv, Dh]``. Both update the caches IN PLACE
   (the reference returns new ones) and return them.
 
-This slice ports the ``vit`` vision variant with the ``base`` and
-``tiny-test`` flavors; the Qwen vision towers and the MoE FFN wait for later
-slices (ROADMAP queue A).
+Vision variants: ``vit`` (the ``base`` and ``tiny-test`` flavors) and
+``qwen2`` (the Qwen2-VL / Qwen2.5-VL towers of vision_qwen.py, whose merger
+is the projector: flavors ``qwen2vl-2b``, ``qwen25vl-7b`` and
+``qwen-chat-tiny-test``). The MoE FFN, qk-norm and the ``qwen3`` deepstack
+tower wait for ROADMAP queue A item 6b.
 """
 
 from __future__ import annotations
@@ -29,9 +31,18 @@ from torch import nn
 from cosmos_curate_tpu_torch.models.layers import Linear
 from cosmos_curate_tpu_torch.models.vit import VIT_B_16, VIT_TINY_TEST, ViT, ViTConfig, preprocess_frames
 from cosmos_curate_tpu_torch.models.vlm.paged_kv import paged_update, paged_write_plan
+from cosmos_curate_tpu_torch.models.vlm.vision_qwen import (
+    QWEN2_VL_2B_VISION,
+    QWEN25_VL_7B_VISION,
+    QWEN_VISION_TINY_TEST,
+    QwenVisionTower,
+    frames_to_patches,
+)
 from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention
 from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention
 from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
+
+_NEXT_QWEN = "ROADMAP queue A item 6b: MoE FFN, qk-norm, the qwen3 deepstack tower"
 
 
 @dataclass(frozen=True)
@@ -70,6 +81,45 @@ class VLMConfig:
 
 
 VLM_BASE = VLMConfig()
+# Qwen2-VL-2B-Instruct: GQA 12 / 2 heads of 128, SwiGLU 8960, tied
+# embeddings, rope 1e6, m-rope 16 / 24 / 24, the 32-deep 1280-wide tower
+VLM_QWEN2_2B = VLMConfig(
+    vocab=151936,
+    dim=1536,
+    n_layers=28,
+    n_heads=12,
+    n_kv_heads=2,
+    head_dim=128,
+    hidden_mult=8960 / 1536,
+    max_seq=4096,
+    rope_theta=1_000_000.0,
+    qkv_bias=True,
+    vision=VIT_B_16,
+    vision_tokens=64,
+    vision_variant="qwen2",
+    qwen_vision=QWEN2_VL_2B_VISION,
+    mrope_section=(16, 24, 24),
+)
+# Qwen2.5-VL-7B-Instruct: GQA 28 / 4 heads, SwiGLU 18944, untied head,
+# m-rope 16 / 24 / 24, the windowed tower
+VLM_QWEN25_7B = VLMConfig(
+    vocab=152064,
+    dim=3584,
+    n_layers=28,
+    n_heads=28,
+    n_kv_heads=4,
+    head_dim=128,
+    hidden_mult=18944 / 3584,
+    max_seq=4096,
+    rope_theta=1_000_000.0,
+    qkv_bias=True,
+    vision=VIT_B_16,
+    vision_tokens=64,
+    vision_variant="qwen2",
+    qwen_vision=QWEN25_VL_7B_VISION,
+    mrope_section=(16, 24, 24),
+    tied_embeddings=False,
+)
 VLM_TINY_TEST = VLMConfig(
     vocab=512,
     dim=64,
@@ -81,22 +131,90 @@ VLM_TINY_TEST = VLMConfig(
     vision=VIT_TINY_TEST,
     vision_tokens=8,
 )
+VLM_QWEN2VL_TINY_TEST = VLMConfig(
+    vocab=512,
+    dim=64,
+    n_layers=2,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=16,
+    max_seq=128,
+    vision=VIT_TINY_TEST,
+    vision_variant="qwen2",
+    qwen_vision=QWEN_VISION_TINY_TEST,
+    mrope_section=(2, 3, 3),
+)
+# chat-template prompts in byte-level test tokens run ~170 ids: the
+# hf_chat test flavor needs the extra context
+VLM_QWEN_CHAT_TINY_TEST = VLMConfig(
+    vocab=512,
+    dim=64,
+    n_layers=2,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=16,
+    max_seq=256,
+    vision=VIT_TINY_TEST,
+    vision_variant="qwen2",
+    qwen_vision=QWEN_VISION_TINY_TEST,
+    mrope_section=(2, 3, 3),
+)
+# special-token ids inside the tiny configs' 512-row embedding, in
+# QWEN2_SPECIAL_TOKENS' layout
+_TINY_CHAT_SPECIALS = (
+    ("<|endoftext|>", 500),
+    ("<|im_start|>", 501),
+    ("<|im_end|>", 502),
+    ("<|vision_start|>", 503),
+    ("<|vision_end|>", 504),
+    ("<|vision_pad|>", 505),
+    ("<|image_pad|>", 506),
+    ("<|video_pad|>", 507),
+)
 
 
 @dataclass(frozen=True)
 class FlavorSpec:
+    """A caption flavor's serving spec: architecture, weight id, and the
+    knobs that travel with the checkpoint."""
+
     cfg: VLMConfig
     model_id: str
+    # a converted HF checkpoint indexes its embedding by the checkpoint's
+    # own token ids and was trained on its chat template: served through
+    # HFVocabTokenizer (staged vocab.json / merges.txt) and vlm/chat.py
     hf_chat: bool = False
+    # a flavor naming a real checkpoint refuses to serve a random init
     require_weights: bool = True
+    # hf_chat special-token table, (token, id) pairs; None = Qwen2's
     specials: tuple[tuple[str, int], ...] | None = None
+    # no trained vision tower: frame-bearing requests are refused
     text_only: bool = False
+    # default KV lanes ((length, n_slots), ...) for the caption engine
     kv_lanes: tuple[tuple[int, int], ...] | None = None
 
 
 VLM_FLAVORS: dict[str, FlavorSpec] = {
     "base": FlavorSpec(VLM_BASE, "caption-vlm-tpu", require_weights=False),
+    # 2B-class KV is cheap (2 KV heads): many short-lane slots for caption
+    # windows, a few full-context rows
+    "qwen2vl-2b": FlavorSpec(
+        VLM_QWEN2_2B, "caption-qwen2vl-2b-tpu", hf_chat=True, kv_lanes=((1024, 8), (4096, 4))
+    ),
+    # 7B KV rows are 4x the 2B's: half the slots
+    "qwen25vl-7b": FlavorSpec(
+        VLM_QWEN25_7B, "caption-qwen25vl-7b-tpu", hf_chat=True, kv_lanes=((1024, 4), (4096, 2))
+    ),
     "tiny-test": FlavorSpec(VLM_TINY_TEST, "caption-vlm-tpu", require_weights=False),
+    # the hf_chat plumbing (HFVocabTokenizer, the chat template) at test shapes
+    "qwen-chat-tiny-test": FlavorSpec(
+        VLM_QWEN_CHAT_TINY_TEST,
+        "caption-vlm-tpu",
+        hf_chat=True,
+        require_weights=False,
+        specials=_TINY_CHAT_SPECIALS,
+        kv_lanes=((192, 4), (256, 2)),
+    ),
 }
 
 
@@ -206,7 +324,7 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: VLMConfig, dtype=torch.bfloat16):
         super().__init__()
         if cfg.moe is not None or cfg.qk_norm:
-            raise NotImplementedError("MoE FFN and qk-norm not ported yet (ROADMAP queue A: Qwen flavors)")
+            raise NotImplementedError(f"MoE FFN and qk-norm not ported yet ({_NEXT_QWEN})")
         self.cfg = cfg
         self.dtype = dtype
         h, hk, dh, dim = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dim
@@ -268,10 +386,8 @@ class DecoderLayer(nn.Module):
 class VLM(nn.Module):
     def __init__(self, cfg: VLMConfig, dtype=torch.bfloat16):
         super().__init__()
-        if cfg.vision_variant != "vit":
-            raise NotImplementedError(
-                f"vision variant {cfg.vision_variant!r} not ported yet (ROADMAP queue A: Qwen flavors)"
-            )
+        if cfg.vision_variant not in ("vit", "qwen2"):
+            raise NotImplementedError(f"vision variant {cfg.vision_variant!r} not ported yet ({_NEXT_QWEN})")
         self.cfg = cfg
         self.dtype = dtype
         self.embed = nn.Embedding(cfg.vocab, cfg.dim)
@@ -280,12 +396,17 @@ class VLM(nn.Module):
         self.lm_head = (
             None if cfg.tied_embeddings else Linear(cfg.dim, cfg.vocab, bias=False, dtype=torch.float32)
         )
-        self.vision = ViT(cfg.vision, dtype)
-        self.projector = nn.Sequential(
-            Linear(cfg.vision.width, cfg.dim * 2, dtype=dtype),
-            nn.GELU(approximate="tanh"),
-            Linear(cfg.dim * 2, cfg.dim, dtype=dtype),
-        )
+        if cfg.vision_variant == "qwen2":
+            # the tower's merger already projects into the LM width
+            self.vision = QwenVisionTower(cfg.qwen_vision, dtype)
+            self.projector = None
+        else:
+            self.vision = ViT(cfg.vision, dtype)
+            self.projector = nn.Sequential(
+                Linear(cfg.vision.width, cfg.dim * 2, dtype=dtype),
+                nn.GELU(approximate="tanh"),
+                Linear(cfg.dim * 2, cfg.dim, dtype=dtype),
+            )
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -299,10 +420,17 @@ class VLM(nn.Module):
                 m.init_weights(gen)
 
     def encode_images(self, frames_u8):
-        """uint8 [B, N, Hp, Wp, 3] -> [B, vision_tokens, dim] LM embeddings:
-        frames through the ViT, patch tokens mean-pooled over frames, strided
-        to ``vision_tokens``, projected."""
+        """uint8 [B, N, Hp, Wp, 3] -> [B, T_vis, dim] LM embeddings.
+
+        ``vit``: frames through the ViT, patch tokens mean-pooled over
+        frames, strided to ``vision_tokens``, projected. ``qwen2``: frames
+        -> 3-D patches -> the Qwen tower; its merged grid, t-major
+        row-major (what ``build_mrope_positions`` assumes), is the
+        sequence."""
         cfg = self.cfg
+        if cfg.vision_variant == "qwen2":
+            patches, grid = frames_to_patches(frames_u8, cfg.qwen_vision)
+            return self.vision(patches, grid)
         b, n = frames_u8.shape[:2]
         pixels = preprocess_frames(frames_u8, image_size=cfg.vision.image_size, mode=cfg.vision.preprocess)
         _, tokens = self.vision(pixels.reshape(b * n, *pixels.shape[2:]))

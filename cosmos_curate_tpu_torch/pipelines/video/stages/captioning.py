@@ -7,11 +7,14 @@ of every clip through the process-level shared ``CaptionEngine``
 (models/vlm/shared_engine.py) with continuous batching, optionally with a
 second refinement pass per window.
 
-Served flavors are the port's (``base``, ``tiny-test``,
-models/vlm/model.py). The Qwen flavors, with their chat template and the
-checkpoint's own vocabulary, raise ``NotImplementedError`` (ROADMAP queue A
-item 6). The engine stage runs on ``device="cuda"`` unless the caller asks
-for the CPU. The reference's tracing spans and stage-timer records are
+Served flavors (models/vlm/model.py): the repository's ``base`` and
+``tiny-test``, and the dense Qwen-VL flavors ``qwen2vl-2b``,
+``qwen25vl-7b`` and ``qwen-chat-tiny-test``, which serve a converted
+checkpoint's own vocabulary (``HFVocabTokenizer`` over the staged
+``vocab.json`` / ``merges.txt``, local files only) and its chat template
+(models/vlm/chat.py). The Qwen3 flavors raise ``NotImplementedError``
+(ROADMAP queue A item 6b). The engine stage runs on ``device="cuda"``
+unless the caller asks for the CPU. The reference's tracing spans and stage-timer records are
 left out with the observability layer (ROADMAP); the engine counters the
 stage writes into ``task.stage_perf`` stay.
 """
@@ -30,7 +33,8 @@ from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature, SplitPi
 from cosmos_curate_tpu_torch.engine.metrics import get_metrics
 from cosmos_curate_tpu_torch.models import registry
 from cosmos_curate_tpu_torch.models.prompts import REFINEMENT_PROMPT, get_caption_prompt
-from cosmos_curate_tpu_torch.models.tokenizer import default_caption_tokenizer
+from cosmos_curate_tpu_torch.models.tokenizer import HFVocabTokenizer, default_caption_tokenizer
+from cosmos_curate_tpu_torch.models.vlm.chat import build_qwen_vl_chat
 from cosmos_curate_tpu_torch.models.vlm.engine import CaptionEngine, CaptionRequest, SamplingConfig
 from cosmos_curate_tpu_torch.models.vlm.model import VLM_BASE, VLMConfig, vlm_flavor
 from cosmos_curate_tpu_torch.models.vlm.shared_engine import SharedCaptionEngine
@@ -39,15 +43,9 @@ from cosmos_curate_tpu_torch.video.windowing import compute_windows
 
 logger = get_logger(__name__)
 
-_QWEN = "the Qwen flavors: chat template, checkpoint vocabulary, m-rope serving (ROADMAP queue A item 6)"
+_QWEN3 = "the Qwen3 flavors: MoE FFN, qk-norm, the deepstack tower (ROADMAP queue A item 6b)"
 # caption flavors of the JAX package that are not ported yet -> what they need
-_NOT_PORTED_FLAVORS = {
-    name: _QWEN
-    for name in (
-        "qwen2vl-2b", "qwen25vl-7b", "qwen3moe-a3b-lm", "qwen3vl-moe-a3b",
-        "qwen3moe-tiny-test", "qwen-chat-tiny-test",
-    )
-}
+_NOT_PORTED_FLAVORS = {name: _QWEN3 for name in ("qwen3moe-a3b-lm", "qwen3vl-moe-a3b", "qwen3moe-tiny-test")}
 
 
 class CaptionPrepStage(Stage[SplitPipeTask, SplitPipeTask]):
@@ -119,7 +117,10 @@ class _CaptionVLM(ModelInterface):
         max_batch: int,
         model_id: str | None = None,
         require_weights: bool = False,
+        hf_chat: bool = False,
+        specials: dict[str, int] | None = None,
         kv_lanes: tuple[tuple[int, int], ...] | None = None,
+        text_only: bool = False,
         device: str | torch.device = "cuda",
     ) -> None:
         self.device = model_device(device, "the caption stage")
@@ -127,7 +128,10 @@ class _CaptionVLM(ModelInterface):
         self.max_batch = max_batch
         self.model_id = model_id or self.MODEL_ID
         self.require_weights = require_weights
+        self.hf_chat = hf_chat
+        self.specials = specials
         self.kv_lanes = kv_lanes
+        self.text_only = text_only
         self.engine: CaptionEngine | None = None
         self._tokenizer = None
 
@@ -137,23 +141,50 @@ class _CaptionVLM(ModelInterface):
 
     @property
     def tokenizer(self):
-        """The repository's caption tokenizer (trained BPE when staged or
-        committed, else bytes)."""
+        """The tokenizer this flavor's requests must be encoded with. A
+        converted checkpoint's embedding is indexed by its own token ids, so
+        hf_chat flavors read the staged ``vocab.json`` / ``merges.txt``
+        (``HFVocabTokenizer``) and fail loudly without them; the others use
+        the repository's caption tokenizer (trained BPE, else bytes)."""
         if self._tokenizer is None:
-            self._tokenizer = default_caption_tokenizer()
+            if self.hf_chat:
+                vocab = registry.find_model_file(self.model_id, "vocab.json")
+                merges = registry.find_model_file(self.model_id, "merges.txt")
+                if vocab is None or merges is None:
+                    raise FileNotFoundError(
+                        f"{self.model_id} is a converted-checkpoint flavor: stage its tokenizer files "
+                        f"(vocab.json + merges.txt) under {registry.local_dir_for(self.model_id)}/; encoding "
+                        "with the repository tokenizer would address the wrong embedding rows"
+                    )
+                self._tokenizer = HFVocabTokenizer.from_gpt2_files(vocab, merges, specials=self.specials)
+            else:
+                self._tokenizer = default_caption_tokenizer()
         return self._tokenizer
 
-    def encode_prompt(self, user_text: str) -> tuple[list[int], list[int]]:
-        """(prefix_ids, prompt_ids) of a vision request: all instruction
-        text goes in the PREFIX, before the vision block, so the engine's
-        shared-prefix KV cache prefills it once per prompt instead of once
-        per window."""
+    def encode_prompt(self, user_text: str, *, has_vision: bool = True) -> tuple[list[int], list[int]]:
+        """(prefix_ids, prompt_ids) of a request in this flavor's format:
+        the checkpoint's chat template for hf_chat flavors (the vision block
+        splices between the two); otherwise all instruction text in the
+        PREFIX, before the vision block, so the engine's shared-prefix KV
+        cache prefills it once per prompt instead of once per window."""
+        if has_vision and self.text_only:
+            raise ValueError(
+                f"{self.model_id} is a text-only flavor (no trained vision tower): frame-bearing stages "
+                "cannot use it; pick a vision-language flavor"
+            )
+        if self.hf_chat:
+            return build_qwen_vl_chat(self.tokenizer, user_text, has_vision=has_vision, specials=self.specials)
         return self.tokenizer.encode(user_text), []
 
     def setup(self) -> None:
-        # build the tokenizer BEFORE the engine: a missing tokenizer fails
-        # setup, not the first inference
+        # the tokenizer BEFORE the engine: missing tokenizer files fail
+        # setup, not the first inference; so do missing weights a flavor
+        # requires, before a full-size model is built
         tokenizer = self.tokenizer
+        if self.require_weights and registry.find_checkpoint(self.model_id) is None:
+            raise RuntimeError(
+                f"no staged weights for {self.model_id} under {registry.local_dir_for(self.model_id) / 'params.msgpack'}"
+            )
 
         def loader(engine: CaptionEngine) -> dict[str, torch.Tensor]:
             def init(seed: int) -> dict[str, torch.Tensor]:
@@ -177,8 +208,9 @@ def resolve_caption_model(
 ) -> _CaptionVLM:
     """One resolution rule for every caption-family stage: an explicit
     flavor selects the full serving spec (architecture, weight id, whether
-    staged weights are required, default KV lanes); otherwise ``cfg``
-    (default ``VLM_BASE``) under the base weight id."""
+    staged weights are required, tokenizer and chat handling, default KV
+    lanes); otherwise ``cfg`` (default ``VLM_BASE``) under the base weight
+    id."""
     if cfg is not None and model_flavor is not None:
         raise ValueError("pass cfg OR model_flavor, not both")
     if model_flavor is not None:
@@ -192,7 +224,10 @@ def resolve_caption_model(
             max_batch,
             model_id=spec.model_id,
             require_weights=spec.require_weights,
+            hf_chat=spec.hf_chat,
+            specials=dict(spec.specials) if spec.specials else None,
             kv_lanes=spec.kv_lanes,
+            text_only=spec.text_only,
             device=device,
         )
     return _CaptionVLM(cfg or VLM_BASE, max_batch, device=device)

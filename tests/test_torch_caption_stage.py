@@ -16,7 +16,7 @@ registry, on ``tiny-test`` on the CPU.
 - Two stages share one engine and their requests interleave; a registry
   reset during a build does not make a second engine.
 - ``refine`` runs a second pass per window; ``max_new_tokens`` clamps to
-  half the context; flavors that are not ported raise.
+  half the context; flavors that are not ported (Qwen3) raise.
 """
 
 from __future__ import annotations
@@ -303,9 +303,11 @@ def test_max_new_tokens_clamps_like_jax():
 
 
 def test_flavors_and_devices():
-    for flavor in ("qwen2vl-2b", "qwen25vl-7b", "qwen3vl-moe-a3b", "qwen-chat-tiny-test"):
+    for flavor in ("qwen3moe-a3b-lm", "qwen3vl-moe-a3b", "qwen3moe-tiny-test"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
             tcap.CaptionStage(model_flavor=flavor, device="cpu")
+    for flavor in ("qwen2vl-2b", "qwen25vl-7b", "qwen-chat-tiny-test"):
+        assert tcap.CaptionStage(model_flavor=flavor, device="cpu").model.hf_chat
     with pytest.raises(ValueError, match="unknown caption model"):
         tcap.CaptionStage(model_flavor="bogus", device="cpu")
     with pytest.raises(ValueError, match="cfg OR model_flavor"):

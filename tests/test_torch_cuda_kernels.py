@@ -487,3 +487,84 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     padded = torch.zeros(1, 2, 9, 65, device=dev, dtype=torch.bfloat16)[..., :64]  # row stride 65
     with pytest.raises(ValueError, match="strides"):
         flash_attention(padded, padded, padded)
+
+
+# the Qwen caption flavors' LM heads (Hkv, G, D) and the 1024-key lane's
+# slots: Qwen2-VL-2B 12 / 2 heads of 128 (8 slots), Qwen2.5-VL-7B 28 / 4
+# (4 slots); their drives' prompt is a 45-token chat prefix and a
+# 376-token suffix (256 vision tokens)
+QWEN_CASES = [(2, 6, 128, 8), (4, 7, 128, 4)]
+QWEN_PREFIX, QWEN_TOTAL = 45, 421
+
+
+def _qwen_pool(rng, dev, b, hk, d, nbl, bs=16, idle_row=False):
+    n_blocks = b * nbl + 1
+    to = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    pk, pv = to(2, n_blocks, bs, hk, d), to(2, n_blocks, bs, hk, d)
+    tables = rng.permutation(np.arange(1, n_blocks)).reshape(b, nbl).astype(np.int32)
+    if idle_row:
+        tables[-1] = 0
+    return to, pk, pv, torch.from_numpy(tables).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hk,g,d,b", QWEN_CASES)
+def test_qwen_decode_kernels_on_the_lane(dev, hk, g, d, b):
+    """Both decodes on the 1024-key lane at the Qwen heads (lengths past the
+    prompt, the last slot idle on block 0 at kv_len 1): each within BOUND
+    of its fp32 plain version, and contiguous decode on the gathered rows
+    equal to paged decode on the pool, bit for bit."""
+    rng = np.random.default_rng(21)
+    width, bs = 1024, 16
+    to, pk, pv, tables = _qwen_pool(rng, dev, b, hk, d, width // bs, idle_row=True)
+    q = to(b, hk, g, d)
+    kv = rng.integers(QWEN_TOTAL, width + 1, b)
+    kv[-1] = 1
+    kv_len = torch.from_numpy(kv.astype(np.int32)).to(dev)
+    k = pk[1][tables.long()].reshape(b, width, hk, d).contiguous()
+    v = pv[1][tables.long()].reshape(b, width, hk, d).contiguous()
+    n = {name: kernels()[name].launches for name in ("paged_decode", "decode")}
+    paged = paged_attention(q[:, None], pk, pv, tables, kv_len - 1, kv_len, layer_index=1)[:, 0]
+    contiguous = decode_attention(q, k, v, kv_len)
+    assert {name: kernels()[name].launches - n[name] for name in n} == {"paged_decode": 1, "decode": 1}
+    want = decode_attention_plain(q.float(), k.float(), v.float(), kv_len, sm_scale=d**-0.5)
+    assert torch.isfinite(paged.float()).all()
+    assert _err(paged, want) <= BOUND
+    assert torch.equal(contiguous, paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hk,g,d,b", QWEN_CASES)
+@pytest.mark.parametrize("chunk", ["chunk_256", "bucket_512"])
+def test_qwen_paged_prefill_equals_contiguous_prefill(dev, hk, g, d, b, chunk):
+    """Paged prefill at the Qwen heads after the 45-token chat prefix: a
+    256-token chunk (a first and a second chunk) or the whole batch's
+    512-token bucket (queries past kv_len are padding): within BOUND of its
+    fp32 plain version and equal to cct_prefill on the gathered rows."""
+    rng = np.random.default_rng(22)
+    nbl, bs = 64, 16
+    if chunk == "chunk_256":
+        t, write, kv = 256, [QWEN_PREFIX, QWEN_PREFIX + 256], [QWEN_PREFIX + 256, QWEN_PREFIX + 512]
+    else:
+        t, write, kv = 512, [QWEN_PREFIX] * b, [QWEN_TOTAL] * b
+    rows = len(write)
+    to, pk, pv, tables = _qwen_pool(rng, dev, rows, hk, d, nbl)
+    q = to(rows, t, hk, g, d)
+    wi = torch.tensor(write, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv, dtype=torch.int32, device=dev)
+    paged = paged_attention(q, pk, pv, tables, wi, kl, layer_index=1)
+    want = paged_attention_plain(q.float(), pk.float(), pv.float(), tables, wi, kl, layer_index=1, sm_scale=d**-0.5)
+    k = pk[1][tables.long()].reshape(rows, nbl * bs, hk, d).contiguous()
+    v = pv[1][tables.long()].reshape(rows, nbl * bs, hk, d).contiguous()
+    contiguous = prefill_attention(q, k, v, wi, kl)
+    assert torch.isfinite(paged.float()).all()
+    assert _err(paged, want) <= BOUND
+    assert torch.equal(paged, contiguous)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hk,g,d,b", QWEN_CASES)
+def test_qwen_prefix_build_prefill(dev, hk, g, d, b):
+    """The shared chat prefix's build: T = S = 64 (the prefix padded to a
+    power of two), kv_len 45."""
+    _prefill_check(dev, 23, t=64, s=64, hk=hk, g=g, d=d, write=[0], kv_len=[QWEN_PREFIX])

@@ -37,10 +37,10 @@ def test_port_imports_no_jax_flax_or_reference_package():
     assert out.returncode == 0, out.stdout + out.stderr
     lines = out.stdout.splitlines()
     n_modules = int(lines[0].split()[0])
-    assert n_modules >= 71
+    assert n_modules >= 73
     names = set(lines[1].split())
     for module in ("models.clip", "models.internvideo2", "models.transnetv2", "pipelines.video.stages.aesthetic_filter",
-                   "pipelines.video.stages.shot_detection"):
+                   "pipelines.video.stages.shot_detection", "models.vlm.vision_qwen", "models.vlm.chat"):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -99,6 +99,54 @@ def test_canonical_models_default_to_the_gpu(entry):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert make(device="cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["engine_qwen2vl_2b", "engine_qwen25vl_7b", "stage_qwen2vl_2b",
+                                   "stage_qwen25vl_7b", "stage_qwen_chat_tiny"])
+def test_qwen_caption_entry_points_default_to_the_gpu(entry):
+    import torch
+
+    from cosmos_curate_tpu_torch.models.vlm import CaptionEngine
+    from cosmos_curate_tpu_torch.models.vlm.model import VLM_QWEN2_2B, VLM_QWEN25_7B
+    from cosmos_curate_tpu_torch.pipelines.video.stages.captioning import CaptionStage
+
+    make = {
+        "engine_qwen2vl_2b": lambda **kw: CaptionEngine(VLM_QWEN2_2B, **kw).device,
+        "engine_qwen25vl_7b": lambda **kw: CaptionEngine(VLM_QWEN25_7B, **kw).device,
+        "stage_qwen2vl_2b": lambda **kw: CaptionStage(model_flavor="qwen2vl-2b", **kw).model.device,
+        "stage_qwen25vl_7b": lambda **kw: CaptionStage(model_flavor="qwen25vl-7b", **kw).model.device,
+        "stage_qwen_chat_tiny": lambda **kw: CaptionStage(model_flavor="qwen-chat-tiny-test", **kw).model.device,
+    }[entry]
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert make(device="cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("model", ["vlm_qwen2vl_2b", "vlm_qwen25vl_7b", "tower_qwen2", "tower_qwen25"])
+def test_qwen_models_build_every_parameter_on_the_context_device(model):
+    """The Qwen caption models at full width, built on ``meta`` (no memory):
+    every parameter on the context device, none left on the CPU."""
+    import torch
+
+    from cosmos_curate_tpu_torch.models.vlm.model import VLM, VLM_QWEN2_2B, VLM_QWEN25_7B
+    from cosmos_curate_tpu_torch.models.vlm.vision_qwen import (
+        QWEN2_VL_2B_VISION,
+        QWEN25_VL_7B_VISION,
+        QwenVisionTower,
+    )
+
+    build = {
+        "vlm_qwen2vl_2b": lambda: VLM(VLM_QWEN2_2B),
+        "vlm_qwen25vl_7b": lambda: VLM(VLM_QWEN25_7B),
+        "tower_qwen2": lambda: QwenVisionTower(QWEN2_VL_2B_VISION),
+        "tower_qwen25": lambda: QwenVisionTower(QWEN25_VL_7B_VISION),
+    }[model]
+    with torch.device("meta"):
+        module = build()
+    assert {p.device.type for p in module.state_dict().values()} == {"meta"}
 
 
 def test_native_writer_builds_from_the_port_source_into_the_repo_build_dir():

@@ -550,7 +550,7 @@ REFUSED_OPTIONS = {
     "tracking": dict(tracking=True),
     "tracking_annotated": dict(tracking_annotated=True),
     "per_event_captions": dict(per_event_captions=True),
-    "qwen_captions": dict(captioning=True, caption_model="qwen2vl-2b", device="cpu"),
+    "qwen_captions": dict(captioning=True, caption_model="qwen3vl-moe-a3b", device="cpu"),
     "tracing": dict(tracing=True),
     "perf_profile": dict(perf_profile=True),
     "profile_cpu": dict(profile_cpu=True),
@@ -578,6 +578,32 @@ def test_unported_options_raise(case, videos, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         tsplit.run_split(tsplit.SplitPipelineArgs(**kw), runner=SequentialRunner())
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("staged", ["nothing", "tokenizer"])
+def test_qwen_caption_model_resolves_and_refuses_without_staged_weights(staged, videos, tmp_path, monkeypatch):
+    """``caption_model="qwen2vl-2b"`` resolves to the Qwen flavor and refuses
+    at the caption stage's setup, as the JAX package does: without its
+    tokenizer files, and with them but without weights (before any model is
+    built)."""
+    from tests.test_torch_qwen_vlm import write_gpt2_files
+
+    monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(tmp_path / "weights"))
+    if staged == "tokenizer":
+        write_gpt2_files(tmp_path / "weights" / "caption-qwen2vl-2b-tpu")
+    kw = dict(input_path=str(videos), output_path=str(tmp_path / "out"), captioning=True, caption_model="qwen2vl-2b",
+              device="cpu", **SPLIT)
+    stages = tsplit.assemble_stages(tsplit.SplitPipelineArgs(**kw))
+    caption = next(s for s in stages if type(s).__name__ == "CaptionStage")
+    assert caption.model.model_id == "caption-qwen2vl-2b-tpu" and caption.model.hf_chat
+    err, match = (FileNotFoundError, "vocab.json") if staged == "nothing" else (RuntimeError, "no staged weights")
+    with pytest.raises(err, match=match):
+        tsplit.run_split(tsplit.SplitPipelineArgs(**kw), runner=SequentialRunner())
+    assert not SharedCaptionEngine._engines
+    if staged == "nothing":
+        jkw = {k: v for k, v in kw.items() if k != "device"}
+        with pytest.raises(FileNotFoundError, match="vocab.json"):
+            jsplit.run_split(jsplit.SplitPipelineArgs(**jkw), runner=JSequentialRunner())
 
 
 # -- (f) no silent CPU ---------------------------------------------------------
