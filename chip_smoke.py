@@ -16,7 +16,9 @@ and prints one JSON line per phase:
    kernels' SASS (flash, prefill, paged: each must hold wgmma and TMA loads);
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    caption engine gives it at ``VLM_BASE`` width (bf16 inputs, the plain
-   version in fp32 on the same inputs, bound 1e-2 max abs error; paged
+   version in fp32 on the same inputs, the two tensor-core prefill kernels'
+   on their stated q * scale rounded to bf16, ``scaled_query``; bound 1e-2
+   max abs error; paged
    decode and contiguous decode at both lanes' widths, 1024 and 256 keys,
    contiguous decode also within it of its split mirror in fp32 and
    bit-equal to paged decode on its rows scattered into a pool; paged
@@ -171,6 +173,26 @@ and prints one JSON line per phase:
    and ``CaptionStage(model_flavor="qwen-chat-tiny-test")`` captions 8
    windows through ``run_pipeline``.
 
+14. qwen3_kernels: kernels 1-4 as in 3 at Qwen3-VL-30B-A3B's heads (Hkv 4,
+   G 8, D 128: the top of the split decode's G <= 8 body) on both lanes
+   (1024 and 4096 keys, one idle row each), a 256-token chunk and the
+   512-token bucket after the 45-token chat prefix, the prefix build, the
+   gather engine's bucket and decode, the bit-equal pairs asserted;
+   qwen3: ``CaptionEngine(VLM_QWEN3_VL_MOE_A3B)`` at full width and depth
+   (48 layers of 128 experts, top 8, capacity factor 2; the 27-block
+   1152-wide deepstack tower, taps at blocks 8 / 16 / 24), seeded weights
+   with the experts stored in bf16, on the flavor's lanes: 3 chat requests
+   of 8 frames at 2 fps and one text-only request in one 512-token prefill
+   bucket (prep at admission), 64 greedy tokens, paged and then gather
+   (``drive_qwen3``): tok/s, ms a decode step, the profiled window's idle
+   share and launches a step, the MoE's share of the device's busy time
+   (profiler ranges), peak memory and parameter bytes, dropped over routed
+   assignments in prefill and in decode, layer 0 in bf16 with the kernels
+   against fp32 with the plain attention (within ``QWEN3_LAYER_BOUND`` of
+   its update's largest magnitude), the tower's merger and deepstack levels
+   in bf16 against fp32 with its attention share at D = 72, each kernel's
+   launches asserted, and the two drives' token agreement.
+
 Every path's run zeroes the launch counters just before it and reads them
 just after; each kernel must have launched on the path that uses it
 (``KERNEL_PATH``).
@@ -305,6 +327,7 @@ EMBED_CLIPS_PER_TASK = 4
 # bf16 output vs fp32, max abs difference over the fp32 output's largest
 # magnitude
 QWEN_FLAVORS = ("qwen2vl-2b", "qwen25vl-7b")
+QWEN_LONG_LANE = ("qwen2vl-2b", "qwen3vl-moe-a3b")  # flavors whose 4096-key lane decode is checked too
 QWEN_REQUESTS = 8
 QWEN_7B_REQUESTS = 2
 QWEN_FRAMES = 8
@@ -314,6 +337,28 @@ QWEN_SUFFIX = 376  # 256 vision tokens + the 120-token text suffix
 QWEN_STAGE_TASKS = 4
 QWEN_FORWARD_BOUND = 0.25
 QWEN_TOWER_BOUND = 5e-2
+# qwen3 phase: Qwen3-VL-30B-A3B at full width and depth (48 layers of 128
+# experts, top 8; the 27-block 1152-wide deepstack tower), seeded weights,
+# the experts stored in bf16. QWEN3_REQUESTS chat requests of 8 frames at
+# 2 fps (4 temporal patches of 14 x 14 at patch 16: 784 tower tokens, 196
+# vision tokens) around the default caption prompt, and one text-only
+# request whose prompt carries a transcript, so that its suffix falls in
+# the same 512-token bucket: the four rows share one prefill, deepstack
+# and not; 64 greedy tokens; prep at admission (no prep thread), so both
+# drives hand the MoE the same rows. Bound (stated before the first run):
+# layer 0 in bf16 with the kernels against the same layer in fp32 with the
+# plain attention, on one request's prefill input, max abs difference of
+# the layer's update (output - input) over the fp32 update's largest
+# magnitude (a CPU reading at reduced width: 6e-3 to 1e-2)
+QWEN3_FLAVOR = "qwen3vl-moe-a3b"
+QWEN3_REQUESTS = 3
+QWEN3_SUFFIX = 316  # 196 vision tokens + the 120-token text suffix
+QWEN3_TRANSCRIPT = " transcript: " + "the camera pans across the scene. " * 6
+QWEN3_LAYER_BOUND = 5e-2
+# engine steps in the profiled decode window and in the MoE's (each step
+# runs both lanes: ~12 000 launches, so few steps keep the traces short)
+QWEN3_PROFILE_STEPS = 4
+QWEN3_MOE_STEPS = 2
 # flash shapes timed: ViT-B/16 at 224^2 over the embed phase's 16-clip x
 # 8-frame dispatch (the row of the kernels line) and over 32 clips, CLIP
 # ViT-L/14 at 224^2 over the canonical phase's 32-frame aesthetic dispatch
@@ -574,11 +619,21 @@ def int32s(dev):
     return i32
 
 
+def scaled_query(q, d: int):
+    """q * D**-0.5 rounded to bf16: what the tensor-core prefill kernels
+    (paged prefill, contiguous prefill) attend with, as the JAX package's
+    prefill does, before any product. Their fp32 plain reference starts
+    from it (at scale 1), so the check measures the kernel, not that
+    rounding (up to 3e-3 on an output of 2-4 at D = 128)."""
+    return (q * d**-0.5).float()
+
+
 def check_paged(timer, rng, dev, name, b, t, write, kv_len, nbl, heads, bs=16, idle_row=False) -> dict:
     """Paged attention (decode at t = 1, prefill above) against its fp32
-    plain version over a shuffled pool (layer 1 of 2), asserted within
-    BOUND; a prefill chunk must equal ``cct_prefill`` on the gathered rows
-    bit for bit. ``heads``: (Hkv, G, D)."""
+    plain version over a shuffled pool (layer 1 of 2; prefill on
+    ``scaled_query``), asserted within BOUND; a prefill chunk must equal
+    ``cct_prefill`` on the gathered rows bit for bit. ``heads``: (Hkv, G,
+    D)."""
     from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
     from cosmos_curate_tpu_torch.ops.prefill_attention import prefill_attention
 
@@ -599,7 +654,8 @@ def check_paged(timer, rng, dev, name, b, t, write, kv_len, nbl, heads, bs=16, i
         return paged_attention_plain(q, pk, pv, tb, wi, kl, layer_index=1, sm_scale=d**-0.5)
 
     got = run()
-    want = paged_attention_plain(q.float(), pk.float(), pv.float(), tb, wi, kl, layer_index=1, sm_scale=d**-0.5)
+    q32, scale = (scaled_query(q, d), 1.0) if t > 1 else (q.float(), d**-0.5)
+    want = paged_attention_plain(q32, pk.float(), pv.float(), tb, wi, kl, layer_index=1, sm_scale=scale)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all(), f"{name}: non-finite output"
     err = (got.float() - want).abs().max().item()
@@ -627,7 +683,8 @@ def check_paged(timer, rng, dev, name, b, t, write, kv_len, nbl, heads, bs=16, i
 
 def check_prefill(timer, rng, dev, name, b, t, s, write, kv_len, heads) -> dict:
     """Contiguous prefill against its fp32 plain version on a [B, S, Hkv, D]
-    cache, asserted within BOUND. ``heads``: (Hkv, G, D)."""
+    cache and ``scaled_query``, asserted within BOUND. ``heads``: (Hkv, G,
+    D)."""
     from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
 
     hk, g, d = heads
@@ -639,7 +696,7 @@ def check_prefill(timer, rng, dev, name, b, t, s, write, kv_len, heads) -> dict:
         return prefill_attention(q, k, v, wi, kl)
 
     got = run()
-    want = chunk_attention_plain(q.float(), k.float(), v.float(), wi, kl, d**-0.5)
+    want = chunk_attention_plain(scaled_query(q, d), k.float(), v.float(), wi, kl, 1.0)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all(), f"{name}: non-finite output"
     err = (got.float() - want).abs().max().item()
@@ -992,14 +1049,17 @@ def record_greedy(engine, keep_rows: bool = True):
 
 def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4)), *, tokenizer=None,
                 prompts=None, n_frames=4, frame_fps=None, n_requests=8, keep_logits=True,
-                during=contextlib.nullcontext) -> tuple:
+                during=contextlib.nullcontext, async_prep=True) -> tuple:
     """The caption benchmark's base workload through CaptionEngine (its
     lanes: half the slots at 256 positions, half at max_seq), or, given
-    ``prompts`` ((prefix_ids, prompt_ids) pairs, taken in turn) and the
+    ``prompts`` ((prefix_ids, prompt_ids) pairs, taken in turn; a third
+    item False makes that prompt's requests text-only) and the
     ``tokenizer`` they were encoded with, that workload's shape with other
     prompts: ``n_requests`` requests of ``n_frames`` random frames at the
     tower's size, 64 greedy tokens each. ``during()`` is a context entered
-    around the measured requests only (after the warm-up). Returns the
+    around the measured requests only (after the warm-up). With
+    ``async_prep=False`` every queued request is prepped at admission, so
+    the batches' rows do not depend on host timing. Returns the
     record, the engine,
     the request factory, request id -> text, and each request's greedy
     choices (``record_greedy``)."""
@@ -1009,7 +1069,7 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
 
     t0 = time.monotonic()
     engine = CaptionEngine(
-        cfg, max_batch=8, kv_lanes=kv_lanes, async_prep=True, paged_attention=paged_attention, device=dev,
+        cfg, max_batch=8, kv_lanes=kv_lanes, async_prep=async_prep, paged_attention=paged_attention, device=dev,
         tokenizer=tokenizer,
     )
     engine.setup(seed=SEED)
@@ -1022,15 +1082,16 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
         long_ids = tok.encode(prompt + " transcript: " + "the camera pans across the scene. " * 40)
         prompts = [(prompt_ids, []), (prompt_ids, []), (long_ids, [])]
     rng = np.random.default_rng(SEED)
-    size = cfg.qwen_vision.image_size if cfg.vision_variant == "qwen2" else cfg.vision.image_size
+    size = cfg.qwen_vision.image_size if cfg.qwen_vision is not None else cfg.vision.image_size
 
     def make_request(rid: str, i: int, max_new: int = 64) -> CaptionRequest:
-        prefix_ids, prompt_ids = prompts[i % len(prompts)]
+        prefix_ids, prompt_ids, *with_frames = prompts[i % len(prompts)]
+        frames = rng.integers(0, 255, (n_frames, size, size, 3), dtype=np.uint8)
         return CaptionRequest(
             request_id=rid,
             prefix_ids=list(prefix_ids),
             prompt_ids=list(prompt_ids),
-            frames=rng.integers(0, 255, (n_frames, size, size, 3), dtype=np.uint8),
+            frames=frames if with_frames in ([], [True]) else None,
             frame_fps=frame_fps,
             sampling=SamplingConfig(max_new_tokens=max_new),
         )
@@ -1073,10 +1134,10 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
         paged_attention=paged_attention,
         config={"dim": cfg.dim, "n_layers": cfg.n_layers, "n_heads": cfg.n_heads,
                 "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim, "vocab": cfg.vocab,
-                **({"vision": dataclasses.asdict(cfg.qwen_vision)} if cfg.vision_variant == "qwen2" else
+                **({"vision": dataclasses.asdict(cfg.qwen_vision)} if cfg.qwen_vision is not None else
                    {"vision_width": cfg.vision.width, "vision_layers": cfg.vision.layers})},
         requests=len(results),
-        prompt_tokens=[[len(a), len(b)] for a, b in prompts],
+        prompt_tokens=[[len(p[0]), len(p[1])] for p in prompts],
         vision_tokens=engine._vision_token_count(n_frames),
         output_tokens=out_tokens,
         decode_tokens=engine.decode_tokens,
@@ -1367,20 +1428,22 @@ def profile_window(run, steps: int, unit: str, focus: str | None = None) -> dict
     }
 
 
-def profile_decode(engine, make_request, focus: str, steps: int = 16, full=None) -> dict:
+def profile_decode(engine, make_request, focus: str, steps: int = 16, full=None, after=None) -> dict:
     """Where a decode step's time goes, with both lanes decoding (or, given
     ``full``, once it holds): first ``steps`` engine steps with no profiler
     (wall time per step), then ``steps`` more under torch.profiler tracing
     the device only, with the decode kernel (its name holds ``focus``)
     apart. The idle share is one window's: 1 - device busy / wall of the
-    traced window."""
+    traced window. ``after(engine)``, when given, runs next, while the
+    batch is still full, and its dict joins the result."""
     full = full or (lambda: all(lane.slots for lane in engine.lanes))
     for i in range(8):
         engine.add_request(make_request(f"profile-{i}", i))
     deadline = time.monotonic() + 120
     # prep holds the engine lock only to hand a request over: a step loop
     # spinning on an idle engine can starve it, so let it take every request
-    assert engine.wait_prep_idle(120.0), "the prep thread never took the profile workload"
+    if engine.async_prep:
+        assert engine.wait_prep_idle(120.0), "the prep thread never took the profile workload"
     while not full():
         assert time.monotonic() < deadline, "profile workload never filled the decode batch"
         engine.step()
@@ -1389,8 +1452,11 @@ def profile_decode(engine, make_request, focus: str, steps: int = 16, full=None)
     # the async prep thread idle before the window: a CUDA call of that
     # thread racing the profiler's stop crashed the process (PERF.md §7),
     # so the window holds decode steps without prep's overlap
-    assert engine.wait_prep_idle(max(deadline - time.monotonic(), 0.0)), "the prep thread never went idle"
+    if engine.async_prep:
+        assert engine.wait_prep_idle(max(deadline - time.monotonic(), 0.0)), "the prep thread never went idle"
     out = profile_window(engine.step, steps, "engine step", focus)
+    if after is not None:
+        out.update(after(engine))
     assert full(), "a lane drained inside the profiled window"
     engine.run_until_complete()
     return out
@@ -2178,28 +2244,29 @@ def drive_iv2(dev) -> dict:
     return out
 
 
-def check_qwen_kernels(timer, dev) -> dict:
+def check_qwen_kernels(timer, dev, flavors=QWEN_FLAVORS, suffix=QWEN_SUFFIX, seed=SEED + 9) -> dict:
     """Kernels 1-4 at the Qwen caption drives' shapes (bf16, each against
     its fp32 plain version within BOUND, the bit-equal pairs asserted): per
     flavor, its heads and its 1024-key lane of ``kv_lanes`` slots, a
-    QWEN_PREFIX-token chat prefix and a QWEN_SUFFIX-token suffix (256 vision
-    tokens and the prompt). Paged decode on that lane (and the 2B's
-    4096-key lane), paged prefill as a 256-token chunk (a fresh row after
-    the prefix, a second chunk) and as the whole batch's 512-token bucket,
-    contiguous prefill as the prefix build (T = S = 64) and as the gather
-    engine's bucket, contiguous decode on the lane."""
+    QWEN_PREFIX-token chat prefix and a ``suffix``-token suffix (the vision
+    tokens and the prompt). Paged decode on that lane (and on the 4096-key
+    lane of the flavors in QWEN_LONG_LANE), paged prefill as a 256-token
+    chunk (a fresh row after the prefix, a second chunk) and as the whole
+    batch's 512-token bucket, contiguous prefill as the prefix build (T = S
+    = 64) and as the gather engine's bucket, contiguous decode on the
+    lane."""
     from cosmos_curate_tpu_torch.models.vlm.model import vlm_flavor
 
-    rng = np.random.default_rng(SEED + 9)
-    pre, total = QWEN_PREFIX, QWEN_PREFIX + QWEN_SUFFIX
+    rng = np.random.default_rng(seed)
+    pre, total = QWEN_PREFIX, QWEN_PREFIX + suffix
     out = {}
-    for flavor in QWEN_FLAVORS:
+    for flavor in flavors:
         cfg = vlm_flavor(flavor).cfg
         heads = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
         lanes = dict(vlm_flavor(flavor).kv_lanes)
         b = lanes[1024]
         r = {"paged_decode": {}, "paged_prefill": {}, "prefill": {}, "decode": {}}
-        for width, n in sorted(lanes.items())[: 2 if flavor == "qwen2vl-2b" else 1]:
+        for width, n in sorted(lanes.items())[: 2 if flavor in QWEN_LONG_LANE else 1]:
             kv = lane_lengths(rng, n, width - 1, low=total)
             r["paged_decode"][f"lane_{width}"] = check_paged(
                 timer, rng, dev, f"{flavor} paged_decode lane_{width}", n, 1, kv - 1, kv, width // 16, heads,
@@ -2262,7 +2329,8 @@ def counted_paged_prefill(shapes: collections.Counter):
         vlm_model.paged_attention = saved
 
 
-def check_prefill_shapes(timer, flavor: str, shapes: collections.Counter, checks: dict) -> dict:
+def check_prefill_shapes(timer, flavor: str, shapes: collections.Counter, checks: dict,
+                         suffix: int = QWEN_SUFFIX) -> dict:
     """A Qwen drive's paged prefill calls by (B, T), and paged prefill
     checked against its plain version and timed (``check_paged``) at every
     (B, T) of them that ``check_qwen_kernels`` did not check for
@@ -2277,7 +2345,7 @@ def check_prefill_shapes(timer, flavor: str, shapes: collections.Counter, checks
     pre = QWEN_PREFIX
     unchecked = {}
     for b, t in sorted(set(shapes) - checked):
-        kv = np.full(b, pre + min(t, QWEN_SUFFIX))
+        kv = np.full(b, pre + min(t, suffix))
         unchecked[f"{b}x{t}"] = check_paged(
             timer, rng, "cuda", f"{flavor} paged_prefill drive {b}x{t}", b, t, np.full(b, pre), kv,
             max(64, -(-(pre + t) // 16)), heads)
@@ -2291,9 +2359,10 @@ def check_prefill_shapes(timer, flavor: str, shapes: collections.Counter, checks
 def check_tower(tower, dev, label: str) -> dict:
     """One 8-frame call of a Qwen vision tower: its bf16 output against the
     same weights in fp32 (max abs difference over the fp32 output's largest
-    magnitude, asserted within QWEN_TOWER_BOUND), the call's device time and
-    its plain attention's share of it (CUDA events around each attention
-    call and around the call)."""
+    magnitude, asserted within QWEN_TOWER_BOUND; each deepstack level of a
+    qwen3 tower too), the call's device time and its plain attention's
+    share of it (CUDA events around each attention call and around the
+    call)."""
     from cosmos_curate_tpu_torch.models.vlm import vision_qwen
     from cosmos_curate_tpu_torch.models.vlm.vision_qwen import QwenVisionTower, frames_to_patches
 
@@ -2328,9 +2397,16 @@ def check_tower(tower, dev, label: str) -> dict:
             vision_qwen.chunked_attention = plain
         want = ref(patches, grid)
     torch.cuda.synchronize()
+    levels = {}
+    if cfg.variant == "qwen3":
+        (got, got_ds), (want, want_ds) = got, want
+        assert got_ds.shape == (len(cfg.deepstack_indexes), *got.shape) and torch.isfinite(got_ds.float()).all()
+        levels = {f"deepstack_{i}": ((g.float() - w).abs().max() / w.abs().max()).item()
+                  for i, (g, w) in enumerate(zip(got_ds, want_ds))}
     rel = ((got.float() - want).abs().max() / want.abs().max()).item()
     assert torch.isfinite(got.float()).all() and got.shape == (1, cfg.tokens_out(QWEN_FRAMES), cfg.hidden_size)
-    assert rel <= QWEN_TOWER_BOUND, f"{label} tower: bf16 vs fp32 {rel} > {QWEN_TOWER_BOUND}"
+    for name, err in {"merger": rel, **levels}.items():
+        assert err <= QWEN_TOWER_BOUND, f"{label} tower {name}: bf16 vs fp32 {err} > {QWEN_TOWER_BOUND}"
     call_ms = start.elapsed_time(end)
     attn_ms = sum(a.elapsed_time(b) for a, b in spans)
     del ref
@@ -2338,6 +2414,7 @@ def check_tower(tower, dev, label: str) -> dict:
         variant=cfg.variant, grid=list(grid), tokens=int(np.prod(grid)), head_dim=cfg.head_dim,
         encode_ms=call_ms, attention_ms=attn_ms, attention_share=attn_ms / call_ms, attention_calls=len(spans),
         max_abs_err_over_max_abs=rel, bound=QWEN_TOWER_BOUND,
+        **({"deepstack_max_abs_err_over_max_abs": levels} if levels else {}),
     )
 
 
@@ -2469,6 +2546,190 @@ def drive_qwen(dev, timer, root: Path, checks: dict) -> dict:
     engine.shutdown()
     del engine
     release_memory()
+    return out
+
+
+@contextlib.contextmanager
+def logged_routes(log: list):
+    """Every MoE call's (B, T, dropped assignments) appended to ``log`` for
+    the duration."""
+    import cosmos_curate_tpu_torch.models.vlm.model as vlm_model
+
+    saved = vlm_model.moe_forward
+
+    def forward(moe, x, router, gate_up, down, dtype, route_log=None):
+        return saved(moe, x, router, gate_up, down, dtype, log)
+
+    vlm_model.moe_forward = forward
+    try:
+        yield
+    finally:
+        vlm_model.moe_forward = saved
+
+
+def drop_shares(log: list, top_k: int) -> dict:
+    """Dropped over routed assignments of the logged MoE calls, prefill
+    (T > 1) and decode (T = 1) apart."""
+    out = {}
+    for kind, calls in (("prefill", [c for c in log if c[1] > 1]), ("decode", [c for c in log if c[1] == 1])):
+        routed = sum(b * t * top_k for b, t, _ in calls)
+        dropped = sum(int(d) for _, _, d in calls)
+        out[kind] = {"calls": len(calls), "routed": routed, "dropped": dropped, "share": dropped / max(1, routed)}
+    return out
+
+
+def moe_share(engine, steps: int = QWEN3_MOE_STEPS) -> dict:
+    """``steps`` engine steps under torch.profiler (host and device), every
+    MoE call inside a ``moe_forward`` range: the MoE's device milliseconds
+    a step, the kernels launched inside its calls (this trace's busy time
+    is not comparable: with the host traced too it reads ~2.5x the
+    device-only window's)."""
+    import cosmos_curate_tpu_torch.models.vlm.model as vlm_model
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = vlm_model.moe_forward
+
+    def ranged(*args, **kw):
+        with record_function("moe_forward"):
+            return saved(*args, **kw)
+
+    vlm_model.moe_forward = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
+    finally:
+        vlm_model.moe_forward = saved
+    moe = next(e for e in prof.key_averages() if e.key == "moe_forward")
+    assert moe.device_time_total > 0, "the profiler traced no MoE device time"
+    return {"moe": {"steps": steps, "calls_per_step": moe.count / steps,
+                    "device_ms_per_step": moe.device_time_total / 1e3 / steps}}
+
+
+def check_qwen3_layer(model, dev, prefix: list, suffix: list) -> dict:
+    """Layer 0 of the served model at full width (attention and the MoE in
+    bf16, the paged prefill kernel over a shuffled pool) against the same
+    layer in fp32 (2.4 GB; the whole model would be 116 GB) with the plain
+    attention on a contiguous cache, on one request's prefill input (the
+    chat prefix, QWEN_FRAMES frames' vision tokens, the suffix) at its m-rope
+    positions: the max abs difference of the layer's update (output -
+    input) over the fp32 update's largest magnitude, asserted within
+    QWEN3_LAYER_BOUND; both sides' dropped assignments reported."""
+    from cosmos_curate_tpu_torch.models.vlm.model import DecoderLayer, build_mrope_positions
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 12)
+    size = cfg.qwen_vision.image_size
+    frames = torch.as_tensor(rng.integers(0, 256, (1, QWEN_FRAMES, size, size, 3), dtype=np.uint8), device=dev)
+    layer = model.layers[0]
+    with torch.device(dev):
+        ref = DecoderLayer(cfg, dtype=torch.float32)
+    ref.load_state_dict(layer.state_dict())
+    with torch.inference_mode():
+        ids = [torch.as_tensor(x, dtype=torch.int32, device=dev) for x in (prefix, suffix)]
+        vis, _ = model.encode_images(frames)
+        x = torch.cat([model.embed_tokens(ids[0]), vis[0], model.embed_tokens(ids[1])])[None]
+    t = x.shape[1]
+    rope, _ = build_mrope_positions(len(prefix), cfg.qwen_vision.merged_grid(QWEN_FRAMES), len(suffix))
+    pos = torch.as_tensor(rope, device=dev)[None]
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    bs = 16
+    nbl = -(-t // bs)
+    tables = torch.as_tensor(rng.permutation(np.arange(1, nbl + 1))[None].astype(np.int32), device=dev)
+    pk = torch.zeros((1, nbl + 1, bs, cfg.n_kv_heads, cfg.head_dim), dtype=torch.bfloat16, device=dev)
+    pv = torch.zeros_like(pk)
+    got_log, want_log = [], []
+    with torch.inference_mode():
+        with logged_routes(got_log):
+            got = layer(x, pk, pv, pos, zero, zero + t, block_tables=tables, layer_index=0)
+        ck = torch.zeros((1, t, cfg.n_kv_heads, cfg.head_dim), device=dev)
+        cv = torch.zeros_like(ck)
+        with plain_attention(), logged_routes(want_log):
+            want = ref(x.float(), ck, cv, pos, zero, zero + t)
+    torch.cuda.synchronize()
+    assert got.shape == (1, t, cfg.dim) and torch.isfinite(got.float()).all(), "qwen3 layer: output"
+    update = want - x.float()
+    rel = ((got.float() - x.float() - update).abs().max() / update.abs().max()).item()
+    out = dict(
+        tokens=t, max_abs_err_over_max_abs=rel, bound=QWEN3_LAYER_BOUND,
+        fp32_update_max_abs=update.abs().max().item(), input_max_abs=x.float().abs().max().item(),
+        dropped_bf16=int(got_log[0][2]), dropped_fp32=int(want_log[0][2]),
+        routed=t * cfg.moe.top_k,
+    )
+    del ref, ck, cv, want, update
+    release_memory()
+    assert rel <= QWEN3_LAYER_BOUND, f"qwen3 layer: {rel} > {QWEN3_LAYER_BOUND}"
+    return out
+
+
+def drive_qwen3(dev, timer, root: Path, checks: dict) -> dict:
+    """Qwen3-VL-30B-A3B on the card at full width and depth, seeded
+    weights, experts in bf16: ``CaptionEngine(VLM_QWEN3_VL_MOE_A3B)`` on the
+    flavor's KV lanes serves QWEN3_REQUESTS chat requests of QWEN_FRAMES
+    frames at QWEN_FPS and one text-only request (prep at admission: the
+    four rows share one 512-token prefill bucket), 64 greedy tokens each,
+    paged and then gather. Each drive: tok/s, ms a decode step, device
+    peak, each kernel's launches (asserted). The paged drive also: its
+    paged prefill calls by (B, T) (each one ``checks`` lacks is checked on
+    the spot), the profiled decode window with both lanes decoding (idle
+    share, launches a step) and the MoE's share of its device time
+    (``moe_share``), layer 0 against fp32 (``check_qwen3_layer``) and the
+    tower against fp32 (``check_tower``). The gather drive logs every MoE
+    call: dropped over routed assignments in prefill and in decode. The
+    two drives' token agreement is reported."""
+    from cosmos_curate_tpu_torch.models.batching import next_pow2
+    from cosmos_curate_tpu_torch.models.prompts import get_caption_prompt
+    from cosmos_curate_tpu_torch.models.vlm.chat import build_qwen_vl_chat
+    from cosmos_curate_tpu_torch.models.vlm.model import VLM_QWEN3_VL_MOE_A3B, vlm_flavor
+
+    cfg = VLM_QWEN3_VL_MOE_A3B
+    tok = qwen_tokenizer(root / "byte-vocab")
+    prompt = get_caption_prompt("default")
+    prefix, suffix = build_qwen_vl_chat(tok, prompt)
+    t_prefix, t_suffix = build_qwen_vl_chat(tok, prompt + QWEN3_TRANSCRIPT, has_vision=False)
+    n_vis = cfg.qwen_vision.tokens_out(QWEN_FRAMES)
+    assert (len(prefix), len(suffix) + n_vis) == (QWEN_PREFIX, QWEN3_SUFFIX)
+    assert next_pow2(len(t_suffix)) == next_pow2(QWEN3_SUFFIX), "the text-only request must share the bucket"
+    prompts = [(prefix, suffix)] * QWEN3_REQUESTS + [(t_prefix, t_suffix, False)]
+    out = {"tokenizer": type(tok).__name__, "vision_tokens": n_vis,
+           "prompt": {"prefix": len(prefix), "suffix_text": len(suffix), "text_only": [len(t_prefix), len(t_suffix)]}}
+    lanes = vlm_flavor(QWEN3_FLAVOR).kv_lanes
+    tokens = {}
+    for mode, focus in (("auto", "PagedKV"), ("gather", "ContiguousKV")):
+        shapes, routes = collections.Counter(), []
+        during = (lambda: counted_paged_prefill(shapes)) if mode == "auto" else (lambda: logged_routes(routes))
+        record, engine, make_request, _, greedy = drive_slice(
+            dev, cfg, mode, lanes, tokenizer=tok, prompts=prompts, n_frames=QWEN_FRAMES, frame_fps=QWEN_FPS,
+            n_requests=len(prompts), keep_logits=False, during=during, async_prep=False)
+        tokens[mode] = {rid: [steps[k][0] for k in sorted(steps)] for rid, steps in greedy.items()}
+        record["parameter_bytes"] = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+        record["expert_bytes"] = sum(
+            p.numel() * p.element_size() for n, p in engine.model.named_parameters() if ".moe." in n)
+        if mode == "auto":
+            record.update(check_prefill_shapes(timer, QWEN3_FLAVOR, shapes, checks, QWEN3_SUFFIX))
+            record["breakdown"] = breakdown = profile_decode(
+                engine, make_request, focus, steps=QWEN3_PROFILE_STEPS, after=moe_share)
+            # both windows decode the same two lanes; the share is over the
+            # device-only window's busy time
+            breakdown["moe"]["share_of_device_busy"] = (
+                breakdown["moe"]["device_ms_per_step"] / breakdown["device_busy_ms_per_step"])
+            record["layer"] = check_qwen3_layer(engine.model, dev, prefix, suffix)
+            record["tower"] = check_tower(engine.model.vision, dev, QWEN3_FLAVOR)
+        else:
+            record["drops"] = drop_shares(routes, cfg.moe.top_k)
+        out[mode] = record
+        engine.shutdown()
+        del engine, make_request
+        release_memory()
+    out["gather"]["token_agreement_with_paged"] = agreement(tokens["auto"], tokens["gather"])
+    for name in ("paged_decode", "paged_prefill", "prefill"):
+        assert out["auto"]["launches"][name] > 0, f"qwen3: {name} was not launched on the paged drive"
+    for name in ("decode", "prefill"):
+        assert out["gather"]["launches"][name] > 0, f"qwen3: {name} was not launched on the gather drive"
+    for name in ("paged_decode", "paged_prefill"):
+        assert out["gather"]["launches"][name] == 0, f"qwen3: the gather engine launched {name}"
     return out
 
 
@@ -2663,6 +2924,12 @@ def main() -> int:
         emit({"phase": "qwen", **qwen})
         emit({"phase": "qwen_7b", **qwen_7b})
         emit({"phase": "qwen_stage", **drive_qwen_stage(dev, Path(tmp))})
+    release_memory()
+    qwen3_checks = check_qwen_kernels(timer, dev, (QWEN3_FLAVOR,), QWEN3_SUFFIX, SEED + 11)
+    emit({"phase": "qwen3_kernels", "bound": BOUND, "results": qwen3_checks})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen3-") as tmp:
+        qwen3 = drive_qwen3(dev, timer, Path(tmp), qwen3_checks)
+    emit({"phase": "qwen3", **qwen3})
 
     launches = {"embed": embed["launches"], "slice": record["launches"], "gather": gather["launches"]}
     for path, counts in launches.items():
@@ -2683,6 +2950,8 @@ def main() -> int:
             qwen_launches=qwen["gather" if name == "decode" else "auto"]["launches"][name],
             qwen_7b_launches=qwen_7b["launches"][name],
             qwen=qwen_checks["qwen2vl-2b"].get(name),
+            qwen3_launches=qwen3["gather" if name == "decode" else "auto"]["launches"][name],
+            qwen3=qwen3_checks[QWEN3_FLAVOR].get(name),
         ))
     emit({"phase": "timing", "script_s": time.monotonic() - started})
     emit({"kernels": rows})

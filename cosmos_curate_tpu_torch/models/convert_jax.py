@@ -13,8 +13,11 @@ The port names its modules after the flax ones, so the map is mechanical:
 - ``Embed.embedding`` -> ``Embedding.weight``;
 - LayerNorm / RMSNorm ``scale`` -> ``weight`` (``bias`` stays ``bias``);
 - raw params (``cls``, ``pos_embed``, the pooler's ``query`` and
-  ``time_embed``, InternVideo2's LayerScale ``ls1`` / ``ls2``) keep their
-  names;
+  ``time_embed``, InternVideo2's LayerScale ``ls1`` / ``ls2``, the MoE
+  experts ``moe/gate_up [E, D, 2H]`` and ``moe/down [E, H, D]``) keep
+  their names and layout (the MoE router is a Dense: its ``[D, E]``
+  kernel transposes); ``load_state_dict`` casts each value to its
+  parameter's dtype (bf16 for the experts of a bf16 model);
 - other module names carry over as they are: the video embedder's
   ``vit/...`` and ``pooler/t{i}/...`` become ``vit....`` and
   ``pooler.t{i}....``, because the port's pooler names its blocks ``t{i}``.

@@ -20,9 +20,17 @@ prefill kernel for T > 1 and the decode kernel (ops/decode_attention.py)
 for T = 1 on the GPU. On the CPU both families run the plain versions and
 give bit-equal tokens, which makes gather the paged path's parity reference.
 
+A ``qwen3`` model's deepstack levels ride with each multimodal request
+(``ds``, zeros at text positions, None for text-only requests) through the
+vision-feature cache, prep, the prefix fold-in, the tail cut and the
+per-bucket and per-chunk buffers into every prefill; decode and
+shared-prefix builds pass None. Rows reach the model exactly as the JAX
+engine shapes them (bucket padding, row 0 duplicated into padding rows,
+idle decode rows), which the MoE's expert capacity makes part of the result.
+
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; it never moves to the CPU on its own. Not ported in this
-slice: tensor-parallel serving (``mesh``) and the Qwen3 deepstack inputs.
+slice: tensor-parallel serving (``mesh``).
 """
 
 from __future__ import annotations
@@ -138,6 +146,7 @@ class _VisionFeatures:
     refinement follow-up over the SAME frames skips the tower entirely."""
 
     embeds: Any  # [T_vis, D] device tensor
+    ds: np.ndarray | None  # qwen3 deepstack levels [L_ds, T_vis, D]
     grid: tuple[int, int, int] | None
     eff_fps: float | None
     n_tokens: int
@@ -158,6 +167,7 @@ class _Prepared:
     t_suffix: int
     rope: np.ndarray  # [T_suffix] or [T_suffix, 3]
     next_rope: int
+    ds: np.ndarray | None = None  # [L_ds, T_suffix, D] deepstack (suffix-aligned)
     base: int = 0  # cached prefix length already in the KV cache
     prefix_key: tuple | None = None
 
@@ -212,6 +222,9 @@ class _PendingPrefill:
     t_valid: int
     rope_pos: np.ndarray  # [T] or [T, 3]
     next_rope: int
+    # qwen3 deepstack visual features [L_ds, T, D] (zeros at text
+    # positions), chunk-sliced alongside embeds; None otherwise
+    ds: np.ndarray | None = None
     progress: int = 0  # prompt tokens already written to the cache
     # cache offset where this prompt's writes start (= cached shared-prefix
     # length; chunk k writes at base + progress)
@@ -278,6 +291,8 @@ class CaptionEngine:
                 "tensor-parallel serving (mesh) is not ported yet (ROADMAP queue A: TP)"
             )
         self.cfg = cfg
+        # qwen3 deepstack: the number of LM layers that take visual features
+        self._ds_levels = len(cfg.qwen_vision.deepstack_indexes) if cfg.vision_variant == "qwen3" else 0
         self.max_batch = max_batch
         # prompts longer than this prefill in chunks of this size,
         # interleaved with decode steps
@@ -513,8 +528,9 @@ class CaptionEngine:
         return rp
 
     @torch.inference_mode()
-    def _encode_images(self, frames_u8: np.ndarray) -> torch.Tensor:
-        """uint8 [1, N, H, W, 3] -> [1, T_vis, D] LM embeddings."""
+    def _encode_images(self, frames_u8: np.ndarray):
+        """uint8 [1, N, H, W, 3] -> [1, T_vis, D] LM embeddings (qwen3:
+        with its deepstack levels [L_ds, 1, T_vis, D], as a pair)."""
         return self.model.encode_images(self._to_device(frames_u8))
 
     @torch.inference_mode()
@@ -523,10 +539,11 @@ class CaptionEngine:
         return self.model.embed_tokens(self._to_device(np.asarray(ids, np.int32)))
 
     @torch.inference_mode()
-    def _prefill_batch(self, tables, embeds, write_index, t_valid, rope_pos) -> torch.Tensor:
+    def _prefill_batch(self, tables, embeds, write_index, t_valid, rope_pos, ds=None) -> torch.Tensor:
         """Batched prefill through the block tables. embeds: [N, Tb, D]
         (bucket- or chunk-padded); tables: [N, nbl]; write_index/t_valid:
-        [N]; rope_pos: [N, Tb] (or [N, Tb, 3]). write_index > 0 rows are
+        [N]; rope_pos: [N, Tb] (or [N, Tb, 3]); ds: None or the deepstack
+        levels [L_ds, N, Tb, D]. write_index > 0 rows are
         later chunks of a chunked prefill, or shared-prefix suffixes
         starting past their cached blocks. Writes every row's K/V into the
         pool and returns each row's logits at its last valid position,
@@ -540,14 +557,15 @@ class CaptionEngine:
         write_index = self._to_device(write_index)
         t_valid = self._to_device(t_valid)
         rope_pos = self._to_device(rope_pos)
+        ds = None if ds is None else self._to_device(ds)
         kv_len = write_index + t_valid
         if self._use_paged:
             logits, _, _ = self.model.paged_forward(
-                embeds, self._pool_k, self._pool_v, rope_pos, write_index, kv_len, tables
+                embeds, self._pool_k, self._pool_v, rope_pos, write_index, kv_len, tables, deepstack=ds
             )
         else:
             ck, cv = gather_block_views(self._pool_k, self._pool_v, tables)
-            logits, ck, cv = self.model(embeds, ck, cv, rope_pos, write_index, kv_len)
+            logits, ck, cv = self.model(embeds, ck, cv, rope_pos, write_index, kv_len, deepstack=ds)
             scatter_block_views(self._pool_k, self._pool_v, tables, ck, cv)
         rows = torch.arange(logits.shape[0], device=self.device)
         return logits[rows, (t_valid - 1).long()]
@@ -1308,6 +1326,8 @@ class CaptionEngine:
                         prep = self._materialize_full(prep)
                     prep.embeds = prep.embeds[-lane_budget:]
                     prep.rope = prep.rope[-lane_budget:]
+                    if prep.ds is not None:
+                        prep.ds = prep.ds[:, -lane_budget:]
                     prep.t_suffix = lane_budget
             # The prefix entry must be resident BEFORE placement decisions:
             # when the pool cannot host it (exhausted with nothing
@@ -1379,6 +1399,7 @@ class CaptionEngine:
                     t_valid=prep.t_suffix,
                     rope_pos=prep.rope,
                     next_rope=prep.next_rope,
+                    ds=prep.ds,
                     base=prep.base,
                 )
                 continue
@@ -1391,6 +1412,7 @@ class CaptionEngine:
                     prep.t_suffix,
                     prep.rope,
                     prep.next_rope,
+                    prep.ds,
                     prep.base,
                 )
             )
@@ -1441,6 +1463,7 @@ class CaptionEngine:
         budget = self._max_len - req.sampling.max_new_tokens - 1
         n_pre = len(req.prefix_ids)
         vis_embeds = None
+        ds_vis = None
         grid_merged = None
         eff_fps = None
         if req.frames is not None:
@@ -1449,22 +1472,27 @@ class CaptionEngine:
             if vf is not None and n_text + vf.n_tokens <= budget:
                 # refinement pass over the SAME frames: reuse the encoded
                 # vision features instead of re-running the tower
-                vis_embeds = vf.embeds
+                vis_embeds, ds_vis = vf.embeds, vf.ds
                 grid_merged, eff_fps = vf.grid, vf.eff_fps
                 with self._stats_lock:
                     self._vision_reuses += 1
             else:
                 frames, eff_fps = self._fit_frames_to_budget(req)
                 t0 = time.monotonic()
-                vis_embeds = self._encode_images(np.asarray(frames)[None])[0]
+                vis = self._encode_images(np.asarray(frames)[None])
+                if isinstance(vis, tuple):  # qwen3: (embeds, deepstack levels)
+                    vis, ds_levels = vis
+                    ds_vis = ds_levels[:, 0].float().cpu().numpy()  # [L_ds, T_vis, D]
+                vis_embeds = vis[0]
                 self._sync()
                 with self._stats_lock:
                     self._vision_time += time.monotonic() - t0
                     self._vision_encodes += 1
-                if self.cfg.vision_variant == "qwen2":
+                if self.cfg.vision_variant in ("qwen2", "qwen3"):
                     grid_merged = self.cfg.qwen_vision.merged_grid(frames.shape[0])
                 req.vision_features = _VisionFeatures(
                     embeds=vis_embeds,
+                    ds=ds_vis,
                     grid=grid_merged,
                     eff_fps=eff_fps,
                     n_tokens=int(vis_embeds.shape[0]),
@@ -1502,6 +1530,13 @@ class CaptionEngine:
         else:
             rope_pos = np.arange(total, dtype=np.int32)
             next_rope = total
+        ds = None
+        if ds_vis is not None and self._ds_levels:
+            # zeros at text positions, the levels over the vision span;
+            # suffix-aligned when the prefix is cached
+            off = 0 if use_prefix else n_pre
+            ds = np.zeros((self._ds_levels, total - n_pre if use_prefix else total, embeds.shape[-1]), np.float32)
+            ds[:, off : off + ds_vis.shape[1]] = ds_vis
         if use_prefix:
             key = tuple(req.prefix_ids)
             _entry, hit = self._ensure_prefix(key)
@@ -1514,6 +1549,7 @@ class CaptionEngine:
                 t_suffix=total - n_pre,
                 rope=np.asarray(rope_pos)[n_pre:],
                 next_rope=next_rope,
+                ds=ds,
                 base=n_pre,
                 prefix_key=key,
             )
@@ -1532,6 +1568,8 @@ class CaptionEngine:
             # last); rope positions stay absolute for the kept tokens
             embeds = embeds[-budget:]
             rope_pos = rope_pos[-budget:]
+            if ds is not None:
+                ds = ds[:, -budget:]
             t_valid = budget
         return _Prepared(
             request=req,
@@ -1539,6 +1577,7 @@ class CaptionEngine:
             t_suffix=t_valid,
             rope=rope_pos,
             next_rope=next_rope,
+            ds=ds,
         )
 
     def _materialize_full(self, prep: _Prepared) -> _Prepared:
@@ -1551,12 +1590,16 @@ class CaptionEngine:
         pre_emb = self._embed_tokens(req.prefix_ids).float().cpu().numpy()
         t = np.arange(n_pre, dtype=np.int32)
         pre_rope = np.stack([t, t, t], axis=-1) if prep.rope.ndim == 2 else t
+        ds = prep.ds
+        if ds is not None:
+            ds = np.concatenate([np.zeros((ds.shape[0], n_pre, ds.shape[-1]), np.float32), ds], axis=1)
         return _Prepared(
             request=req,
             embeds=np.concatenate([pre_emb, prep.embeds], axis=0),
             t_suffix=n_pre + prep.t_suffix,
             rope=np.concatenate([pre_rope, prep.rope], axis=0),
             next_rope=prep.next_rope,
+            ds=ds,
         )
 
     def _ensure_prefix(
@@ -1825,26 +1868,32 @@ class CaptionEngine:
         mrope = self.cfg.mrope_section is not None
         rope_shape = (n_pad, bucket, 3) if mrope else (n_pad, bucket)
         rope_buf = np.zeros(rope_shape, np.int32)
-        for j, (slot_idx, _req, emb, t_valid, rope_pos, _next, base) in enumerate(items):
+        # deepstack rows of text-only requests stay zero
+        ds_buf = np.zeros((self._ds_levels, n_pad, bucket, dim), np.float32) if self._ds_levels else None
+        for j, (slot_idx, _req, emb, t_valid, rope_pos, _next, ds, base) in enumerate(items):
             embeds[j, :t_valid] = np.asarray(emb, np.float32)[:t_valid]
             slots_arr[j] = slot_idx
             t_valids[j] = t_valid
             bases[j] = base  # shared-prefix rows start past their cached K/V
             rope_buf[j, :t_valid] = rope_pos[:t_valid]
+            if ds_buf is not None and ds is not None:
+                ds_buf[:, j, :t_valid] = ds[:, :t_valid]
         for j in range(n, n_pad):  # duplicate row 0 into padding
             embeds[j] = embeds[0]
             slots_arr[j] = slots_arr[0]
             t_valids[j] = t_valids[0]
             bases[j] = bases[0]
             rope_buf[j] = rope_buf[0]
+            if ds_buf is not None:
+                ds_buf[:, j] = ds_buf[:, 0]
         t0 = time.monotonic()
         tables = lane.table[slots_arr]  # [n_pad, nbl]; padding rows = row 0
-        logits = self._prefill_batch(tables, embeds, bases, t_valids, rope_buf)
+        logits = self._prefill_batch(tables, embeds, bases, t_valids, rope_buf, ds_buf)
         logits_np = logits.float().cpu().numpy()  # one host sync for the whole group
         with self._stats_lock:
             self._prefill_time += time.monotonic() - t0
             self._prefill_tokens += int(sum(it[3] for it in items))
-        for j, (slot_idx, req, _emb, t_valid, _rope, next_rope, base) in enumerate(items):
+        for j, (slot_idx, req, _emb, t_valid, _rope, next_rope, _ds, base) in enumerate(items):
             self._start_slot(lane, slot_idx, req, base + t_valid, next_rope, logits_np[j])
 
     def _start_slot(
@@ -1916,6 +1965,7 @@ class CaptionEngine:
         write_idx = np.zeros(n_pad, np.int32)
         chunk_valid = np.ones(n_pad, np.int32)
         rope_buf = np.zeros((n_pad, C, 3) if mrope else (n_pad, C), np.int32)
+        ds_buf = np.zeros((self._ds_levels, n_pad, C, dim), np.float32) if self._ds_levels else None
         new_tokens = 0
         for j, (slot_idx, p) in enumerate(items):
             take = min(C, p.t_valid - p.progress)
@@ -1934,15 +1984,19 @@ class CaptionEngine:
             write_idx[j] = p.base + start
             chunk_valid[j] = C if start < p.progress else take
             rope_buf[j] = p.rope_pos[start : start + C]
+            if ds_buf is not None and p.ds is not None:
+                ds_buf[:, j] = p.ds[:, start : start + C]
         for j in range(n, n_pad):  # duplicate row 0 (identical writes: safe)
             embeds[j] = embeds[0]
             slots_arr[j] = slots_arr[0]
             write_idx[j] = write_idx[0]
             chunk_valid[j] = chunk_valid[0]
             rope_buf[j] = rope_buf[0]
+            if ds_buf is not None:
+                ds_buf[:, j] = ds_buf[:, 0]
         t0 = time.monotonic()
         tables = lane.table[slots_arr]  # [n_pad, nbl]; padding rows = row 0
-        logits = self._prefill_batch(tables, embeds, write_idx, chunk_valid, rope_buf)
+        logits = self._prefill_batch(tables, embeds, write_idx, chunk_valid, rope_buf, ds_buf)
         finished = []
         for j, (slot_idx, p) in enumerate(items):
             p.progress += min(C, p.t_valid - p.progress)

@@ -11,11 +11,15 @@
   block pools ``[L, NB, bs, Hkv, Dh]``. Both update the caches IN PLACE
   (the reference returns new ones) and return them.
 
-Vision variants: ``vit`` (the ``base`` and ``tiny-test`` flavors) and
-``qwen2`` (the Qwen2-VL / Qwen2.5-VL towers of vision_qwen.py, whose merger
-is the projector: flavors ``qwen2vl-2b``, ``qwen25vl-7b`` and
-``qwen-chat-tiny-test``). The MoE FFN, qk-norm and the ``qwen3`` deepstack
-tower wait for ROADMAP queue A item 6b.
+Vision variants: ``vit`` (the ``base``, ``tiny-test`` and text-only MoE
+flavors), ``qwen2`` (the Qwen2-VL / Qwen2.5-VL towers of vision_qwen.py,
+whose merger is the projector: flavors ``qwen2vl-2b``, ``qwen25vl-7b`` and
+``qwen-chat-tiny-test``) and ``qwen3`` (the Qwen3-VL deepstack tower:
+``qwen3vl-moe-a3b``), whose deepstack levels are added to the hidden states
+after the first decoder layers of a prefill. The Qwen3 LM has qk-norm,
+interleaved m-rope and the sparse :class:`MoEFFN`, whose experts are stored
+in the compute dtype (bf16: 58 GB at Qwen3-VL-30B-A3B, where fp32 would be
+116 GB).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from cosmos_curate_tpu_torch.models.vit import VIT_B_16, VIT_TINY_TEST, ViT, ViT
 from cosmos_curate_tpu_torch.models.vlm.paged_kv import paged_update, paged_write_plan
 from cosmos_curate_tpu_torch.models.vlm.vision_qwen import (
     QWEN2_VL_2B_VISION,
+    QWEN3_VISION_TINY_TEST,
+    QWEN3_VL_MOE_VISION,
     QWEN25_VL_7B_VISION,
     QWEN_VISION_TINY_TEST,
     QwenVisionTower,
@@ -42,17 +48,16 @@ from cosmos_curate_tpu_torch.ops.decode_attention import decode_attention
 from cosmos_curate_tpu_torch.ops.paged_attention import paged_attention
 from cosmos_curate_tpu_torch.ops.prefill_attention import chunk_attention_plain, prefill_attention
 
-_NEXT_QWEN = "ROADMAP queue A item 6b: MoE FFN, qk-norm, the qwen3 deepstack tower"
-
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Sparse mixture-of-experts FFN settings (mirrored; the MoE FFN itself
-    is not ported yet)."""
+    """Sparse mixture-of-experts FFN settings (:class:`MoEFFN`)."""
 
     n_experts: int = 8
     top_k: int = 2
-    hidden: int = 512
+    hidden: int = 512  # per-expert intermediate width
+    # expert-queue capacity = ceil(top_k * tokens / n_experts * factor);
+    # None = every token fits (capacity = token count)
     capacity_factor: float | None = None
 
 
@@ -131,6 +136,78 @@ VLM_TINY_TEST = VLMConfig(
     vision=VIT_TINY_TEST,
     vision_tokens=8,
 )
+# Qwen3-VL-30B-A3B's LM alone (text-only slot): GQA 32 / 4 heads of 128,
+# qk-norm, interleaved m-rope 24 / 20 / 20, untied head, 48 MoE layers of
+# 128 experts (top 8, 768 wide, capacity factor 2)
+VLM_QWEN3_MOE_A3B = VLMConfig(
+    vocab=151936,
+    dim=2048,
+    n_layers=48,
+    n_heads=32,
+    n_kv_heads=4,
+    head_dim=128,
+    hidden_mult=6144 / 2048,
+    max_seq=4096,
+    rope_theta=1_000_000.0,
+    qkv_bias=False,
+    qk_norm=True,
+    vision=VIT_TINY_TEST,
+    vision_tokens=8,
+    mrope_section=(24, 20, 20),
+    mrope_interleaved=True,
+    tied_embeddings=False,
+    moe=MoEConfig(n_experts=128, top_k=8, hidden=768, capacity_factor=2.0),
+)
+# the same LM under the deepstack tower (Qwen3-VL-30B-A3B)
+VLM_QWEN3_VL_MOE_A3B = VLMConfig(
+    vocab=151936,
+    dim=2048,
+    n_layers=48,
+    n_heads=32,
+    n_kv_heads=4,
+    head_dim=128,
+    hidden_mult=6144 / 2048,
+    max_seq=4096,
+    rope_theta=1_000_000.0,
+    qkv_bias=False,
+    qk_norm=True,
+    vision=VIT_TINY_TEST,
+    vision_variant="qwen3",
+    qwen_vision=QWEN3_VL_MOE_VISION,
+    mrope_section=(24, 20, 20),
+    mrope_interleaved=True,
+    tied_embeddings=False,
+    moe=MoEConfig(n_experts=128, top_k=8, hidden=768, capacity_factor=2.0),
+)
+VLM_QWEN3VL_TINY_TEST = VLMConfig(
+    vocab=512,
+    dim=64,
+    n_layers=2,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=16,
+    max_seq=128,
+    vision=VIT_TINY_TEST,
+    vision_variant="qwen3",
+    qwen_vision=QWEN3_VISION_TINY_TEST,
+    mrope_section=(2, 3, 3),
+    mrope_interleaved=True,
+    qk_norm=True,
+    moe=MoEConfig(n_experts=4, top_k=2, hidden=32),
+)
+VLM_MOE_TINY_TEST = VLMConfig(
+    vocab=512,
+    dim=64,
+    n_layers=2,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=16,
+    max_seq=128,
+    vision=VIT_TINY_TEST,
+    vision_tokens=8,
+    qk_norm=True,
+    moe=MoEConfig(n_experts=4, top_k=2, hidden=32),
+)
 VLM_QWEN2VL_TINY_TEST = VLMConfig(
     vocab=512,
     dim=64,
@@ -206,6 +283,15 @@ VLM_FLAVORS: dict[str, FlavorSpec] = {
         VLM_QWEN25_7B, "caption-qwen25vl-7b-tpu", hf_chat=True, kv_lanes=((1024, 4), (4096, 2))
     ),
     "tiny-test": FlavorSpec(VLM_TINY_TEST, "caption-vlm-tpu", require_weights=False),
+    # the MoE LM of an LM-only converted checkpoint (no vision params)
+    "qwen3moe-a3b-lm": FlavorSpec(
+        VLM_QWEN3_MOE_A3B, "caption-qwen3moe-a3b-tpu", hf_chat=True, text_only=True, kv_lanes=((1024, 4), (4096, 2))
+    ),
+    # Qwen3-VL-MoE: the deepstack tower and the sparse LM
+    "qwen3vl-moe-a3b": FlavorSpec(
+        VLM_QWEN3_VL_MOE_A3B, "caption-qwen3vl-moe-a3b-tpu", hf_chat=True, kv_lanes=((1024, 4), (4096, 2))
+    ),
+    "qwen3moe-tiny-test": FlavorSpec(VLM_MOE_TINY_TEST, "caption-vlm-tpu", require_weights=False),
     # the hf_chat plumbing (HFVocabTokenizer, the chat template) at test shapes
     "qwen-chat-tiny-test": FlavorSpec(
         VLM_QWEN_CHAT_TINY_TEST,
@@ -320,24 +406,95 @@ def write_rows(cache, chunk, write_index) -> None:
     cache[torch.arange(b, device=cache.device)[:, None], idx] = chunk.to(cache.dtype)
 
 
+def moe_forward(moe: MoEConfig, x, router, gate_up, down, dtype, route_log: list | None = None):
+    """The sparse FFN of :class:`MoEFFN` over ``x`` [B, T, D], with its
+    expert tensors given: ``gate_up`` [E, D, 2H] and ``down`` [E, H, D] are
+    cast to ``dtype`` here (a no-op for the module's, stored in it).
+
+    The router (fp32 ``router`` Linear, softmax over all experts, top-k,
+    renormalised) gives each token k experts; assignment ``token * k +
+    rank`` queues at the number of earlier assignments to its expert,
+    counted token-major over all B * T rows, so padding rows and idle
+    decode rows take queue places too. A place at or past the capacity
+    ``max(1, min(n, ceil(k * n / e * factor)))`` (n with no factor) is
+    dropped. Kept assignments are scattered into ``[E, cap, D]``, the expert
+    SwiGLU runs as two batched products (the fused ``gate_up`` split as gate
+    then up), and each assignment reads its queue slot back, weighted by its
+    router probability and summed over k in fp32. ``route_log``, when
+    given, gets (B, T, dropped assignments), the last a device tensor."""
+    b, t, d = x.shape
+    n = b * t
+    e, k = moe.n_experts, moe.top_k
+    tokens = x.reshape(n, d)
+    probs = torch.softmax(router(tokens.float()), dim=-1)
+    top_w, top_i = torch.topk(probs, k, dim=-1)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    cap = n if moe.capacity_factor is None else max(1, min(n, int(np.ceil(k * n / e * moe.capacity_factor))))
+    a_ids = top_i.reshape(-1)  # [A] expert of each assignment, token-major
+    onehot = F.one_hot(a_ids, e).to(torch.int32)
+    pos = (onehot.cumsum(0, dtype=torch.int32) - onehot).gather(1, a_ids[:, None])[:, 0]
+    keep = pos < cap
+    # an overflowing assignment lands in one spare row past the queues
+    dest = torch.where(keep, a_ids * cap + pos, e * cap)
+    expert_in = tokens.new_zeros((e * cap + 1, d), dtype=dtype)
+    expert_in[dest] = tokens.to(dtype).repeat_interleave(k, dim=0)
+    z = torch.bmm(expert_in[:-1].reshape(e, cap, d), gate_up.to(dtype))
+    gate, up = z.chunk(2, dim=-1)
+    out = torch.bmm(F.silu(gate) * up, down.to(dtype)).reshape(e * cap, d)
+    out_a = torch.where(keep[:, None], out[dest.clamp(max=e * cap - 1)], 0).float()
+    y = (out_a * top_w.reshape(-1, 1)).reshape(n, k, d).sum(dim=1)
+    if route_log is not None:
+        route_log.append((b, t, (~keep).sum()))
+    return y.reshape(b, t, d).to(x.dtype)
+
+
+class MoEFFN(nn.Module):
+    """The sparse mixture-of-experts FFN of the Qwen3 MoE LMs, GShard-style
+    static dispatch (:func:`moe_forward`). The JAX module keeps fp32 experts
+    and casts them to the compute dtype on every call; here they are stored
+    in it, which gives the same bits."""
+
+    def __init__(self, cfg: VLMConfig, dtype=torch.bfloat16):
+        super().__init__()
+        moe = cfg.moe
+        self.cfg = moe
+        self.dtype = dtype
+        self.router = Linear(cfg.dim, moe.n_experts, bias=False, dtype=torch.float32)
+        self.gate_up = nn.Parameter(torch.zeros(moe.n_experts, cfg.dim, 2 * moe.hidden, dtype=dtype))
+        self.down = nn.Parameter(torch.zeros(moe.n_experts, moe.hidden, cfg.dim, dtype=dtype))
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        """flax's init of the experts: normal(0.02) (the router is a Linear)."""
+        self.gate_up.normal_(0.0, 0.02, generator=gen)
+        self.down.normal_(0.0, 0.02, generator=gen)
+
+    def forward(self, x):
+        return moe_forward(self.cfg, x, self.router, self.gate_up, self.down, self.dtype)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: VLMConfig, dtype=torch.bfloat16):
         super().__init__()
-        if cfg.moe is not None or cfg.qk_norm:
-            raise NotImplementedError(f"MoE FFN and qk-norm not ported yet ({_NEXT_QWEN})")
         self.cfg = cfg
         self.dtype = dtype
         h, hk, dh, dim = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dim
-        hidden = int(dim * cfg.hidden_mult)
         self.ln1 = RMSNorm(dim, cfg.rms_eps)
         self.q = Linear(dim, h * dh, bias=cfg.qkv_bias, dtype=dtype)
         self.k = Linear(dim, hk * dh, bias=cfg.qkv_bias, dtype=dtype)
         self.v = Linear(dim, hk * dh, bias=cfg.qkv_bias, dtype=dtype)
+        if cfg.qk_norm:  # Qwen3: an RMS norm over each head's dim, before rope
+            self.q_norm = RMSNorm(dh, cfg.rms_eps)
+            self.k_norm = RMSNorm(dh, cfg.rms_eps)
         self.o = Linear(h * dh, dim, bias=False, dtype=dtype)
         self.ln2 = RMSNorm(dim, cfg.rms_eps)
-        self.up = Linear(dim, hidden, bias=False, dtype=dtype)
-        self.gate = Linear(dim, hidden, bias=False, dtype=dtype)
-        self.down = Linear(hidden, dim, bias=False, dtype=dtype)
+        if cfg.moe is not None:
+            self.moe = MoEFFN(cfg, dtype)
+        else:
+            hidden = int(dim * cfg.hidden_mult)
+            self.up = Linear(dim, hidden, bias=False, dtype=dtype)
+            self.gate = Linear(dim, hidden, bias=False, dtype=dtype)
+            self.down = Linear(hidden, dim, bias=False, dtype=dtype)
 
     def forward(
         self, x, cache_k, cache_v, positions, write_index, kv_len,
@@ -359,6 +516,8 @@ class DecoderLayer(nn.Module):
         q = self.q(y).reshape(b, t, h, dh)
         k = self.k(y).reshape(b, t, hk, dh)
         v = self.v(y).reshape(b, t, hk, dh)
+        if cfg.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_section, cfg.mrope_interleaved)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_section, cfg.mrope_interleaved)
         qg = q.reshape(b, t, hk, h // hk, dh)
@@ -380,14 +539,16 @@ class DecoderLayer(nn.Module):
                 attn = chunk_attention_plain(qg, cache_k, cache_v, write_index, kv_len, dh**-0.5)
         x = x + self.o(attn.to(self.dtype).reshape(b, t, h * dh))
         y = self.ln2(x)
+        if cfg.moe is not None:
+            return x + self.moe(y)
         return x + self.down(F.silu(self.gate(y)) * self.up(y))
 
 
 class VLM(nn.Module):
     def __init__(self, cfg: VLMConfig, dtype=torch.bfloat16):
         super().__init__()
-        if cfg.vision_variant not in ("vit", "qwen2"):
-            raise NotImplementedError(f"vision variant {cfg.vision_variant!r} not ported yet ({_NEXT_QWEN})")
+        if cfg.vision_variant not in ("vit", "qwen2", "qwen3"):
+            raise ValueError(f"unknown vision variant {cfg.vision_variant!r}")
         self.cfg = cfg
         self.dtype = dtype
         self.embed = nn.Embedding(cfg.vocab, cfg.dim)
@@ -396,7 +557,7 @@ class VLM(nn.Module):
         self.lm_head = (
             None if cfg.tied_embeddings else Linear(cfg.dim, cfg.vocab, bias=False, dtype=torch.float32)
         )
-        if cfg.vision_variant == "qwen2":
+        if cfg.vision_variant in ("qwen2", "qwen3"):
             # the tower's merger already projects into the LM width
             self.vision = QwenVisionTower(cfg.qwen_vision, dtype)
             self.projector = None
@@ -410,13 +571,15 @@ class VLM(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
-        """Seeded init with the flax initialisers: normal(0.02) embeddings,
-        xavier-uniform dense kernels, zero biases (norms keep their unit
-        scale from construction)."""
+        """Seeded init with the flax initialisers: normal(0.02) embeddings
+        and experts, xavier-uniform dense kernels, zero biases (norms keep
+        their unit scale from construction)."""
         self.embed.weight.normal_(0.0, 0.02, generator=gen)
         self.vision.init_weights(gen)
         for name, m in self.named_modules():
-            if isinstance(m, Linear) and not name.startswith("vision."):
+            if isinstance(m, MoEFFN):
+                m.init_weights(gen)
+            elif isinstance(m, Linear) and not name.startswith("vision."):
                 m.init_weights(gen)
 
     def encode_images(self, frames_u8):
@@ -426,9 +589,10 @@ class VLM(nn.Module):
         frames, strided to ``vision_tokens``, projected. ``qwen2``: frames
         -> 3-D patches -> the Qwen tower; its merged grid, t-major
         row-major (what ``build_mrope_positions`` assumes), is the
-        sequence."""
+        sequence. ``qwen3``: the same, returned with its deepstack levels
+        ``[L_ds, B, T_vis, dim]`` as ``(embeds, deepstack)``."""
         cfg = self.cfg
-        if cfg.vision_variant == "qwen2":
+        if cfg.vision_variant in ("qwen2", "qwen3"):
             patches, grid = frames_to_patches(frames_u8, cfg.qwen_vision)
             return self.vision(patches, grid)
         b, n = frames_u8.shape[:2]
@@ -449,30 +613,41 @@ class VLM(nn.Module):
             return self.lm_head(x.float())
         return torch.matmul(x.to(self.dtype), self.embed.weight.to(self.dtype).t())
 
-    def forward(self, embeds, cache_k, cache_v, positions, write_index, kv_len):
+    def forward(self, embeds, cache_k, cache_v, positions, write_index, kv_len, deepstack=None):
         """Forward over input embeddings against slot caches.
 
         embeds: [B, T, D]; cache_k/v: [L, B, S, Hkv, Dh] (updated in place);
         positions: [B, T] rope positions ([B, T, 3] under m-rope);
-        write_index/kv_len: [B] int32. Returns (logits [B, T, vocab],
-        cache_k, cache_v)."""
+        write_index/kv_len: [B] int32; deepstack: None or [L_ds, B, T, D]
+        visual features, level i added to the hidden states after layer i
+        (zeros at text positions; prefill only). Returns (logits [B, T,
+        vocab], cache_k, cache_v)."""
         x = embeds.to(self.dtype)
+        n_ds = 0 if deepstack is None else deepstack.shape[0]
         for i, layer in enumerate(self.layers):
             x = layer(x, cache_k[i], cache_v[i], positions, write_index, kv_len)
+            if i < n_ds:
+                x = x + deepstack[i].to(x.dtype)
         return self._logits(x), cache_k, cache_v
 
-    def paged_forward(self, embeds, pool_k, pool_v, positions, write_index, kv_len, block_tables):
+    def paged_forward(
+        self, embeds, pool_k, pool_v, positions, write_index, kv_len, block_tables, deepstack=None
+    ):
         """Forward straight against the paged pools ``[L, NB, bs, Hkv, Dh]``
         (updated in place): each layer scatters its chunk through
         ``block_tables`` [B, nbl] int32 and attends in place
-        (ops/paged_attention.py). Returns (logits, pool_k, pool_v)."""
+        (ops/paged_attention.py); ``deepstack`` as in :meth:`forward`.
+        Returns (logits, pool_k, pool_v)."""
         x = embeds.to(self.dtype)
+        n_ds = 0 if deepstack is None else deepstack.shape[0]
         plan = paged_write_plan(block_tables, write_index, x.shape[1], pool_k.shape[2])
         for i, layer in enumerate(self.layers):
             x = layer(
                 x, pool_k, pool_v, positions, write_index, kv_len,
                 block_tables=block_tables, layer_index=i, write_plan=plan,
             )
+            if i < n_ds:
+                x = x + deepstack[i].to(x.dtype)
         return self._logits(x), pool_k, pool_v
 
 

@@ -1,4 +1,4 @@
-"""Qwen2-VL / Qwen2.5-VL vision tower (port of
+"""Qwen2-VL / Qwen2.5-VL / Qwen3-VL vision towers (port of
 ``cosmos_curate_tpu/models/vlm/vision_qwen.py``): 3-D patchify as one
 matmul, 2-D rope in merge-window order, per-frame (and, for Qwen2.5-VL,
 windowed) attention, and the patch merger into the LM width.
@@ -12,13 +12,16 @@ Variants:
 - ``qwen2_5``: RMSNorm blocks, biased SwiGLU MLP, tokens permuted into
   window-major order with attention inside each window except at
   ``fullatt_block_indexes``, and the inverse permutation after the merger;
-- ``qwen3`` (learned pos-embed, deepstack taps) raises
-  ``NotImplementedError``: ROADMAP queue A item 6b.
+- ``qwen3``: a biased patch projection plus a learned pos-embed table,
+  bilinearly interpolated onto the patch grid (host-side matrix) and
+  repeated over t; LayerNorm blocks with a tanh-GELU MLP; deepstack mergers
+  (merge-window group, LayerNorm, fc1, exact GELU, fc2) on the hidden states
+  after ``deepstack_indexes``, returned beside the merged tokens.
 
 The attention is plain PyTorch, as the JAX package computes it in einsums:
 rope in fp32, fp32 logits scaled by ``dh**-0.5``, the mask as ``-1e30``,
 fp32 softmax, probabilities cast to the compute dtype for P·V. Its head dim
-(80 at both published towers) is outside every kernel's. The logits are
+(80 at the Qwen2 towers, 72 at Qwen3-VL's) is outside every kernel's. The logits are
 ``[n, heads, S, S]`` fp32 (64 MB a clip at S = 1024), so they are computed
 over chunks of clips (``layers.chunked_attention``).
 """
@@ -35,8 +38,6 @@ from torch import nn
 from cosmos_curate_tpu_torch.models.layers import LayerNorm, Linear, chunked_attention, quick_gelu
 from cosmos_curate_tpu_torch.models.vit import preprocess_frames
 
-_QWEN3 = "the qwen3 vision tower (learned pos-embed, deepstack) is not ported yet (ROADMAP queue A item 6b)"
-
 
 @dataclass(frozen=True)
 class QwenVisionConfig:
@@ -50,7 +51,7 @@ class QwenVisionConfig:
     spatial_merge_size: int = 2
     in_channels: int = 3
     image_size: int = 224
-    variant: str = "qwen2"  # "qwen2" | "qwen2_5" | "qwen3" (not ported)
+    variant: str = "qwen2"  # "qwen2" | "qwen2_5" | "qwen3"
     intermediate_size: int | None = None  # qwen2_5 sets this explicitly
     window_size: int = 112  # pixels; qwen2_5 only
     fullatt_block_indexes: tuple[int, ...] = ()
@@ -107,6 +108,32 @@ QWEN25_VL_7B_VISION = QwenVisionConfig(
     fullatt_block_indexes=(7, 15, 23, 31),
     tokens_per_second=2.0,
 )
+# Qwen3-VL(-MoE)'s deepstack tower: 27 deep / 1152 / 16 heads (D = 72),
+# tanh-GELU MLP 4304, 16 px patches, a learned 48 x 48 pos-embed grid,
+# deepstack taps after blocks 8 / 16 / 24, merger -> 2048
+QWEN3_VL_MOE_VISION = QwenVisionConfig(
+    depth=27,
+    embed_dim=1152,
+    num_heads=16,
+    hidden_size=2048,
+    intermediate_size=4304,
+    patch_size=16,
+    variant="qwen3",
+    pos_embed_side=48,
+    deepstack_indexes=(8, 16, 24),
+)
+QWEN3_VISION_TINY_TEST = QwenVisionConfig(
+    depth=3,
+    embed_dim=32,
+    num_heads=4,
+    hidden_size=64,
+    intermediate_size=64,
+    patch_size=8,
+    image_size=32,
+    variant="qwen3",
+    pos_embed_side=4,
+    deepstack_indexes=(0, 1),
+)
 QWEN_VISION_TINY_TEST = QwenVisionConfig(
     depth=2,
     embed_dim=64,
@@ -121,6 +148,31 @@ QWEN_VISION_TINY_TEST = QwenVisionConfig(
 def _merge_order(pos: np.ndarray, h: int, w: int, msz: int) -> np.ndarray:
     """[h, w] -> [h * w] with each msz x msz merge window contiguous."""
     return pos.reshape(h // msz, msz, w // msz, msz).transpose(0, 2, 1, 3).reshape(-1)
+
+
+def pos_embed_interp_matrix(cfg: QwenVisionConfig, grid: tuple[int, int, int]) -> np.ndarray:
+    """Host-side [h * w, side²] bilinear interpolation of the learned
+    pos-embed table onto one temporal slice of the patch grid, in
+    merge-window order (HF ``fast_pos_embed_interpolate``: linspace over
+    the side, four-neighbour weights, which clipped edge neighbours
+    accumulate); the caller repeats the product over t."""
+    _t, h, w = grid
+    side, msz = cfg.pos_embed_side, cfg.spatial_merge_size
+    h_idx = np.linspace(0, side - 1, h)
+    w_idx = np.linspace(0, side - 1, w)
+    h0, w0 = h_idx.astype(np.int64), w_idx.astype(np.int64)
+    h1, w1 = np.clip(h0 + 1, None, side - 1), np.clip(w0 + 1, None, side - 1)
+    dh, dw = (h_idx - h0)[:, None], (w_idx - w0)[None, :]
+    mat = np.zeros((h * w, side * side), np.float32)
+    rows = np.arange(h * w)
+    for hi, wi, wgt in (
+        (h0, w0, (1 - dh) * (1 - dw)),
+        (h0, w1, (1 - dh) * dw),
+        (h1, w0, dh * (1 - dw)),
+        (h1, w1, dh * dw),
+    ):
+        np.add.at(mat, (rows, (hi[:, None] * side + wi[None, :]).reshape(-1)), wgt.reshape(-1))
+    return mat[_merge_order(np.arange(h * w).reshape(h, w), h, w, msz)]
 
 
 def rotary_tables(cfg: QwenVisionConfig, grid: tuple[int, int, int]) -> np.ndarray:
@@ -223,35 +275,47 @@ class QwenVisionBlock(nn.Module):
         y = self.ln2(x)
         if cfg.variant == "qwen2_5":
             return x + self.down(F.silu(self.gate(y)) * self.up(y))
-        return x + self.fc2(quick_gelu(self.fc1(y)))
+        y = self.fc1(y)
+        y = F.gelu(y, approximate="tanh") if cfg.variant == "qwen3" else quick_gelu(y)
+        return x + self.fc2(y)
 
 
 class QwenVisionTower(nn.Module):
     """[B, S, patch_dim] pixel patches -> [B, S / merge², hidden_size],
-    merged tokens t-major, row-major."""
+    merged tokens t-major, row-major; ``qwen3`` returns (that, its
+    deepstack levels ``[L_ds, B, S / merge², hidden_size]``)."""
 
     def __init__(self, cfg: QwenVisionConfig, dtype=torch.bfloat16):
         super().__init__()
-        if cfg.variant == "qwen3":
-            raise NotImplementedError(_QWEN3)
-        if cfg.variant not in ("qwen2", "qwen2_5"):
+        if cfg.variant not in ("qwen2", "qwen2_5", "qwen3"):
             raise ValueError(f"unknown Qwen vision variant {cfg.variant!r}")
         self.cfg = cfg
         self.dtype = dtype
+        qwen3 = cfg.variant == "qwen3"
         merged = cfg.spatial_merge_size**2 * cfg.embed_dim
-        self.patch_embed = Linear(cfg.patch_dim, cfg.embed_dim, bias=False, dtype=dtype)
+        self.patch_embed = Linear(cfg.patch_dim, cfg.embed_dim, bias=qwen3, dtype=dtype)
+        if qwen3:
+            self.pos_embed = nn.Parameter(torch.zeros(cfg.pos_embed_side**2, cfg.embed_dim))
         self.blocks = nn.ModuleList(QwenVisionBlock(cfg, dtype) for _ in range(cfg.depth))
+        # deepstack mergers, named as the flax ones: ds{level}_norm / _fc1 / _fc2
+        for level in range(len(cfg.deepstack_indexes) if qwen3 else 0):
+            setattr(self, f"ds{level}_norm", LayerNorm(merged, eps=1e-6))
+            setattr(self, f"ds{level}_fc1", Linear(merged, merged, dtype=dtype))
+            setattr(self, f"ds{level}_fc2", Linear(merged, cfg.hidden_size, dtype=dtype))
         self.ln_q = _norm(cfg, cfg.embed_dim)
         self.merger_fc1 = Linear(merged, merged, dtype=dtype)
         self.merger_fc2 = Linear(merged, cfg.hidden_size, dtype=dtype)
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
-        """flax's init: xavier-uniform dense kernels, zero biases (norms
-        keep their unit scale and zero bias from construction)."""
+        """flax's init: xavier-uniform dense kernels, zero biases, a
+        normal(0.02) pos-embed table (norms keep their unit scale and zero
+        bias from construction)."""
         for m in self.modules():
             if isinstance(m, Linear):
                 m.init_weights(gen)
+        if self.cfg.variant == "qwen3":
+            self.pos_embed.normal_(0.0, 0.02, generator=gen)
 
     def forward(self, patches, grid: tuple[int, int, int]):
         cfg = self.cfg
@@ -260,6 +324,10 @@ class QwenVisionTower(nn.Module):
             raise ValueError(f"{s} patches do not fill the grid {grid}")
         dev = patches.device
         x = self.patch_embed(patches)
+        if cfg.variant == "qwen3":
+            # the learned table on one temporal slice, repeated over t
+            interp = torch.as_tensor(pos_embed_interp_matrix(cfg, grid), device=dev)
+            x = (x.float() + (interp @ self.pos_embed).repeat(grid[0], 1)).to(self.dtype)
         angles = rotary_tables(cfg, grid)
         frame = torch.arange(s, device=dev) // (grid[1] * grid[2])
         full_mask = frame[:, None] == frame[None, :]
@@ -273,15 +341,24 @@ class QwenVisionTower(nn.Module):
             inverse_unit_perm = torch.as_tensor(np.argsort(unit_perm), device=dev)
         angles_t = torch.as_tensor(angles, device=dev)
         cos, sin = torch.cos(angles_t), torch.sin(angles_t)
+        msz2 = cfg.spatial_merge_size**2
+        deepstack = []
         for i, block in enumerate(self.blocks):
             windowed = cfg.variant == "qwen2_5" and i not in cfg.fullatt_block_indexes
             x = block(x, cos, sin, windowed_mask if windowed else full_mask)
-        msz2 = cfg.spatial_merge_size**2
+            if cfg.variant == "qwen3" and i in cfg.deepstack_indexes:
+                # group each merge window first, then norm it (postshuffle)
+                level = cfg.deepstack_indexes.index(i)
+                d = getattr(self, f"ds{level}_norm")(x.reshape(b, s // msz2, msz2 * cfg.embed_dim))
+                d = F.gelu(getattr(self, f"ds{level}_fc1")(d))  # exact GELU
+                deepstack.append(getattr(self, f"ds{level}_fc2")(d))
         x = self.ln_q(x).reshape(b, s // msz2, msz2 * cfg.embed_dim)
         x = self.merger_fc2(F.gelu(self.merger_fc1(x)))  # exact GELU
         if inverse_unit_perm is not None:
             # undo the window permutation: merged tokens t-major, row-major
             x = x[:, inverse_unit_perm]
+        if cfg.variant == "qwen3":
+            return x, torch.stack(deepstack) if deepstack else x.new_zeros((0, *x.shape))
         return x
 
 

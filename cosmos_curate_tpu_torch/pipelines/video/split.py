@@ -99,7 +99,7 @@ class SplitPipelineArgs:
     captioning: bool = False
     caption_window_len: int = 256
     caption_prompt_variant: str = "default"
-    caption_model: str = "base"  # a VLM_FLAVORS name: base | qwen2vl-2b | qwen25vl-7b | ... (Qwen3 not ported)
+    caption_model: str = "base"  # a VLM_FLAVORS name: base | qwen2vl-2b | qwen25vl-7b | qwen3vl-moe-a3b | ...
     enhance_captions: bool = False
     t5_embeddings: bool = False
     previews: bool = False

@@ -8,12 +8,13 @@ of every clip through the process-level shared ``CaptionEngine``
 second refinement pass per window.
 
 Served flavors (models/vlm/model.py): the repository's ``base`` and
-``tiny-test``, and the dense Qwen-VL flavors ``qwen2vl-2b``,
-``qwen25vl-7b`` and ``qwen-chat-tiny-test``, which serve a converted
+``tiny-test``, the dense Qwen-VL flavors ``qwen2vl-2b``, ``qwen25vl-7b``
+and ``qwen-chat-tiny-test``, and the Qwen3 MoE flavors ``qwen3vl-moe-a3b``,
+``qwen3moe-a3b-lm`` (text only: a request that carries frames is refused)
+and ``qwen3moe-tiny-test``. The converted-checkpoint flavors serve the
 checkpoint's own vocabulary (``HFVocabTokenizer`` over the staged
 ``vocab.json`` / ``merges.txt``, local files only) and its chat template
-(models/vlm/chat.py). The Qwen3 flavors raise ``NotImplementedError``
-(ROADMAP queue A item 6b). The engine stage runs on ``device="cuda"``
+(models/vlm/chat.py). The engine stage runs on ``device="cuda"``
 unless the caller asks for the CPU. The reference's tracing spans and stage-timer records are
 left out with the observability layer (ROADMAP); the engine counters the
 stage writes into ``task.stage_perf`` stay.
@@ -42,10 +43,6 @@ from cosmos_curate_tpu_torch.utils.logging import get_logger
 from cosmos_curate_tpu_torch.video.windowing import compute_windows
 
 logger = get_logger(__name__)
-
-_QWEN3 = "the Qwen3 flavors: MoE FFN, qk-norm, the deepstack tower (ROADMAP queue A item 6b)"
-# caption flavors of the JAX package that are not ported yet -> what they need
-_NOT_PORTED_FLAVORS = {name: _QWEN3 for name in ("qwen3moe-a3b-lm", "qwen3vl-moe-a3b", "qwen3moe-tiny-test")}
 
 
 class CaptionPrepStage(Stage[SplitPipeTask, SplitPipeTask]):
@@ -214,10 +211,6 @@ def resolve_caption_model(
     if cfg is not None and model_flavor is not None:
         raise ValueError("pass cfg OR model_flavor, not both")
     if model_flavor is not None:
-        if model_flavor in _NOT_PORTED_FLAVORS:
-            raise NotImplementedError(
-                f"caption flavor {model_flavor!r} is not ported yet ({_NOT_PORTED_FLAVORS[model_flavor]})"
-            )
         spec = vlm_flavor(model_flavor)
         return _CaptionVLM(
             spec.cfg,

@@ -16,7 +16,8 @@ registry, on ``tiny-test`` on the CPU.
 - Two stages share one engine and their requests interleave; a registry
   reset during a build does not make a second engine.
 - ``refine`` runs a second pass per window; ``max_new_tokens`` clamps to
-  half the context; flavors that are not ported (Qwen3) raise.
+  half the context; every flavor of the JAX package constructs (the Qwen3
+  MoE flavors too).
 """
 
 from __future__ import annotations
@@ -303,9 +304,9 @@ def test_max_new_tokens_clamps_like_jax():
 
 
 def test_flavors_and_devices():
-    for flavor in ("qwen3moe-a3b-lm", "qwen3vl-moe-a3b", "qwen3moe-tiny-test"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
-            tcap.CaptionStage(model_flavor=flavor, device="cpu")
+    for flavor, hf_chat in (("qwen3moe-a3b-lm", True), ("qwen3vl-moe-a3b", True), ("qwen3moe-tiny-test", False)):
+        model = tcap.CaptionStage(model_flavor=flavor, device="cpu").model
+        assert model.cfg.moe is not None and model.hf_chat == hf_chat
     for flavor in ("qwen2vl-2b", "qwen25vl-7b", "qwen-chat-tiny-test"):
         assert tcap.CaptionStage(model_flavor=flavor, device="cpu").model.hf_chat
     with pytest.raises(ValueError, match="unknown caption model"):

@@ -568,3 +568,71 @@ def test_qwen_prefix_build_prefill(dev, hk, g, d, b):
     """The shared chat prefix's build: T = S = 64 (the prefix padded to a
     power of two), kv_len 45."""
     _prefill_check(dev, 23, t=64, s=64, hk=hk, g=g, d=d, write=[0], kv_len=[QWEN_PREFIX])
+
+
+# Qwen3-VL-30B-A3B's LM heads: 32 / 4 of 128 (G = 8, the top of the split
+# decode's G <= 8 body); its lanes ((1024, 4), (4096, 2)); its drive's
+# prompt is the 45-token chat prefix and a 316-token suffix (196 vision
+# tokens of 8 frames at 224^2 and patch 16)
+QWEN3_HEADS = (4, 8, 128)
+QWEN3_TOTAL = QWEN_PREFIX + 316
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,b", [(1024, 4), (4096, 2)])
+def test_qwen3_decode_kernels_on_the_lanes(dev, width, b):
+    """Both decodes at G = 8 on each lane (the last slot idle on block 0 at
+    kv_len 1): within BOUND of the fp32 plain version, and contiguous
+    decode on the gathered rows equal to paged decode, bit for bit."""
+    hk, g, d = QWEN3_HEADS
+    rng = np.random.default_rng(31)
+    bs = 16
+    to, pk, pv, tables = _qwen_pool(rng, dev, b, hk, d, width // bs, idle_row=True)
+    q = to(b, hk, g, d)
+    kv = rng.integers(QWEN3_TOTAL, width + 1, b)
+    kv[-1] = 1
+    kv_len = torch.from_numpy(kv.astype(np.int32)).to(dev)
+    k = pk[1][tables.long()].reshape(b, width, hk, d).contiguous()
+    v = pv[1][tables.long()].reshape(b, width, hk, d).contiguous()
+    paged = paged_attention(q[:, None], pk, pv, tables, kv_len - 1, kv_len, layer_index=1)[:, 0]
+    contiguous = decode_attention(q, k, v, kv_len)
+    want = decode_attention_plain(q.float(), k.float(), v.float(), kv_len, sm_scale=d**-0.5)
+    assert torch.isfinite(paged.float()).all()
+    assert _err(paged, want) <= BOUND
+    assert torch.equal(contiguous, paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", ["chunk_256", "bucket_512"])
+def test_qwen3_paged_prefill_equals_contiguous_prefill(dev, chunk):
+    """Paged prefill at G = 8 after the chat prefix, as a 256-token chunk
+    (a first and a second one) or the 4-slot lane's 512-token bucket:
+    within BOUND of its fp32 plain version and equal to cct_prefill on the
+    gathered rows."""
+    hk, g, d = QWEN3_HEADS
+    rng = np.random.default_rng(32)
+    nbl = 64
+    if chunk == "chunk_256":
+        t, write, kv = 256, [QWEN_PREFIX, QWEN_PREFIX + 256], [QWEN_PREFIX + 256, QWEN_PREFIX + 512]
+    else:
+        t, write, kv = 512, [QWEN_PREFIX] * 4, [QWEN3_TOTAL] * 4
+    rows = len(write)
+    to, pk, pv, tables = _qwen_pool(rng, dev, rows, hk, d, nbl)
+    q = to(rows, t, hk, g, d)
+    wi = torch.tensor(write, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv, dtype=torch.int32, device=dev)
+    paged = paged_attention(q, pk, pv, tables, wi, kl, layer_index=1)
+    want = paged_attention_plain(q.float(), pk.float(), pv.float(), tables, wi, kl, layer_index=1, sm_scale=d**-0.5)
+    k = pk[1][tables.long()].reshape(rows, nbl * 16, hk, d).contiguous()
+    v = pv[1][tables.long()].reshape(rows, nbl * 16, hk, d).contiguous()
+    contiguous = prefill_attention(q, k, v, wi, kl)
+    assert torch.isfinite(paged.float()).all()
+    assert _err(paged, want) <= BOUND
+    assert torch.equal(paged, contiguous)
+
+
+@pytest.mark.cuda
+def test_qwen3_prefix_build_prefill(dev):
+    """The chat prefix's build at G = 8: T = S = 64, kv_len 45."""
+    hk, g, d = QWEN3_HEADS
+    _prefill_check(dev, 33, t=64, s=64, hk=hk, g=g, d=d, write=[0], kv_len=[QWEN_PREFIX])

@@ -149,6 +149,49 @@ def test_qwen_models_build_every_parameter_on_the_context_device(model):
     assert {p.device.type for p in module.state_dict().values()} == {"meta"}
 
 
+@pytest.mark.parametrize("entry", ["engine_qwen3vl_moe_a3b", "engine_qwen3moe_a3b_lm", "stage_qwen3vl_moe_a3b",
+                                   "stage_qwen3moe_a3b_lm", "stage_qwen3moe_tiny"])
+def test_qwen3_caption_entry_points_default_to_the_gpu(entry):
+    import torch
+
+    from cosmos_curate_tpu_torch.models.vlm import CaptionEngine
+    from cosmos_curate_tpu_torch.models.vlm.model import VLM_QWEN3_MOE_A3B, VLM_QWEN3_VL_MOE_A3B
+    from cosmos_curate_tpu_torch.pipelines.video.stages.captioning import CaptionStage
+
+    make = {
+        "engine_qwen3vl_moe_a3b": lambda **kw: CaptionEngine(VLM_QWEN3_VL_MOE_A3B, **kw).device,
+        "engine_qwen3moe_a3b_lm": lambda **kw: CaptionEngine(VLM_QWEN3_MOE_A3B, **kw).device,
+        "stage_qwen3vl_moe_a3b": lambda **kw: CaptionStage(model_flavor="qwen3vl-moe-a3b", **kw).model.device,
+        "stage_qwen3moe_a3b_lm": lambda **kw: CaptionStage(model_flavor="qwen3moe-a3b-lm", **kw).model.device,
+        "stage_qwen3moe_tiny": lambda **kw: CaptionStage(model_flavor="qwen3moe-tiny-test", **kw).model.device,
+    }[entry]
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert make(device="cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("model", ["vlm_qwen3vl_moe_a3b", "vlm_qwen3moe_a3b_lm", "tower_qwen3"])
+def test_qwen3_models_build_every_parameter_on_the_context_device(model):
+    """The Qwen3 models at full width on ``meta``: every parameter (the
+    bf16 experts and the pos-embed table too) on the context device."""
+    import torch
+
+    from cosmos_curate_tpu_torch.models.vlm.model import VLM, VLM_QWEN3_MOE_A3B, VLM_QWEN3_VL_MOE_A3B
+    from cosmos_curate_tpu_torch.models.vlm.vision_qwen import QWEN3_VL_MOE_VISION, QwenVisionTower
+
+    build = {
+        "vlm_qwen3vl_moe_a3b": lambda: VLM(VLM_QWEN3_VL_MOE_A3B),
+        "vlm_qwen3moe_a3b_lm": lambda: VLM(VLM_QWEN3_MOE_A3B),
+        "tower_qwen3": lambda: QwenVisionTower(QWEN3_VL_MOE_VISION),
+    }[model]
+    with torch.device("meta"):
+        module = build()
+    assert {p.device.type for p in module.state_dict().values()} == {"meta"}
+
+
 def test_native_writer_builds_from_the_port_source_into_the_repo_build_dir():
     """The port's H.264 writer is built from its own copy of the source into
     ``<repo>/build/native/`` and never loads the JAX package's library (nor

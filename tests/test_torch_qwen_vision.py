@@ -11,8 +11,8 @@
   ``qwen2_5`` replacement of it with a window that pads and one
   full-attention block, atol 1e-4 / rtol 1e-3 (the frameworks sum matmuls
   in other orders; the differences compound over the blocks).
-- The config mirrors equal the JAX originals field for field; ``qwen3``
-  raises ``NotImplementedError``.
+- The config mirrors equal the JAX originals field for field; the
+  ``qwen3`` variant builds (its parity is ``test_torch_qwen3_vision.py``'s).
 """
 
 import dataclasses
@@ -154,8 +154,18 @@ def test_tower_parameter_names():
 
 
 def test_qwen3_tower_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tvq.QwenVisionTower(dataclasses.replace(tvq.QWEN_VISION_TINY_TEST, variant="qwen3"))
+    """Ported since ROADMAP item A6b: the qwen3 variant builds with its
+    pos-embed table, patch bias and one merger a deepstack tap, and returns
+    (tokens, levels); an unknown variant is refused."""
+    cfg = tvq.QWEN3_VISION_TINY_TEST
+    tower = tvq.QwenVisionTower(cfg, dtype=torch.float32)
+    assert tower.pos_embed.shape == (16, 32) and tower.patch_embed.bias is not None
+    patches, grid = tvq.frames_to_patches(torch.zeros(1, 2, 32, 32, 3, dtype=torch.uint8), cfg)
+    with torch.no_grad():
+        tokens, levels = tower(patches, grid)
+    assert tokens.shape == (1, 4, 64) and levels.shape == (2, 1, 4, 64)
+    with pytest.raises(ValueError, match="unknown Qwen vision variant"):
+        tvq.QwenVisionTower(dataclasses.replace(cfg, variant="qwen4"))
 
 
 def test_bf16_tower_tracks_fp32():

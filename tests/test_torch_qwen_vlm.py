@@ -19,7 +19,8 @@ stage) against the JAX package, on the CPU at test widths.
 - ``CaptionStage("qwen-chat-tiny-test")`` against the JAX stage, from one
   JAX-written checkpoint and tokenizer, under the same logit rule.
 - ``qwen2vl-2b`` / ``qwen25vl-7b`` refuse to set up without tokenizer files
-  and without weights; the Qwen3 flavors raise ``NotImplementedError``.
+  and without weights; the Qwen3 flavors construct (their parity is
+  ``test_torch_qwen3_*.py``'s).
 - The new configs and flavor specs equal the JAX originals field for field.
 """
 
@@ -407,8 +408,13 @@ def test_real_flavors_refuse_without_tokenizer_or_weights(flavor, tmp_path, monk
 
 @pytest.mark.parametrize("flavor", ["qwen3moe-a3b-lm", "qwen3vl-moe-a3b", "qwen3moe-tiny-test"])
 def test_qwen3_flavors_are_not_ported(flavor):
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tcap.CaptionStage(model_flavor=flavor, device="cpu")
+    """Ported since ROADMAP item A6b: each Qwen3 flavor resolves to the JAX
+    package's spec."""
+    model = tcap.CaptionStage(model_flavor=flavor, device="cpu").model
+    spec = jmodel.vlm_flavor(flavor)
+    assert dataclasses.asdict(model.cfg) == dataclasses.asdict(spec.cfg)
+    assert (model.model_id, model.hf_chat, model.text_only, model.kv_lanes) == (
+        spec.model_id, spec.hf_chat, spec.text_only, spec.kv_lanes)
 
 
 def test_text_only_flavor_refuses_frames():
@@ -419,12 +425,14 @@ def test_text_only_flavor_refuses_frames():
 
 
 def test_vlm_refuses_moe_qk_norm_and_qwen3():
+    """Since ROADMAP item A6b the VLM builds qk-norm, the MoE FFN and the
+    qwen3 tower; it refuses only a vision variant the JAX package lacks."""
     base = tmodel.VLM_QWEN2VL_TINY_TEST
-    for cfg in (
-        dataclasses.replace(base, qk_norm=True),
-        dataclasses.replace(base, moe=tmodel.MoEConfig(n_experts=4, top_k=2, hidden=32)),
-        dataclasses.replace(base, vision_variant="qwen3"),
-        dataclasses.replace(base, qwen_vision=dataclasses.replace(base.qwen_vision, variant="qwen3")),
-    ):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            tmodel.VLM(cfg)
+    qk = tmodel.VLM(dataclasses.replace(base, qk_norm=True))
+    assert qk.layers[0].q_norm.weight.shape == (base.head_dim,)
+    moe = tmodel.VLM(dataclasses.replace(base, moe=tmodel.MoEConfig(n_experts=4, top_k=2, hidden=32)))
+    assert isinstance(moe.layers[0].moe, tmodel.MoEFFN) and not hasattr(moe.layers[0], "up")
+    qwen3 = tmodel.VLM(tmodel.VLM_QWEN3VL_TINY_TEST)
+    assert qwen3.vision.cfg.variant == "qwen3" and qwen3.projector is None
+    with pytest.raises(ValueError, match="unknown vision variant"):
+        tmodel.VLM(dataclasses.replace(base, vision_variant="qwen4"))
