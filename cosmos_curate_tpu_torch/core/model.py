@@ -30,6 +30,16 @@ class ModelInterface(abc.ABC):
         return getattr(self, "_pipeline", None)
 
     @property
+    def pin_to_single_worker(self) -> bool:
+        """Stages driving this model dispatch from ONE worker thread: a
+        ``DevicePipeline``'s in-flight window and side streams are
+        single-threaded, so submissions from several threads would
+        interleave micro-batches and misalign results. The pipelined runner
+        reads this marker; a model whose dispatch really is thread-safe may
+        override it to allow fan-out."""
+        return True
+
+    @property
     @abc.abstractmethod
     def model_id_names(self) -> list[str]:
         """Weight-registry ids this model needs."""

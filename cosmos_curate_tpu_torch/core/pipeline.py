@@ -2,10 +2,13 @@
 (port of ``cosmos_curate_tpu/core/pipeline.py``).
 
 The reference counts TPU chips (``num_tpu_chips``); the port counts CUDA
-devices (``num_gpus``). Not ported: the execution mode, streaming tuning
-and CPU budget of the reference's config, which its multi-node streaming
-engine reads (ROADMAP queue A item 9); the port's pipelined runner keeps
-every stage live at once on one host, sharing its cards.
+devices (``num_gpus``). The queue bound the pipelined runner sizes each
+stage's input queue with is the reference's ``StreamingSpec`` formula,
+``max(max_queued_lower_bound, max_queued_multiplier x workers)``, with its
+two knobs on the config itself. Not ported: the execution mode and the rest
+of the streaming tuning, which the reference's multi-node streaming engine
+reads (ROADMAP queue A item 9b); the port's pipelined runner keeps every
+stage live at once on one host, sharing its cards.
 """
 
 from __future__ import annotations
@@ -23,9 +26,14 @@ if TYPE_CHECKING:
 @dataclass
 class PipelineConfig:
     return_last_stage_outputs: bool = True
+    # CPUs the runner's planner may hand out; None = the host's core count
+    num_cpus: float | None = None
     # CUDA devices of the host; None = discover them (torch.cuda) when a
     # stage claims one
     num_gpus: int | None = None
+    # a stage's input queue holds max(lower bound, multiplier x workers)
+    max_queued_multiplier: float = 1.5
+    max_queued_lower_bound: int = 16
 
 
 @dataclass

@@ -1,8 +1,8 @@
 """PipelinedRunner: stage-overlapped execution on one host (port of
 ``cosmos_curate_tpu/core/pipelined_runner.py``).
 
-Every stage runs in its own worker thread, connected to the next by a
-bounded queue with backpressure, so the CPU stages of task N + 1 overlap
+Every stage runs in its own pool of worker threads, connected to the next by
+a bounded queue with backpressure, so the CPU stages of task N + 1 overlap
 the device stages of task N, and two device stages (the embedder and the
 caption engine) keep one card busy from two threads.
 
@@ -10,8 +10,8 @@ Semantics shared with ``SequentialRunner`` (tests/test_torch_pipeline.py
 holds the output sets equal):
 
 - lifecycle per stage: ``setup_on_node`` -> ``setup`` exactly once per
-  stage, ``process_data`` per batch, ``destroy`` exactly once when the
-  stage drains or the run aborts;
+  stage (its worker threads share the instance), ``process_data`` per
+  batch, ``destroy`` exactly once when the stage drains or the run aborts;
 - ``StageSpec.num_run_attempts`` retries a failing batch in place; an
   exhausted batch aborts the run (``raise_on_error=True``) or is dropped
   through the durable dead-letter queue (engine/dead_letter.py);
@@ -19,13 +19,24 @@ holds the output sets equal):
 - chaos sites ``worker.batch.crash`` / ``worker.batch.hang`` fire per batch
   attempt (chaos/harness.py).
 
-Every stage gets exactly ONE worker thread, so the state of a device
-stage's ``DevicePipeline`` (its in-flight window and side streams) stays
-single-threaded. A stage that claims a GPU gets every card of the host in
-``WorkerMetadata.gpu_ids``; the stages share the cards. The reference's
-fan-out of thread-safe CPU stages and its worker-count planner are not
-ported: every stage of the port's path is a device stage or single-threaded
-prep (ROADMAP queue A item 9).
+Placement rules:
+
+- **device stages** (a stage that claims a GPU, or whose model pins
+  dispatch: ``ModelInterface.pin_to_single_worker``) get exactly ONE worker
+  thread, so a ``DevicePipeline``'s in-flight window and side streams stay
+  single-threaded. A stage that claims a GPU gets every card of the host in
+  ``WorkerMetadata.gpu_ids``; the stages share the cards;
+- **CPU stages fan out** only when they declare ``thread_safe = True``
+  (concurrent ``process_data`` on disjoint batches is safe); every other
+  stage gets one thread. Pool sizes come from the water-filling planner
+  (engine/autoscaler.py) over ``PipelineConfig.num_cpus`` (default: the
+  host's cores) and the host's cards, each thread-safe stage capped at
+  ``thread_cap`` threads, re-planned every ``replan_interval_s`` on each
+  stage's per-worker rate over the last minute. A shrinking pool drains:
+  the surplus threads finish the batch in hand and exit. The threads of a
+  stage share its instance: the first thread in runs ``setup_on_node`` and
+  ``setup`` while the others wait for it, and ``destroy`` runs once, after
+  the last thread has exited.
 
 Device work crosses stages only as host arrays: every device stage reads
 its results back (numpy embeddings, caption text) before it returns its
@@ -38,16 +49,19 @@ live-status snapshots, which wait for the observability layer (ROADMAP).
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import traceback
 from collections import deque
+from dataclasses import dataclass, field, replace
 
 from cosmos_curate_tpu_torch import chaos
-from cosmos_curate_tpu_torch.core.pipeline import PipelineSpec
+from cosmos_curate_tpu_torch.core.pipeline import PipelineConfig, PipelineSpec
 from cosmos_curate_tpu_torch.core.runner import RunnerInterface
-from cosmos_curate_tpu_torch.core.stage import NodeInfo, StageSpec, WorkerMetadata
+from cosmos_curate_tpu_torch.core.stage import NodeInfo, Stage, StageSpec, WorkerMetadata
 from cosmos_curate_tpu_torch.core.tasks import PipelineTask
+from cosmos_curate_tpu_torch.engine.autoscaler import Budget, StageScaleState, plan_allocation
 from cosmos_curate_tpu_torch.engine.dead_letter import DeadLetterQueue, record_exhausted_batch
 from cosmos_curate_tpu_torch.engine.metrics import get_metrics
 from cosmos_curate_tpu_torch.utils.logging import get_logger
@@ -63,7 +77,7 @@ class _TaskQueue:
     briefly for a fuller batch while the producer is still alive (fuller
     batches keep device batches full). ``close()`` marks the producer done:
     once closed AND empty, ``get_batch`` returns None and the stage's
-    worker exits.
+    workers exit.
     """
 
     def __init__(self, capacity: int) -> None:
@@ -71,6 +85,15 @@ class _TaskQueue:
         self._buf: deque = deque()
         self._cond = threading.Condition()
         self._closed = False
+
+    def __len__(self) -> int:
+        with self._cond:
+            return len(self._buf)
+
+    def set_capacity(self, capacity: int) -> None:
+        with self._cond:
+            self.capacity = max(1, capacity)
+            self._cond.notify_all()
 
     def close(self) -> None:
         with self._cond:
@@ -119,8 +142,19 @@ class _TaskQueue:
             return batch
 
 
+@dataclass
+class _Worker:
+    meta: WorkerMetadata
+    stop: threading.Event = field(default_factory=threading.Event)
+    thread: threading.Thread | None = None
+
+    @property
+    def alive(self) -> bool:
+        return self.thread is not None and self.thread.is_alive()
+
+
 class _StageRuntime:
-    """One stage's queue, worker thread, and bookkeeping."""
+    """One stage's queue, thread pool, and shared bookkeeping."""
 
     def __init__(self, idx: int, spec: StageSpec, in_q: _TaskQueue, emit) -> None:
         self.idx = idx
@@ -128,14 +162,19 @@ class _StageRuntime:
         self.stage = spec.stage
         self.in_q = in_q
         self.emit = emit  # callable(list[PipelineTask]) -> None
-        self.thread: threading.Thread | None = None
+        self.workers: list[_Worker] = []
         self.lock = threading.Lock()
-        self.setup_ok = False
+        # setup / destroy run exactly once per stage: the first worker
+        # thread in claims setup, the rest wait on the event
+        self.setup_state = "pending"  # pending | running | ok | failed
+        self.setup_done = threading.Event()
         self.destroyed = False
         self.finalized = False
+        self.next_worker_idx = 0
         self.next_batch_id = 0
         # accounting (guarded by self.lock)
         self.busy_s = 0.0
+        self.samples: deque = deque(maxlen=256)  # (t_end, batch seconds)
         self.first_start: float | None = None  # monotonic start of the first batch
         self.last_end: float | None = None  # monotonic end of the last batch
         self.dispatched = 0
@@ -145,30 +184,57 @@ class _StageRuntime:
 
     @property
     def alive(self) -> bool:
-        return self.thread is not None and self.thread.is_alive()
+        """Some worker thread of the stage is still running."""
+        return any(w.alive for w in self.workers)
+
+    def live_workers(self) -> list[_Worker]:
+        """Running workers not asked to stop."""
+        return [w for w in self.workers if w.alive and not w.stop.is_set()]
+
+    def throughput_per_worker(self, window_s: float) -> float | None:
+        """Batches/s one worker achieves: the inverse mean batch duration
+        over the recent window."""
+        now = time.monotonic()
+        with self.lock:
+            recent = [dur for (t, dur) in self.samples if t >= now - window_s]
+        if not recent:
+            return None
+        mean_t = sum(recent) / len(recent)
+        return 1.0 / mean_t if mean_t > 0 else None
 
 
 _ABORTED = object()  # worker-loop sentinel: run is aborting, exit now
 _POLL_S = 0.02  # how often the driver loop looks for drained stages
+_RATE_WINDOW_S = 60.0  # per-worker rate window of the planner's samples
 
 
 class PipelinedRunner(RunnerInterface):
-    """Run all stages concurrently, one worker thread each, on this host."""
+    """Run all stages concurrently in thread pools on this host."""
 
     def __init__(
         self,
         *,
         raise_on_error: bool = True,
-        queue_capacity: int = 16,
+        replan_interval_s: float = 2.0,
+        queue_capacity: int | None = None,
         batch_linger_s: float = 0.2,
+        thread_cap: int | None = None,
     ) -> None:
         self.raise_on_error = raise_on_error
-        self.queue_capacity = queue_capacity  # tasks waiting between two stages
+        self.replan_interval_s = replan_interval_s
+        # tasks waiting between two stages; None = the config's formula
+        # (PipelineConfig.max_queued_*) over the stage's worker count
+        self.queue_capacity = queue_capacity
         self.batch_linger_s = batch_linger_s
+        # most threads one thread-safe stage may get
+        self.thread_cap = thread_cap or max(4, (os.cpu_count() or 1) * 2)
         self.metrics = get_metrics()
         # stage name -> summed process_data seconds (over runs)
         self.stage_times: dict[str, float] = {}
         self.stage_counts: dict[str, dict] = {}
+        # the LAST run's plans, in stage order: the first and each replan
+        # that changed a target
+        self.plans: list[list[int]] = []
         self.pipeline_wall_s = 0.0
         # the LAST run only: stage_times accumulates across runs, which
         # would fabricate overlap
@@ -186,7 +252,8 @@ class PipelinedRunner(RunnerInterface):
         LAST ``run()``: ``1 - active / sum(stage busy seconds)``, clamped at
         0, where ``active`` runs from the first batch's start to the last
         batch's end. Setup and teardown are not stage work, so they are left
-        out of both sides."""
+        out of both sides. Worker threads of one stage overlap each other
+        too, so a fanned-out stage alone scores above 0."""
         busy = self._last_run_busy_s
         if busy <= 0 or self._last_run_active_s <= 0:
             return 0.0
@@ -199,9 +266,14 @@ class PipelinedRunner(RunnerInterface):
         self._abort.clear()
         self._stop.clear()
         self._abort_exc = None
+        self.plans = []
         self.dlq = DeadLetterQueue()  # lazy: writes nothing unless a drop happens
         cfg = spec.config
-        self._node = NodeInfo(node_id="local", num_gpus=discover_gpus(cfg, spec.stages))
+        self._node = NodeInfo(
+            node_id="local",
+            num_cpus=cfg.num_cpus or float(os.cpu_count() or 1),
+            num_gpus=discover_gpus(cfg, spec.stages),
+        )
 
         outputs: list[PipelineTask] = []
         outputs_lock = threading.Lock()
@@ -215,8 +287,8 @@ class PipelinedRunner(RunnerInterface):
         # stage i's input queue; queue 0 holds every input and is closed at
         # once (inputs are already in memory: backpressure matters BETWEEN
         # stages, where new payloads get created)
-        queues = [_TaskQueue(self.queue_capacity) for _ in spec.stages]
-        queues[0] = _TaskQueue(max(self.queue_capacity, len(spec.input_data)))
+        queues = [_TaskQueue(self._queue_capacity(1, cfg)) for _ in spec.stages]
+        queues[0].set_capacity(max(queues[0].capacity, len(spec.input_data)))
         runtimes: list[_StageRuntime] = []
         for i, stage_spec in enumerate(spec.stages):
             if i + 1 < len(spec.stages):
@@ -227,11 +299,12 @@ class PipelinedRunner(RunnerInterface):
             runtimes.append(_StageRuntime(i, stage_spec, queues[i], emit))
         queues[0].put_many(list(spec.input_data), self._should_stop)
         queues[0].close()
+
         # every stage starts at once, an empty one too, so the setup ->
         # destroy lifecycle runs for every stage, as in SequentialRunner
-        for rt in runtimes:
-            self._start_worker(rt)
-
+        budget = Budget(cpus=self._node.num_cpus, gpus=float(self._node.num_gpus))
+        self._apply_allocation(runtimes, self._plan(runtimes, budget), cfg)
+        last_replan = time.monotonic()
         try:
             while not self._abort.is_set():
                 for rt in runtimes:
@@ -242,6 +315,10 @@ class PipelinedRunner(RunnerInterface):
                         queues[rt.idx + 1].close()
                 if runtimes[-1].finalized:
                     break
+                now = time.monotonic()
+                if now - last_replan >= self.replan_interval_s:
+                    self._apply_allocation(runtimes, self._plan(runtimes, budget), cfg)
+                    last_replan = now
                 time.sleep(_POLL_S)
         finally:
             # ANY exit path (normal, abort, or a foreign exception such as
@@ -252,8 +329,8 @@ class PipelinedRunner(RunnerInterface):
                 q.close()
             self._stop.set()
             for rt in runtimes:
-                if rt.thread is not None:
-                    rt.thread.join(timeout=30.0)
+                for w in rt.workers:
+                    w.thread.join(timeout=30.0)
             for rt in runtimes:
                 if rt.finalized:
                     continue
@@ -276,18 +353,17 @@ class PipelinedRunner(RunnerInterface):
         return self._abort.is_set() or self._stop.is_set()
 
     # -- worker side ---------------------------------------------------------
-    def _worker_loop(self, rt: _StageRuntime, meta: WorkerMetadata) -> None:
-        try:
-            rt.stage.setup_on_node(self._node, meta)
-            rt.stage.setup(meta)
-            rt.setup_ok = True
-        except Exception as e:
-            self._trigger_abort(e)
+    def _worker_loop(self, rt: _StageRuntime, w: _Worker) -> None:
+        if not self._ensure_setup(rt, w):
             return
         bs = max(1, rt.stage.batch_size)
         attempts = max(1, rt.spec.num_run_attempts)
+
+        def should_stop() -> bool:
+            return self._should_stop() or w.stop.is_set()
+
         while True:
-            batch = rt.in_q.get_batch(bs, self._should_stop, self.batch_linger_s)
+            batch = rt.in_q.get_batch(bs, should_stop, self.batch_linger_s)
             if batch is None:
                 return
             with rt.lock:
@@ -299,6 +375,30 @@ class PipelinedRunner(RunnerInterface):
                 return
             if result:
                 rt.emit(result)
+
+    def _ensure_setup(self, rt: _StageRuntime, w: _Worker) -> bool:
+        """The first thread in runs the stage's setup; the others wait for
+        it. False when setup failed or the run is aborting."""
+        with rt.lock:
+            claim = rt.setup_state == "pending"
+            if claim:
+                rt.setup_state = "running"
+        if claim:
+            try:
+                rt.stage.setup_on_node(self._node, w.meta)
+                rt.stage.setup(w.meta)
+                rt.setup_state = "ok"
+                return True
+            except Exception as e:
+                rt.setup_state = "failed"
+                self._trigger_abort(e)
+                return False
+            finally:
+                rt.setup_done.set()
+        while not rt.setup_done.wait(0.1):
+            if self._abort.is_set():
+                return False
+        return rt.setup_state == "ok"
 
     def _run_batch(self, rt: _StageRuntime, batch: list, batch_id: int, attempts: int):
         stage = rt.stage
@@ -348,9 +448,11 @@ class PipelinedRunner(RunnerInterface):
         t1 = time.monotonic()
         with rt.lock:
             rt.busy_s += t1 - t0
-            rt.first_start = t0 if rt.first_start is None else rt.first_start
-            rt.last_end = t1
-            rt.completed += completed
+            rt.first_start = t0 if rt.first_start is None else min(rt.first_start, t0)
+            rt.last_end = t1 if rt.last_end is None else max(rt.last_end, t1)
+            if completed:
+                rt.samples.append((t1, t1 - t0))
+                rt.completed += 1
 
     def _trigger_abort(self, exc: BaseException) -> None:
         with self._abort_lock:
@@ -372,19 +474,65 @@ class PipelinedRunner(RunnerInterface):
             with rt.lock:
                 rt.dead_lettered += 1
 
+    # -- planning and scaling ------------------------------------------------
+    def _plan(self, runtimes: list[_StageRuntime], budget: Budget) -> list[int]:
+        states = []
+        for rt in runtimes:
+            spec = rt.spec
+            if _single_worker_only(spec.stage):
+                spec = replace(spec, num_workers=1)
+            elif spec.num_workers is None:
+                cap = spec.max_workers
+                spec = replace(spec, max_workers=min(cap, self.thread_cap) if cap else self.thread_cap)
+            states.append(StageScaleState(
+                spec=spec,
+                throughput_per_worker=rt.throughput_per_worker(_RATE_WINDOW_S),
+                queued=len(rt.in_q),
+            ))
+        targets = plan_allocation(states, budget)
+        if not self.plans or self.plans[-1] != targets:
+            self.plans.append(targets)
+        return targets
+
+    def _apply_allocation(self, runtimes: list[_StageRuntime], targets: list[int], cfg: PipelineConfig) -> None:
+        for rt, target in zip(runtimes, targets):
+            if rt.finalized:
+                continue
+            if rt.in_q.drained and rt.setup_state != "pending":
+                # the stage is winding down: no new workers. A stage never
+                # started (empty input) still gets one below, so the setup ->
+                # destroy lifecycle runs for every stage
+                continue
+            target = max(1, target)
+            live = rt.live_workers()
+            for _ in range(target - len(live)):
+                self._start_worker(rt)
+            for w in live[target:]:  # scale down: drain-and-exit
+                w.stop.set()
+            rt.in_q.set_capacity(self._queue_capacity(target, cfg))
+
+    def _queue_capacity(self, workers: int, cfg: PipelineConfig) -> int:
+        if self.queue_capacity is not None:
+            return self.queue_capacity
+        return max(cfg.max_queued_lower_bound, int(cfg.max_queued_multiplier * workers))
+
     def _start_worker(self, rt: _StageRuntime) -> None:
+        widx = rt.next_worker_idx
+        rt.next_worker_idx += 1
         meta = WorkerMetadata(
-            worker_id=f"{rt.stage.name}-pipe-0",
+            worker_id=f"{rt.stage.name}-pipe-{widx}",
             stage_name=rt.stage.name,
             node=self._node,
             allocation=rt.stage.resources,
             gpu_ids=tuple(range(self._node.num_gpus)) if rt.stage.resources.uses_gpu else (),
         )
-        rt.thread = threading.Thread(target=self._worker_loop, args=(rt, meta), daemon=True, name=meta.worker_id)
-        rt.thread.start()
+        w = _Worker(meta=meta)
+        w.thread = threading.Thread(target=self._worker_loop, args=(rt, w), daemon=True, name=meta.worker_id)
+        rt.workers.append(w)
+        w.thread.start()
 
     def _finalize_stage(self, rt: _StageRuntime) -> None:
-        if rt.setup_ok and not rt.destroyed:
+        if rt.setup_state == "ok" and not rt.destroyed:
             rt.destroyed = True
             try:
                 rt.stage.destroy()
@@ -408,17 +556,30 @@ class PipelinedRunner(RunnerInterface):
                     "completed": rt.completed,
                     "errored": rt.errored,
                     "dead_lettered": rt.dead_lettered,
+                    # worker threads started over the run
+                    "workers": rt.next_worker_idx,
                 }
                 self.stage_counts[rt.stage.name] = counts
             logger.info(
-                "stage %s: %d dispatched, %d completed, %d errored, %d dead-lettered (%.2fs busy)",
+                "stage %s: %d dispatched, %d completed, %d errored, %d dead-lettered (%.2fs busy, %d workers)",
                 rt.stage.name, counts["dispatched"], counts["completed"], counts["errored"],
-                counts["dead_lettered"], rt.busy_s,
+                counts["dead_lettered"], rt.busy_s, counts["workers"],
             )
         self._last_run_active_s = max(ends) - min(starts) if starts else 0.0
         self.metrics.set_overlap_frac(self.overlap_frac)
         if self.dlq is not None and self.dlq.recorded:
             logger.error("%d dropped batch(es) persisted to the dead-letter queue: %s", self.dlq.recorded, self.dlq.run_dir)
+
+
+def _single_worker_only(stage: Stage) -> bool:
+    """Device stages (a GPU claim, or a model that pins dispatch) and stages
+    not declared ``thread_safe`` run with exactly one worker thread."""
+    if stage.resources.uses_gpu:
+        return True
+    model = stage.model
+    if model is not None and getattr(model, "pin_to_single_worker", True):
+        return True
+    return not getattr(stage, "thread_safe", False)
 
 
 def discover_gpus(cfg, stage_specs: list[StageSpec]) -> int:

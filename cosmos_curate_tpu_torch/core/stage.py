@@ -7,13 +7,16 @@ the local host where the reference's ``Resources.tpus`` counts TPU chips,
 ``entire_tpu_host`` claims every chip, and ``NodeInfo.num_gpus`` /
 ``WorkerMetadata.gpu_ids`` stand for ``num_tpu_chips`` / ``tpu_chip_ids``.
 
+``Stage.thread_safe`` and the worker counts of ``StageSpec`` are what the
+pipelined runner's fan-out reads (core/pipelined_runner.py).
+
 Not ported: ``Stage.mesh_spec`` (a stage's declared device mesh), which
 waits for the port's tensor parallelism (ROADMAP queue A item 7); and the
-knobs only the reference's multi-worker and multi-node runners read
-(``StageSpec`` worker counts, lifetimes and recycling, batch timeouts,
-sampling; ``Resources.memory_gb``; ``Stage.env_name``, ``node_affinity``
-and ``thread_safe``), which come back with those runners (ROADMAP queue A
-item 9).
+knobs only the reference's multi-process and multi-node runners read
+(``StageSpec.num_workers_per_node``, lifetimes and recycling, batch
+timeouts, sampling; ``Resources.memory_gb``; ``Stage.env_name`` and
+``node_affinity``), which come back with those runners (ROADMAP queue A
+item 9b).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ class NodeInfo:
     """Identity of the host a worker is placed on."""
 
     node_id: str = "local"
+    num_cpus: float = 1.0
     num_gpus: int = 0
 
 
@@ -97,6 +101,15 @@ class Stage(Generic[T, V], abc.ABC):
         """How many tasks ``process_data`` receives per call."""
         return 1
 
+    @property
+    def thread_safe(self) -> bool:
+        """True when concurrent ``process_data`` calls on DISJOINT batches
+        are safe: no mutable state on ``self`` shared across calls (per-task
+        mutation is fine; every batch owns its tasks). The pipelined runner
+        fans a stage out across worker threads only when it declares this.
+        Default False: an unannotated stage runs on one worker."""
+        return False
+
     def setup_on_node(self, node: NodeInfo, worker: WorkerMetadata) -> None:
         """Once per host before any worker setup (e.g. weight staging)."""
 
@@ -117,10 +130,15 @@ class Stage(Generic[T, V], abc.ABC):
 
 @dataclass
 class StageSpec(Generic[T, V]):
-    """A stage plus its retry budget: a failing batch is run up to
-    ``num_run_attempts`` times before it is dropped or aborts the run."""
+    """A stage plus its scheduling knobs: worker-count bounds (the pipelined
+    runner's planner reads them; ``num_workers`` fixes the pool size) and a
+    retry budget (a failing batch is run up to ``num_run_attempts`` times
+    before it is dropped or aborts the run)."""
 
     stage: Stage[T, V]
+    num_workers: int | None = None  # fixed pool size; None = autoscale
+    min_workers: int = 1
+    max_workers: int | None = None
     num_run_attempts: int = 1
 
     @property

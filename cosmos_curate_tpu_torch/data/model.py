@@ -3,8 +3,8 @@
 embed and caption stages read and write; each later stage's port adds the
 fields it uses).
 
-Not ported with their stages: the motion, text and semantic scores,
-tracks, previews and T5 embeddings (ROADMAP queue A item 8), and
+Not ported with their stages: the motion scores, tracks, previews and T5
+embeddings (ROADMAP queue A item 8), and
 ``SplitPipeTask.aux_videos`` / ``Video.camera`` of multicam sessions
 (item 11). The writer's meta still writes their keys with the reference's
 empty values.
@@ -80,6 +80,7 @@ class Window:
     # sampling rate of `frames` in source-time fps (temporal m-rope scaling)
     frame_fps: float | None = None
     caption: dict[str, str] = field(default_factory=dict)  # prompt_variant -> text
+    enhanced_caption: dict[str, str] = field(default_factory=dict)
 
     @property
     def num_frames(self) -> int:
@@ -138,6 +139,8 @@ class Clip:
     embeddings: dict[str, np.ndarray] = field(default_factory=dict)
     windows: list[Window] = field(default_factory=list)
     aesthetic_score: float | None = None
+    artificial_text_score: float | None = None
+    semantic_pass: bool | None = None
     filtered_by: str = ""  # which filter removed this clip ("" = kept)
     errors: dict[str, str] = field(default_factory=dict)
 

@@ -8,8 +8,9 @@ The port names its modules after the flax ones, so the map is mechanical:
 - Dense ``kernel [in, out]`` -> ``Linear.weight [out, in]`` (a fused
   kernel, such as the Qwen tower's ``qkv``, transposes whole, so its
   outputs keep their ``(3, heads, head_dim)`` split order);
-- Conv ``kernel`` HWIO -> ``Conv2d.weight`` OIHW, and a 3-D conv's
-  ``[kt, kh, kw, in, out]`` -> ``Conv3d.weight [out, in, kt, kh, kw]``;
+- Conv ``kernel`` HWIO -> ``Conv2d.weight`` OIHW, a 1-D conv's WIO ->
+  ``Conv1d.weight`` OIW, and a 3-D conv's ``[kt, kh, kw, in, out]`` ->
+  ``Conv3d.weight [out, in, kt, kh, kw]``;
 - ``Embed.embedding`` -> ``Embedding.weight``;
 - LayerNorm / RMSNorm ``scale`` -> ``weight`` (``bias`` stays ``bias``);
 - raw params (``cls``, ``pos_embed``, the pooler's ``query`` and
@@ -52,6 +53,8 @@ def _leaf(name: str, value) -> tuple[str, np.ndarray]:
     if name == "kernel":
         if arr.ndim == 2:
             return "weight", arr.T
+        if arr.ndim == 3:
+            return "weight", arr.transpose(2, 1, 0)
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
         if arr.ndim == 5:

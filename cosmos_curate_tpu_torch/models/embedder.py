@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from cosmos_curate_tpu_torch.core.model import ModelInterface, model_device
+from cosmos_curate_tpu_torch.models import registry
 from cosmos_curate_tpu_torch.models.device_pipeline import DevicePipeline
 from cosmos_curate_tpu_torch.models.layers import LayerNorm, Linear, TransformerBlock
 from cosmos_curate_tpu_torch.models.vit import VIT_B_16, VIT_TINY_TEST, ViT, ViTConfig, preprocess_frames
@@ -136,7 +137,8 @@ class VideoEmbedder(ModelInterface):
         device: str | torch.device = "cuda",
     ) -> None:
         """``params``: a ``state_dict`` of :class:`VideoEmbedModel`, or None
-        to initialise from ``setup``'s seed."""
+        to load ``model_id``'s staged checkpoint in ``setup`` (else the init
+        from ``setup``'s seed)."""
         self.device = model_device(device, "VideoEmbedder")
         self.cfg = cfg
         self.model_id = model_id or self.MODEL_ID
@@ -156,10 +158,15 @@ class VideoEmbedder(ModelInterface):
         with torch.device(self.device):
             model = VideoEmbedModel(self.cfg)
         if self.params is None:
-            logger.info("%s: seeded random init (seed %d); pass params= for trained weights", self.model_id, seed)
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            model.init_weights(gen)
+            # the staged checkpoint of model_id, as the reference loads it,
+            # else the seeded init
+            def init(s: int) -> dict[str, torch.Tensor]:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(s)
+                model.init_weights(gen)
+                return model.state_dict()
+
+            model.load_state_dict(registry.load_params(self.model_id, init, seed=seed), strict=True)
         else:
             model.load_state_dict(self.params, strict=True)
         self.model = model.eval().requires_grad_(False)

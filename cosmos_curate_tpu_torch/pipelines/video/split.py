@@ -2,15 +2,19 @@
 ``cosmos_curate_tpu/pipelines/video/split.py``).
 
 download → clips (fixed stride, or TransNetV2 shot detection) → transcode →
-frame extraction → [aesthetic filter] → [embed] → [caption prep →
-caption] → writer, through the port's own ``run_pipeline``. The model stages run on ``SplitPipelineArgs.device``
-("cuda" unless the caller asks for the CPU).
+frame extraction → [aesthetic filter] → [artificial-text filter] →
+[semantic filter] → [embed] → [caption prep → caption] → [enhanced
+captions] → writer, through the port's own ``run_pipeline``. The model
+stages run on ``SplitPipelineArgs.device`` ("cuda" unless the caller asks
+for the CPU).
 
 ``assemble_stages`` raises ``NotImplementedError``, naming the ROADMAP item,
-for every option whose stage is not ported yet. ``run_split`` leaves out
-what the reference wraps around the run: the accelerator health gate (it
-raises when ``CURATE_HEALTH_GATE`` asks for one, item 13), live status,
-tracing and the observability wrappers (item 14), multi-node
+for every option whose stage is not ported yet. ``run_split`` runs the
+accelerator health gate first when ``CURATE_HEALTH_GATE`` is ``on`` or
+``strict`` (utils/health.py: both abort on an unhealthy card; the port never
+moves a run to the CPU by itself, and a ``device="cpu"`` run has no card to
+gate). It leaves out what else the reference wraps around the run: live
+status, tracing and the observability wrappers (item 14), multi-node
 initialisation and work stealing (item 15) and corpus-index consolidation
 (item 12).
 """
@@ -30,6 +34,7 @@ from cosmos_curate_tpu_torch.core.stage import Stage, StageSpec
 from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature
 from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_split_tasks
 from cosmos_curate_tpu_torch.pipelines.video.stages.aesthetic_filter import AestheticFilterStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.artificial_text_filter import ArtificialTextFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.captioning import CaptionPrepStage, CaptionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.clip_extraction import (
     ClipTranscodingStage,
@@ -37,9 +42,12 @@ from cosmos_curate_tpu_torch.pipelines.video.stages.clip_extraction import (
 )
 from cosmos_curate_tpu_torch.pipelines.video.stages.download import VideoDownloadStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import ClipEmbeddingStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.enhance_caption import EnhanceCaptionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.frame_extraction import ClipFrameExtractionStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.semantic_filter import SemanticFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.shot_detection import TransNetV2ClipExtractionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.writer import INDEX_NOT_PORTED, ClipWriterStage
+from cosmos_curate_tpu_torch.utils.health import accelerator_health_gate
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 from cosmos_curate_tpu_torch.utils.summary import build_summary, write_summary
 
@@ -126,14 +134,11 @@ _NOT_PORTED: tuple[tuple[str, Callable[[SplitPipelineArgs], bool], str], ...] = 
     ("sr", lambda a: a.sr, f"super resolution, {_LEGS}"),
     ("motion_filter", lambda a: a.motion_filter != "disable",
      "mv_extract.c with the motion filter (ROADMAP queue A item 16)"),
-    ("text_filter", lambda a: a.text_filter != "disable", f"OCR, {_LEGS}"),
-    ("semantic_filter", lambda a: a.semantic_filter != "disable", f"the semantic filter, {_LEGS}"),
     ("incremental_dedup", lambda a: a.incremental_dedup != "disable", f"dedup, {_LEGS}"),
     ("index_path", lambda a: bool(a.index_path), INDEX_NOT_PORTED),
     ("corpus_index", lambda a: a.corpus_index,
      "the corpus-index writer path and its consolidation (ROADMAP queue A item 12)"),
     ("multicam", lambda a: a.multicam, "multicam sessions (ROADMAP queue A item 11)"),
-    ("enhance_captions", lambda a: a.enhance_captions, f"enhanced captions, {_LEGS}"),
     ("t5_embeddings", lambda a: a.t5_embeddings, f"T5 caption embeddings, {_LEGS}"),
     ("previews", lambda a: a.previews, f"previews, {_LEGS}"),
     ("tracking", lambda a: a.tracking or a.tracking_annotated, f"the tracker, {_LEGS}"),
@@ -169,12 +174,24 @@ def assemble_stages(args: SplitPipelineArgs) -> list[Stage | StageSpec]:
     if args.aesthetic_threshold is not None:
         stages.append(AestheticFilterStage(threshold=args.aesthetic_threshold, extraction=primary_sig,
                                            device=args.device))
+    if args.text_filter != "disable":
+        stages.append(ArtificialTextFilterStage(threshold=args.text_filter_threshold,
+                                                score_only=args.text_filter == "score-only",
+                                                extraction=primary_sig, device=args.device))
+    if args.semantic_filter != "disable":
+        stages.append(SemanticFilterStage(prompt_variant=args.semantic_filter_prompt,
+                                          score_only=args.semantic_filter == "score-only",
+                                          extraction=primary_sig, model_flavor=args.caption_model,
+                                          device=args.device))
     if args.embedding_model:
         stages.append(ClipEmbeddingStage(variant=args.embedding_model, extraction=primary_sig, device=args.device))
     if args.captioning:
         stages.append(CaptionPrepStage(window_len=args.caption_window_len, extraction=primary_sig))
         stages.append(CaptionStage(prompt_variant=args.caption_prompt_variant, model_flavor=args.caption_model,
                                    device=args.device))
+    if args.enhance_captions:
+        stages.append(EnhanceCaptionStage(prompt_variant=args.caption_prompt_variant,
+                                          model_flavor=args.caption_model, device=args.device))
     stages.extend(args.extra_stages)
     stages.append(ClipWriterStage(args.output_path))
     return stages
@@ -188,11 +205,10 @@ def run_split(
 ) -> dict:
     """Build inputs (with resume), run, write summary.json; returns summary."""
     t0 = time.monotonic()
-    gate = os.environ.get(HEALTH_GATE_ENV, "off")
-    if gate in ("on", "strict"):
-        raise NotImplementedError(
-            f"{HEALTH_GATE_ENV}={gate}: the accelerator health gate is not ported yet (ROADMAP queue A item 13)"
-        )
+    # a dead card is one clear error before any stage is built, not N
+    # crashed model setups (off | on | strict; on means strict here)
+    if os.environ.get(HEALTH_GATE_ENV, "off") in ("on", "strict") and torch.device(args.device).type == "cuda":
+        accelerator_health_gate(attempts=3, probe_timeout_s=120, backoff_s=30, require=True)
     stages = assemble_stages(args)
     tasks = discover_split_tasks(args.input_path, args.output_path, limit=args.limit)
     out = run_pipeline(tasks, stages, config=config, runner=runner or default_runner()) or []

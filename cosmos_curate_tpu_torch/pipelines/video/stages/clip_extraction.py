@@ -32,6 +32,10 @@ class FixedStrideExtractorStage(Stage[SplitPipeTask, SplitPipeTask]):
         self.clip_len_s = clip_len_s
         self.min_clip_len_s = min_clip_len_s
 
+    @property
+    def thread_safe(self) -> bool:
+        return True
+
     def process_data(self, tasks: list[SplitPipeTask]) -> list[SplitPipeTask]:
         for task in tasks:
             video = task.video
@@ -61,6 +65,12 @@ class ClipTranscodingStage(Stage[SplitPipeTask, SplitPipeTask]):
     @property
     def resources(self) -> Resources:
         return Resources(cpus=float(self.num_threads))
+
+    @property
+    def thread_safe(self) -> bool:
+        # each call owns its executor; the codec negotiation and the native
+        # writer's one-time build run under their own locks
+        return True
 
     def process_data(self, tasks: list[SplitPipeTask]) -> list[SplitPipeTask]:
         # one sequential decode pass per video (transcode_clips decodes each

@@ -24,6 +24,10 @@ class VideoDownloadStage(Stage[SplitPipeTask, SplitPipeTask]):
     def resources(self) -> Resources:
         return Resources(cpus=0.25)
 
+    @property
+    def thread_safe(self) -> bool:
+        return True
+
     def process_data(self, tasks: list[SplitPipeTask]) -> list[SplitPipeTask]:
         for task in tasks:
             for video in task.videos:

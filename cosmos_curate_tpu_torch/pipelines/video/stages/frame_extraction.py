@@ -39,6 +39,12 @@ class ClipFrameExtractionStage(Stage[SplitPipeTask, SplitPipeTask]):
     def resources(self) -> Resources:
         return Resources(cpus=self.num_cpus)
 
+    @property
+    def thread_safe(self) -> bool:
+        # the decode pool, built once in setup, takes submissions from any
+        # thread; destroy runs after the last worker thread has exited
+        return True
+
     def setup(self, worker: WorkerMetadata) -> None:
         super().setup(worker)
         self._pool = ThreadPoolExecutor(max_workers=max(1, int(self.num_cpus)), thread_name_prefix="frame-extract")

@@ -10,9 +10,8 @@ Writing the resume record **last** is the crash-safety contract: a video is
 only skipped on re-run if all its chunks finished writing.
 
 A clip meta carries every key of the reference's. The keys of stages not
-ported yet (motion, text and semantic scores, dedup, tracks, event
-captions, enhanced captions, T5 embeddings) hold the reference's empty
-values, so the file format stays the same.
+ported yet (motion scores, dedup, tracks, event captions, T5 embeddings)
+hold the reference's empty values, so the file format stays the same.
 
 Not ported: the corpus-index fragments the reference appends when
 ``index_path`` is set (a non-empty ``index_path`` raises; ROADMAP queue A
@@ -22,6 +21,7 @@ item 8, dedup), and the secondary cameras of multicam sessions (item 11).
 from __future__ import annotations
 
 import hashlib
+import threading
 from collections import defaultdict
 
 import numpy as np
@@ -50,8 +50,8 @@ def _clip_meta(clip: Clip, provenance: dict | None = None) -> dict:
         "motion_score_global": None,
         "motion_score_per_patch_min": None,
         "aesthetic_score": clip.aesthetic_score,
-        "artificial_text_score": None,
-        "semantic_pass": None,
+        "artificial_text_score": clip.artificial_text_score,
+        "semantic_pass": clip.semantic_pass,
         "filtered_by": clip.filtered_by,
         "duplicate_of": "",
         "embedding_models": sorted(clip.embeddings),
@@ -62,7 +62,7 @@ def _clip_meta(clip: Clip, provenance: dict | None = None) -> dict:
                 "start_frame": w.start_frame,
                 "end_frame": w.end_frame,
                 "captions": w.caption,
-                "enhanced_captions": {},
+                "enhanced_captions": w.enhanced_caption,
                 "has_t5_embedding": False,
             }
             for w in clip.windows
@@ -82,10 +82,16 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
         self.output_path = output_path.rstrip("/")
         # model -> weights_provenance, memoized per stage instance
         self._provenance_memo: dict[str, str] = {}
+        self._memo_lock = threading.Lock()
 
     @property
     def resources(self) -> Resources:
         return Resources(cpus=0.5)
+
+    @property
+    def thread_safe(self) -> bool:
+        # every task writes its own files; the provenance memo is guarded
+        return True
 
     def process_data(self, tasks: list[SplitPipeTask]) -> list[SplitPipeTask]:
         for task in tasks:
@@ -117,10 +123,12 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
                 for w in clip.windows:
                     w.frames = None
             task.stage_perf["clips_written"] = stats.num_clips
-            if self._provenance_memo:
+            with self._memo_lock:
+                memo = dict(self._provenance_memo)
+            if memo:
                 # rides the task back to run_split: build_summary unions
                 # these into summary.json's weights_provenance map
-                task.stage_perf["weights_provenance"] = dict(self._provenance_memo)
+                task.stage_perf["weights_provenance"] = memo
             task.stats = stats
         return tasks
 
@@ -128,12 +136,13 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
         """Weights provenance per embedding model on ``clip``, memoized."""
         out: dict[str, str] = {}
         for model in clip.embeddings:
-            if model not in self._provenance_memo:
-                try:
-                    self._provenance_memo[model] = weights_provenance(model)
-                except OSError:  # provenance must never fail a write
-                    self._provenance_memo[model] = "unknown"
-            out[model] = self._provenance_memo[model]
+            with self._memo_lock:
+                if model not in self._provenance_memo:
+                    try:
+                        self._provenance_memo[model] = weights_provenance(model)
+                    except OSError:  # provenance must never fail a write
+                        self._provenance_memo[model] = "unknown"
+                out[model] = self._provenance_memo[model]
         return out
 
     def _write_clip(self, clip: Clip, stats: ClipStats, embedding_rows) -> None:

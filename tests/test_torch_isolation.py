@@ -37,10 +37,13 @@ def test_port_imports_no_jax_flax_or_reference_package():
     assert out.returncode == 0, out.stdout + out.stderr
     lines = out.stdout.splitlines()
     n_modules = int(lines[0].split()[0])
-    assert n_modules >= 73
+    assert n_modules >= 79
     names = set(lines[1].split())
     for module in ("models.clip", "models.internvideo2", "models.transnetv2", "pipelines.video.stages.aesthetic_filter",
-                   "pipelines.video.stages.shot_detection", "models.vlm.vision_qwen", "models.vlm.chat"):
+                   "pipelines.video.stages.shot_detection", "models.vlm.vision_qwen", "models.vlm.chat",
+                   "models.ocr", "pipelines.video.stages.artificial_text_filter",
+                   "pipelines.video.stages.semantic_filter", "pipelines.video.stages.enhance_caption",
+                   "engine.autoscaler", "utils.health"):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -262,4 +265,59 @@ def test_canonical_models_build_every_parameter_on_the_context_device(model):
     }[model]
     with torch.device("meta"):
         module = build()
+    assert {p.device.type for p in module.state_dict().values()} == {"meta"}
+
+
+@pytest.mark.parametrize("entry", ["ocr", "text_filter", "semantic_filter", "enhance_caption"])
+def test_filter_entry_points_default_to_the_gpu(entry):
+    import torch
+
+    from cosmos_curate_tpu_torch.models.ocr import OcrModel
+    from cosmos_curate_tpu_torch.pipelines.video.stages.artificial_text_filter import ArtificialTextFilterStage
+    from cosmos_curate_tpu_torch.pipelines.video.stages.enhance_caption import EnhanceCaptionStage
+    from cosmos_curate_tpu_torch.pipelines.video.stages.semantic_filter import SemanticFilterStage
+
+    make = {
+        "ocr": lambda **kw: OcrModel(**kw).device,
+        "text_filter": lambda **kw: ArtificialTextFilterStage(**kw).device,
+        "semantic_filter": lambda **kw: SemanticFilterStage(model_flavor="tiny-test", **kw).model.device,
+        "enhance_caption": lambda **kw: EnhanceCaptionStage(model_flavor="tiny-test", **kw).model.device,
+    }[entry]
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert make(device="cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("option", [dict(text_filter="enable"), dict(text_filter="score-only"),
+                                    dict(semantic_filter="enable", caption_model="tiny-test"),
+                                    dict(captioning=True, caption_model="tiny-test", enhance_captions=True)])
+def test_run_split_with_the_filters_defaults_to_the_gpu(option, tmp_path):
+    """``run_split`` with a filter or enhanced captions and no ``device``:
+    the stages are built for the card, so without one the run refuses
+    before it starts, never falling back to the CPU."""
+    import torch
+
+    from cosmos_curate_tpu_torch.core.runner import SequentialRunner
+    from cosmos_curate_tpu_torch.pipelines.video import split
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    (tmp_path / "in").mkdir()
+    args = split.SplitPipelineArgs(input_path=str(tmp_path / "in"), output_path=str(tmp_path / "out"), **option)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        split.run_split(args, runner=SequentialRunner())
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("model", ["detector", "recognizer"])
+def test_ocr_models_build_every_parameter_on_the_context_device(model):
+    import torch
+
+    from cosmos_curate_tpu_torch.models.ocr import TextDetector, TextRecognizer
+
+    with torch.device("meta"):
+        module = {"detector": TextDetector, "recognizer": TextRecognizer}[model]()
     assert {p.device.type for p in module.state_dict().values()} == {"meta"}

@@ -3,8 +3,10 @@ pre-flight), on toy stages.
 
 The cases of ``tests/core/test_pipelined_runner.py`` that need no video run
 against the port's ``PipelinedRunner`` and ``SequentialRunner``: output-set
-equivalence, retries into the dead-letter queue, backpressure, one worker
-thread per stage, chaos sites, clean destroy, and the default runner's
+equivalence, retries into the dead-letter queue, backpressure, device and
+unmarked stages on one worker thread, the fan-out of thread-safe stages
+(its pools grow and drain, setup and destroy run once, chaos faults in a
+fanned-out stage), chaos sites, clean destroy, and the default runner's
 selection (the runners the port does not have raise). Two checks
 cross packages: one toy stage chain gives the same output set through the
 JAX package's runners and the port's, and a mis-wired pipeline raises
@@ -78,6 +80,14 @@ class Add(Stage):
         return tasks
 
 
+class SafeAdd(Add):
+    """``Add`` declared thread-safe: the runner may fan it out."""
+
+    @property
+    def thread_safe(self) -> bool:
+        return True
+
+
 class Expand(Stage):
     """Dynamic chunking: one task in, two out."""
 
@@ -106,11 +116,16 @@ class PinnedStage(Stage):
     """A GPU claim, a model stage or a plain CPU stage: the runner runs each
     on exactly one thread."""
 
-    def __init__(self, *, gpu: bool, model: bool = True) -> None:
+    def __init__(self, *, gpu: bool, model: bool = True, thread_safe: bool = False) -> None:
         self.gpu = gpu
         self.threads: set[int] = set()
         self._lock = threading.Lock()
         self._model = _Model() if model and not gpu else None
+        self._thread_safe = thread_safe
+
+    @property
+    def thread_safe(self) -> bool:
+        return self._thread_safe
 
     @property
     def name(self) -> str:
@@ -293,17 +308,127 @@ def test_backpressure_bounded_queue():
 
 
 @pytest.mark.parametrize(
-    ("gpu", "model"), [(True, False), (False, True), (False, False)], ids=["gpu_claim", "pinned_model", "cpu_stage"]
+    ("gpu", "model", "thread_safe"),
+    [(True, False, False), (False, True, False), (False, False, False), (True, False, True), (False, True, True)],
+    ids=["gpu_claim", "pinned_model", "cpu_stage", "thread_safe_gpu_claim", "thread_safe_pinned_model"],
 )
-def test_device_stage_pinned_to_one_thread(gpu, model):
-    stage = PinnedStage(gpu=gpu, model=model)
+def test_device_stage_pinned_to_one_thread(gpu, model, thread_safe):
+    """A GPU claim, a model that pins dispatch, or no ``thread_safe``
+    declaration: one worker thread, whatever the budget."""
+    stage = PinnedStage(gpu=gpu, model=model, thread_safe=thread_safe)
     out = run_pipeline(
         [Num(i) for i in range(8)], [stage],
         # a declared card: the GPU claim is placed without probing a device
-        config=PipelineConfig(num_gpus=1), runner=PipelinedRunner(), skip_validation=True,
+        config=PipelineConfig(num_gpus=1, num_cpus=16), runner=PipelinedRunner(), skip_validation=True,
     )
     assert len(out) == 8
     assert len(stage.threads) == 1
+
+
+def test_thread_safe_stage_fans_out_across_threads():
+    stage = SafeAdd(1, sleep_s=0.02, cpus=0.25, bs=1)
+    runner = PipelinedRunner()
+    out = run_pipeline([Num(i) for i in range(16)], [stage], config=PipelineConfig(num_cpus=4), runner=runner)
+    assert sorted(t.v for t in out) == [i + 1 for i in range(16)]
+    assert len(stage.threads) > 1, "thread-safe CPU stage did not fan out"
+    # 4 CPUs at 0.25 a worker, capped at the runner's thread cap
+    assert runner.plans[0] == [min(16, runner.thread_cap)]
+    assert runner.stage_counts["add1"]["workers"] == runner.plans[0][0]
+
+
+def test_budget_bounds_the_fan_out():
+    """One CPU of budget: a 0.5-CPU stage gets two workers, never more."""
+    stage = SafeAdd(1, sleep_s=0.01, cpus=0.5, bs=1)
+    runner = PipelinedRunner()
+    run_pipeline([Num(i) for i in range(12)], [stage], config=PipelineConfig(num_cpus=1), runner=runner)
+    assert runner.plans == [[2]] and runner.stage_counts["add1"]["workers"] == 2
+    assert 1 < len(stage.threads) <= 2
+    fixed = SafeAdd(1, sleep_s=0.01, cpus=0.25, bs=1)
+    runner = PipelinedRunner()
+    run_pipeline([Num(i) for i in range(12)], [StageSpec(fixed, num_workers=1)], config=PipelineConfig(num_cpus=8),
+                 runner=runner)
+    assert runner.plans == [[1]] and len(fixed.threads) == 1
+
+
+def test_scale_down_drains_surplus_workers():
+    """A fast thread-safe consumer behind a slow single-worker producer: with
+    no rate yet it gets many workers; once measured with an empty queue the
+    planner drops it to its minimum, and the surplus threads exit after the
+    batch in hand. Nothing is lost."""
+    consumer = SafeAdd(10, sleep_s=0.001, cpus=0.25, bs=1)
+    runner = PipelinedRunner(replan_interval_s=0.05, batch_linger_s=0.0)
+    out = run_pipeline([Num(i) for i in range(30)], [Add(1, sleep_s=0.03, bs=1), consumer],
+                       config=PipelineConfig(num_cpus=4), runner=runner, skip_validation=True)
+    assert sorted(t.v for t in out) == [i + 11 for i in range(30)]
+    assert runner.plans[0][1] > 1, runner.plans
+    assert min(plan[1] for plan in runner.plans) == 1, runner.plans
+    assert runner.stage_counts["add10"]["completed"] == 30
+
+
+def test_setup_and_destroy_run_once_with_several_threads():
+    class SafeLifecycle(Lifecycle):
+        def __init__(self, name):
+            super().__init__(name)
+            self.threads: set[int] = set()
+
+        @property
+        def thread_safe(self):
+            return True
+
+        def setup(self, worker):
+            time.sleep(0.1)  # the other threads wait for it
+            super().setup(worker)
+
+        def process_data(self, tasks):
+            assert self.setups == 1, "process_data before setup"
+            self.threads.add(threading.get_ident())
+            time.sleep(0.01)
+            return super().process_data(tasks)
+
+    stages = [SafeLifecycle("a"), SafeLifecycle("b")]
+    runner = PipelinedRunner()
+    out = run_pipeline([Num(i) for i in range(20)], [StageSpec(st, num_workers=3) for st in stages],
+                       config=PipelineConfig(num_cpus=4), runner=runner)
+    assert len(out) == 20
+    for st in stages:
+        assert st.setups == 1 and st.destroys == 1
+        assert len(st.threads) > 1
+        assert runner.stage_counts[st.name]["workers"] == 3
+
+
+@pytest.mark.parametrize("kind", ["crash", "hang"])
+def test_chaos_fault_in_a_fanned_out_stage(kind):
+    """``worker.batch.crash`` (an error-kind fault: one attempt lost, the
+    retry recovers) and ``worker.batch.hang`` (one batch stuck for 0.5 s
+    while the stage's other threads go on) in a stage with several worker
+    threads: the full output set either way."""
+    site, rule = {
+        "crash": (chaos.SITE_WORKER_CRASH, dict(kind="error", count=1)),
+        "hang": (chaos.SITE_WORKER_HANG, dict(kind="hang", count=1, delay_s=0.5)),
+    }[kind]
+    stage = SafeAdd(1, sleep_s=0.01, cpus=0.25, bs=1)
+    done_at: list[float] = []
+    real = stage.process_data
+
+    def timed(tasks):
+        out = real(tasks)
+        done_at.append(time.monotonic())
+        return out
+
+    stage.process_data = timed
+    chaos.install(chaos.FaultPlan(rules=(chaos.FaultRule(site=site, **rule),), seed=3))
+    try:
+        t0 = time.monotonic()
+        out = run_pipeline([Num(i) for i in range(16)], [StageSpec(stage, num_run_attempts=2)],
+                           config=PipelineConfig(num_cpus=2), runner=PipelinedRunner())
+        assert chaos.fire_count(site) == 1
+    finally:
+        chaos.uninstall()
+    assert sorted(t.v for t in out) == [i + 1 for i in range(16)]
+    assert len(stage.threads) > 1
+    if kind == "hang":
+        # the other threads finished most batches while one batch hung
+        assert sum(t - t0 < 0.5 for t in done_at) >= 12, done_at
 
 
 def test_overlap_counts_stage_work_not_setup():
@@ -390,8 +515,7 @@ def test_gpu_stage_on_a_host_without_one_raises(monkeypatch):
 def _toy_chain(stage_mod, task_mod, tag):
     """The same three-stage chain built on one package's base classes: add
     1, fan each task out to two, add 10 (CPU stages, batch 2; declared
-    thread-safe, which lets the JAX runner fan them out, while the port's
-    runs every stage on one thread)."""
+    thread-safe, which lets both runners fan them out)."""
 
     class N(task_mod.PipelineTask):
         def __init__(self, v):

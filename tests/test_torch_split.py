@@ -47,6 +47,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from cosmos_curate_tpu.core.pipeline import PipelineConfig as JPipelineConfig
+from cosmos_curate_tpu.core.pipelined_runner import PipelinedRunner as JPipelinedRunner
 from cosmos_curate_tpu.core.runner import SequentialRunner as JSequentialRunner
 from cosmos_curate_tpu.core.stage import WorkerMetadata as JWorkerMetadata
 from cosmos_curate_tpu.data import model as jdata
@@ -66,6 +68,7 @@ from cosmos_curate_tpu.pipelines.video.stages import shot_detection as jshot
 from cosmos_curate_tpu.video import decode as jdecode
 from cosmos_curate_tpu.video import encode as jencode
 from cosmos_curate_tpu.video import splitter as jsplitter
+from cosmos_curate_tpu_torch.core.pipeline import PipelineConfig
 from cosmos_curate_tpu_torch.core.pipelined_runner import PipelinedRunner
 from cosmos_curate_tpu_torch.core.runner import SequentialRunner, default_runner
 from cosmos_curate_tpu_torch.data import model as tdata
@@ -499,6 +502,155 @@ def test_split_embed_caption_matches_jax(annotate_videos, jax_annotated, runner,
     assert compared >= len(metas)  # greedy steps held to the rule: 17 of them here
 
 
+# -- (c2) the split's filters and enhanced captions ---------------------------
+
+FILTERED = dict(SPLIT, extract_fps=(8.0,), extract_resize_hw=(64, 96), text_filter="enable",
+                semantic_filter="enable", embedding_model="video", captioning=True, caption_model="tiny-test",
+                enhance_captions=True)
+
+
+@pytest.fixture(scope="module")
+def filter_videos(tmp_path_factory) -> Path:
+    """Three scene videos and one with overlay text (a headline in its first
+    second, a caption bar in its second)."""
+    d = tmp_path_factory.mktemp("filter_videos")
+    for i, scenes in enumerate((2, 3, 3)):
+        # no moving box: its edges, upscaled to the detector's input, read
+        # as text to the trained detector (about 0.02 of the frame)
+        make_scene_video(d / f"video_{i}.mp4", scene_len_frames=24, num_scenes=scenes, moving_box=False)
+    writer = cv2.VideoWriter(str(d / "overlay.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 24.0, (96, 64))
+    for f in range(48):
+        frame = np.full((64, 96, 3), 60, np.uint8)
+        frame[:, :, 1] = 90 + f
+        text = "BREAKING NEWS" if f < 24 else "LIVE 24/7"
+        cv2.putText(frame, text, (2, 20 if f < 24 else 56), cv2.FONT_HERSHEY_SIMPLEX, 0.4, (255, 255, 255), 1,
+                    cv2.LINE_AA)
+        writer.write(frame)
+    writer.release()
+    return d
+
+
+@pytest.fixture(scope="module")
+def filter_weights(tmp_path_factory) -> Path:
+    """The tiny caption checkpoint and the tiny video embedder's seeded init,
+    written by the JAX registry (both packages serve the tiny configs under
+    the real ids); the OCR checkpoints are the committed ones."""
+    root = tmp_path_factory.mktemp("filter_weights")
+    eng = JEngine(J_TINY, max_batch=2)
+    eng.setup(5)
+    jregistry.save_params(CAPTION_MODEL_ID, eng.params, root=root)
+    eng.shutdown()
+    embedder = jemb.VideoEmbedder(jemb.VIDEO_EMBED_TINY_TEST)
+    embedder.setup()
+    jregistry.save_params(EMBED_MODEL_ID, embedder._params, root=root)
+    return root
+
+
+@pytest.fixture
+def filters_tiny(filter_weights, monkeypatch):
+    monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(filter_weights))
+    monkeypatch.setitem(jemb.VIDEO_EMBED_VARIANTS, "video", (jemb.VIDEO_EMBED_TINY_TEST, EMBED_MODEL_ID))
+    monkeypatch.setitem(temb.VIDEO_EMBED_VARIANTS, "video", (temb.VIDEO_EMBED_TINY_TEST, EMBED_MODEL_ID))
+    JShared.reset()
+    SharedCaptionEngine.reset()
+    yield
+    JShared.reset()
+    SharedCaptionEngine.reset()
+
+
+def _traced_split(run, engine_stage, args, runner) -> tuple[dict, dict]:
+    """run_split with the shared caption engine's greedy logits recorded."""
+    engine_stage.model.setup()  # the shared engine every caption-family stage joins
+    trace = _record_logits(engine_stage.model.engine)
+    return run(args, runner=runner), dict(trace)
+
+
+@pytest.mark.parametrize("runner", ["sequential", "default"])
+def test_filtered_split_matches_jax(filter_videos, filters_tiny, runner, tmp_path):
+    """text filter (learned, the committed OCR weights) -> semantic filter ->
+    ``embedding_model="video"`` -> captions -> enhanced captions through both
+    packages' ``run_split``: the same clips kept and filtered (and by which
+    filter), metas key for key (scores exactly; verdicts, captions and
+    enhanced captions under the logit rule), and the same output files."""
+    j_summary, j_trace = _traced_split(
+        jsplit.run_split, jcap.CaptionStage(model_flavor="tiny-test"),
+        jsplit.SplitPipelineArgs(input_path=str(filter_videos), output_path=str(tmp_path / "jout"), **FILTERED),
+        JSequentialRunner())
+    summary, trace = _traced_split(
+        tsplit.run_split, tcap.CaptionStage(model_flavor="tiny-test", device="cpu"),
+        tsplit.SplitPipelineArgs(input_path=str(filter_videos), output_path=str(tmp_path / "out"), device="cpu",
+                                 **FILTERED),
+        _runner(runner))
+
+    assert _counts(summary) == _counts(j_summary)
+    assert summary["num_filtered_by_text"] == 2 and summary["num_clips"] == 10, summary
+    assert _files(tmp_path / "out") == _files(tmp_path / "jout")
+    metas, j_metas = _all_metas(tmp_path / "out"), _all_metas(tmp_path / "jout")
+    assert set(metas) == set(j_metas) and len(metas) == 10
+    kept_or_filtered = {u: m["filtered_by"] for u, m in metas.items()}
+    assert kept_or_filtered == {u: m["filtered_by"] for u, m in j_metas.items()}
+    assert "text" in kept_or_filtered.values()
+    compared = 0
+    for uuid, j_meta in j_metas.items():
+        meta = metas[uuid]
+        assert list(meta) == list(j_meta)
+        assert meta["artificial_text_score"] == j_meta["artificial_text_score"] is not None, uuid
+        texts = [(w.pop("captions"), w.pop("enhanced_captions")) for w in meta["windows"]]
+        j_texts = [(w.pop("captions"), w.pop("enhanced_captions")) for w in j_meta["windows"]]
+        full = {}
+        for rid in [uuid] + [f"{uuid}-{i}" for i in range(len(j_texts))]:
+            if rid not in j_trace:
+                continue
+            full[rid] = True
+            # the caption and the enhance pass share a request id: both
+            # passes' steps are in the trace, in order
+            for step, (j, p) in enumerate(zip(j_trace[rid], trace[rid], strict=True)):
+                assert np.abs(j - p).max() <= LOGIT_TOL, (rid, step)
+                top2 = np.sort(j)[-2:]
+                if top2[1] - top2[0] < 2 * LOGIT_TOL:
+                    full[rid] = False
+                    break
+                assert int(np.argmax(j)) == int(np.argmax(p)), (rid, step)
+                compared += 1
+        if full.get(uuid):
+            assert meta["semantic_pass"] == j_meta["semantic_pass"], uuid
+        meta.pop("semantic_pass"), j_meta.pop("semantic_pass")
+        assert meta == j_meta, uuid
+        for i, (pair, j_pair) in enumerate(zip(texts, j_texts, strict=True)):
+            if full.get(f"{uuid}-{i}"):
+                assert pair == j_pair, uuid
+            assert pair[0].get("default") and "default" in pair[1]
+    assert compared >= len(metas)
+    embs, j_embs = _embeddings(tmp_path / "out"), _embeddings(tmp_path / "jout")
+    assert set(embs) == set(j_embs) == {u for u, m in metas.items() if not m["filtered_by"]}
+    for uuid, j_emb in j_embs.items():
+        np.testing.assert_allclose(embs[uuid], j_emb, atol=EMBED_TOL)
+
+
+def test_fanned_out_split_matches_the_jax_runners(annotate_videos, tmp_path):
+    """The split on the port's pipelined runner with the fan-out on (16 CPUs
+    of budget, ``transcode_cpus=1``: the thread-safe CPU stages get several
+    workers) writes the same output set as both JAX runners."""
+    kw = dict(SPLIT, transcode_cpus=1, clip_chunk_size=2)
+    outs = {}
+    for name, runner in (("jax_sequential", JSequentialRunner()), ("jax_pipelined", JPipelinedRunner())):
+        outs[name] = jsplit.run_split(
+            jsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(tmp_path / name), **kw),
+            runner=runner, config=JPipelineConfig(num_cpus=16))
+    runner = PipelinedRunner(replan_interval_s=0.1)
+    outs["port"] = tsplit.run_split(
+        tsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(tmp_path / "port"), **kw),
+        runner=runner, config=PipelineConfig(num_cpus=16))
+    assert runner.stage_counts["ClipTranscodingStage"]["workers"] > 1, runner.stage_counts
+    assert runner.plans[0] != [1] * len(runner.plans[0])
+    assert _counts(outs["port"]) == _counts(outs["jax_sequential"]) == _counts(outs["jax_pipelined"])
+    assert outs["port"]["num_clips"] == 8
+    files = _files(tmp_path / "port")
+    assert files == _files(tmp_path / "jax_sequential") == _files(tmp_path / "jax_pipelined")
+    for uuid, meta in _metas(tmp_path / "jax_sequential").items():
+        assert _metas(tmp_path / "port")[uuid] == meta
+
+
 # -- (d) chunking --------------------------------------------------------------
 
 
@@ -538,13 +690,10 @@ def test_chunked_split_matches_jax(long_videos, runner, tmp_path):
 REFUSED_OPTIONS = {
     "sr": dict(sr=True),
     "motion_filter": dict(motion_filter="score-only"),
-    "text_filter": dict(text_filter="enable"),
-    "semantic_filter": dict(semantic_filter="score-only"),
     "incremental_dedup": dict(incremental_dedup="enable", embedding_model="video"),
     "corpus_index": dict(corpus_index=True),
     "index_path": dict(index_path="/some/index"),
     "multicam": dict(multicam=True),
-    "enhance_captions": dict(enhance_captions=True),
     "t5_embeddings": dict(t5_embeddings=True),
     "previews": dict(previews=True),
     "tracking": dict(tracking=True),
@@ -559,14 +708,11 @@ REFUSED_OPTIONS = {
 }
 
 
-@pytest.mark.parametrize("case", [*REFUSED_OPTIONS, "health_gate_on", "health_gate_strict", "remote_input",
-                                  "remote_output", "writer_index_path"])
+@pytest.mark.parametrize("case", [*REFUSED_OPTIONS, "remote_input", "remote_output", "writer_index_path"])
 def test_unported_options_raise(case, videos, tmp_path, monkeypatch):
     kw = dict(input_path=str(videos), output_path=str(tmp_path / "out"), **SPLIT)
     if case in REFUSED_OPTIONS:
         kw.update(REFUSED_OPTIONS[case])
-    elif case.startswith("health_gate"):
-        monkeypatch.setenv(tsplit.HEALTH_GATE_ENV, case.rsplit("_", 1)[1])
     elif case == "remote_input":
         kw["input_path"] = "s3://bucket/videos"
     elif case == "remote_output":
@@ -582,6 +728,66 @@ def test_unported_options_raise(case, videos, tmp_path, monkeypatch):
     monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(tmp_path / "weights"))
     with pytest.raises(err, match=match):
         tsplit.run_split(tsplit.SplitPipelineArgs(**kw), runner=SequentialRunner())
+    assert not (tmp_path / "out").exists()
+
+
+# options earlier slices refused, now served: each assembles its stage where
+# the JAX package puts it, with the same arguments
+SERVED_OPTIONS = {
+    "text_filter": (dict(text_filter="enable", text_filter_threshold=0.3), "ArtificialTextFilterStage"),
+    "text_filter_score_only": (dict(text_filter="score-only"), "ArtificialTextFilterStage"),
+    "semantic_filter": (dict(semantic_filter="enable", caption_model="tiny-test"), "SemanticFilterStage"),
+    "semantic_filter_score_only": (dict(semantic_filter="score-only", semantic_filter_prompt="overlay-text",
+                                        caption_model="tiny-test"), "SemanticFilterStage"),
+    "enhance_captions": (dict(captioning=True, caption_model="tiny-test", enhance_captions=True),
+                         "EnhanceCaptionStage"),
+}
+
+
+@pytest.mark.parametrize("case", list(SERVED_OPTIONS))
+def test_lifted_options_are_served(case):
+    option, stage_name = SERVED_OPTIONS[case]
+    j_stages = jsplit.assemble_stages(jsplit.SplitPipelineArgs(**option))
+    t_stages = tsplit.assemble_stages(tsplit.SplitPipelineArgs(device="cpu", **option))
+    names = [type(s).__name__ for s in t_stages]
+    assert names == [type(s).__name__ for s in j_stages] and stage_name in names
+    t_stage, j_stage = (stages[names.index(stage_name)] for stages in (t_stages, j_stages))
+    for attr in ("threshold", "score_only", "prompt", "prompt_variant", "max_new_tokens", "num_frames"):
+        if hasattr(j_stage, attr):
+            assert getattr(t_stage, attr) == getattr(j_stage, attr), attr
+    assert t_stage.extraction.key() == j_stage.extraction.key() if hasattr(j_stage, "extraction") else True
+
+
+@pytest.mark.parametrize("gate", ["on", "strict"])
+def test_health_gate_runs_before_the_split(gate, videos, tmp_path, monkeypatch):
+    """``CURATE_HEALTH_GATE=on|strict``: the probe runs first (three tries
+    here, the third answering), then the split runs as without it."""
+    from cosmos_curate_tpu_torch.utils import health
+
+    answers = iter([False, False, True])
+    calls = []
+    monkeypatch.setattr(health, "probe_accelerator", lambda timeout_s=0: calls.append(timeout_s) or next(answers))
+    monkeypatch.setattr(health.time, "sleep", lambda s: None)
+    monkeypatch.setenv(tsplit.HEALTH_GATE_ENV, gate)
+    summary = tsplit.run_split(tsplit.SplitPipelineArgs(input_path=str(videos), output_path=str(tmp_path / "out"),
+                                                        **SPLIT), runner=SequentialRunner())
+    assert calls == [120, 120, 120]
+    assert summary["num_clips"] == summary["num_transcoded"] == 7
+
+
+@pytest.mark.parametrize("gate", ["on", "strict"])
+def test_unhealthy_card_aborts_the_split(gate, videos, tmp_path, monkeypatch):
+    """An unhealthy card aborts before any stage is built, with ``on`` as
+    with ``strict``: the port never moves the run to the CPU."""
+    from cosmos_curate_tpu_torch.utils import health
+
+    monkeypatch.setattr(health, "probe_accelerator", lambda timeout_s=0: False)
+    monkeypatch.setattr(health.time, "sleep", lambda s: None)
+    monkeypatch.setattr(tsplit, "assemble_stages", lambda args: pytest.fail("stages built past the gate"))
+    monkeypatch.setenv(tsplit.HEALTH_GATE_ENV, gate)
+    with pytest.raises(RuntimeError, match="accelerator unhealthy after 3 probes"):
+        tsplit.run_split(tsplit.SplitPipelineArgs(input_path=str(videos), output_path=str(tmp_path / "out"),
+                                                  **SPLIT), runner=SequentialRunner())
     assert not (tmp_path / "out").exists()
 
 
@@ -640,7 +846,12 @@ STAGE_ARGS = ("threshold", "min_clip_len_s", "max_clip_len_s", "reduction", "sco
     dict(splitting_algorithm="transnetv2", transnetv2_threshold=0.6, min_clip_len_s=1.0, max_clip_len_s=8.0,
          embedding_model="iv2", extract_fps=(4.0, 1.0)),
     dict(aesthetic_threshold=-1.0, embedding_model="video", captioning=True, caption_model="tiny-test"),
-], ids=["transnet-aesthetic-clip", "transnet-iv2", "fixed-aesthetic-video-caption"])
+    dict(aesthetic_threshold=1.0, text_filter="enable", text_filter_threshold=0.3, semantic_filter="score-only",
+         semantic_filter_prompt="overlay-text", embedding_model="video", captioning=True, caption_model="tiny-test",
+         enhance_captions=True),
+    dict(text_filter="score-only", semantic_filter="enable", caption_model="tiny-test", enhance_captions=True),
+], ids=["transnet-aesthetic-clip", "transnet-iv2", "fixed-aesthetic-video-caption", "every-filter-and-enhance",
+        "filters-without-captions"])
 def test_assemble_stages_puts_each_stage_where_the_reference_does(option):
     """The same stages in the same order as the JAX assembly, each with the
     same arguments, every model on the arguments' device."""
