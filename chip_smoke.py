@@ -156,6 +156,18 @@ and prints one JSON line per phase:
    fanned out and with one worker a stage: transcode fans out, the device
    stage does not, and both write the same files. The split phase's record
    holds the planner's plans for run A (all ones on 8 cores).
+    curate (``scripts/curate_phase.py``, on the split phase's corpus and run
+   A's output): flash_causal (flash's causal branch at the CLIP text
+   towers' shapes, [256, 12, 77, 64] and [256, 8, 64, 64], against its plain
+   version, timed); t5 (``T5EncoderTPU(T5_SMALL)`` on 256 caption-length
+   texts padded to 512 tokens: captions/s, idle and attention shares, peak
+   memory, bf16 within ``T5_BOUND`` of fp32 on the card); clip_text
+   (``CLIPTextEmbeddings("clip-text-l-tpu")`` on 256 queries: queries/s,
+   unit norms, within ``CLIP_TEXT_BOUND`` of plain flash, 12 flash launches
+   a call); split_extras (run D: run B's videos with T5 caption embeddings
+   and previews); dedup_shard (``run_dedup`` and ``run_shard`` on run A's
+   output, k-means on 2^20 x 768 rows at K = 1024, semantic dedup on 2^16
+   rows with planted near-copies).
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -341,8 +353,10 @@ OCR_TIMED_CLIPS = 32
 # modules and FFmpeg libraries the port's later slices may need (split
 # assembly decodes and encodes through cv2 and a native H.264 writer over
 # libavcodec, and writes parquet with pyarrow; the Qwen flavors' tokenizer
-# splits with regex); the device phase reports which are here
-OPTIONAL_MODULES = ("cv2", "msgpack", "cloudpickle", "prometheus_client", "pyarrow", "regex")
+# splits with regex; previews are WebP through PIL; a staged T5
+# tokenizer.json loads through tokenizers); the device phase reports which
+# are here
+OPTIONAL_MODULES = ("cv2", "msgpack", "cloudpickle", "prometheus_client", "pyarrow", "regex", "PIL", "tokenizers")
 FFMPEG_LIBRARIES = ("avcodec", "avformat", "avutil", "swscale", "x264")
 # embed phase: stage calls timed, clips per task (4 one-second clips of
 # bench.py's videos), so each call is one 32-clip dispatch
@@ -541,8 +555,16 @@ def random_bf16(rng, dev):
 
 def check_flash(timer, bf16, shape: tuple, causal: bool, label: str) -> dict:
     """The flash wrapper against its fp32 plain version at one [B, H, S, D]
-    shape (asserted within BOUND), and the kernel's, the plain version's and
-    SDPA's times on the same inputs beside the bound."""
+    shape, and the kernel's, the plain version's and SDPA's times on the
+    same inputs beside the bound.
+
+    Asserted within BOUND: the error beyond what rounding the fp32 plain
+    output to the kernel's bf16 output costs by itself (per element, |got -
+    want| - |bf16(want) - want|; at most twice the kernel's error before its
+    output rounding). The raw max abs error is recorded beside it, and
+    SDPA's on the same inputs: the first rows of a short causal sequence
+    attend to a few keys, their outputs reach |4|, where bf16's half ulp is
+    0.0156, and SDPA's error there equals that rounding."""
     from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -554,8 +576,11 @@ def check_flash(timer, bf16, shape: tuple, causal: bool, label: str) -> dict:
     got = run()
     want = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
     torch.cuda.synchronize()
-    err = (got.float() - want).abs().max().item()
-    assert err <= BOUND, f"flash {label}: max abs err {err} > {BOUND}"
+    diff = (got.float() - want).abs()
+    err = diff.max().item()
+    err_beyond = (diff - (want.to(torch.bfloat16).float() - want).abs()).max().item()
+    assert err_beyond <= BOUND, f"flash {label}: error beyond bf16 rounding {err_beyond} > {BOUND} (raw {err})"
+    sdpa_err = (sdpa(q, k, v, is_causal=causal).float() - want).abs().max().item()
     fb, fh, fs, fd = shape
     # the plain version without the first or the last (ragged) key tile:
     # what a kernel that lost the tile would give, which BOUND must catch
@@ -570,6 +595,8 @@ def check_flash(timer, bf16, shape: tuple, causal: bool, label: str) -> dict:
     return with_shares(dict(
         shape=dict(B=fb, H=fh, S=fs, D=fd, causal=causal),
         max_abs_err=err,
+        max_abs_err_beyond_output_rounding=err_beyond,
+        sdpa_max_abs_err=sdpa_err,
         kernel_ms=timer(run),
         plain_ms=timer(lambda: flash_attention_plain(q, k, v, causal=causal)),
         bound_ms=bms,
@@ -1494,6 +1521,16 @@ def profile_decode(engine, make_request, focus: str, steps: int = 16, full=None,
     return out
 
 
+def webp_available() -> bool:
+    """Whether PIL imports here and can write WebP (the preview stage's
+    format)."""
+    try:
+        from PIL import features
+    except ImportError:
+        return False
+    return bool(features.check("webp"))
+
+
 def optional_modules() -> dict:
     """Module -> its version (or True) where it imports here, else the
     import error; FFmpeg library -> the shared library the loader finds
@@ -1509,6 +1546,7 @@ def optional_modules() -> dict:
             out[name] = str(getattr(mod, "__version__", True))
         except Exception as e:  # reported, not fatal: later slices read it
             out[name] = f"{type(e).__name__}: {e}"
+    out["PIL_webp"] = webp_available()
     out["libraries"] = {name: ctypes.util.find_library(name) for name in FFMPEG_LIBRARIES}
     out["libavcodec_headers"] = Path("/usr/include/libavcodec/avcodec.h").exists() or any(
         Path("/usr/include").glob("*/libavcodec/avcodec.h"))
@@ -1862,6 +1900,16 @@ def stage_busy(spans: list, wall: float) -> dict:
                    "busy_ms_per_call": 1e3 * rec["busy_s"] / rec["calls"]} for name, rec in by.items()}
 
 
+def split_args(videos: Path, out: Path, **kw):
+    """``SplitPipelineArgs`` of run A (bench.py's headline settings) on
+    ``videos``, written to ``out``, with ``kw`` on top."""
+    from cosmos_curate_tpu_torch.pipelines.video import split
+
+    return split.SplitPipelineArgs(
+        input_path=str(videos), output_path=str(out), fixed_stride_len_s=1.0, min_clip_len_s=0.5,
+        extract_fps=(8.0,), extract_resize_hw=(224, 224), embedding_model="video", **kw)
+
+
 def split_run(dev, a, runner, stage_classes) -> dict:
     """One run_split with every launch counter zeroed just before it:
     summary, wall, launches, stage spans, flash shapes, peaks."""
@@ -1941,10 +1989,8 @@ def drive_split(dev, timer, root: Path, corpus: list[Path], corpus_s: float) -> 
     checked_shapes = {(shape, causal) for _, shape, causal in FLASH_CASES}
     os.environ.pop(RUNNER_ENV, None)
 
-    def args(videos: Path, out: str, **kw) -> split.SplitPipelineArgs:
-        return split.SplitPipelineArgs(
-            input_path=str(videos), output_path=str(root / out), fixed_stride_len_s=1.0, min_clip_len_s=0.5,
-            extract_fps=(8.0,), extract_resize_hw=(224, 224), embedding_model="video", **kw)
+    def args(videos: Path, out: str, **kw):
+        return split_args(videos, root / out, **kw)
 
     # run A: bench.py's headline row through the default runner
     runner = default_runner()
@@ -3089,6 +3135,9 @@ def main() -> int:
     from cosmos_curate_tpu_torch.models.vlm import VLM_BASE
     from cosmos_curate_tpu_torch.ops import _build, kernels
 
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import curate_phase
+
     started = time.monotonic()
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -3160,6 +3209,9 @@ def main() -> int:
         emit({"phase": "canonical", **canonical})
         filters = drive_filters(dev, root, corpus)
         emit({"phase": "filters", **filters})
+        # flash_causal, t5, clip_text, split_extras (run D), dedup_shard
+        curate = curate_phase.run(sys.modules[__name__], dev, timer, root, corpus)
+    checks["flash"]["cases"].update(curate["flash_causal"])
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3197,6 +3249,9 @@ def main() -> int:
             qwen=qwen_checks["qwen2vl-2b"].get(name),
             qwen3_launches=qwen3["gather" if name == "decode" else "auto"]["launches"][name],
             qwen3=qwen3_checks[QWEN3_FLAVOR].get(name),
+            split_extras_launches=curate["split_extras"]["launches"][name],
+            clip_text_launches=curate["clip_text"]["flash_launches"] if name == "flash" else 0,
+            cases=c.get("cases"),
         ))
     emit({"phase": "timing", "script_s": time.monotonic() - started})
     emit({"kernels": rows})

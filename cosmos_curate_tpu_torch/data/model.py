@@ -3,11 +3,10 @@
 embed and caption stages read and write; each later stage's port adds the
 fields it uses).
 
-Not ported with their stages: the motion scores, tracks, previews and T5
-embeddings (ROADMAP queue A item 8), and
-``SplitPipeTask.aux_videos`` / ``Video.camera`` of multicam sessions
-(item 11). The writer's meta still writes their keys with the reference's
-empty values.
+Not ported with their stages: the motion scores (ROADMAP queue A item
+16), tracks and event captions (item 8), and ``SplitPipeTask.aux_videos`` /
+``Video.camera`` of multicam sessions (item 11). The writer's meta still
+writes their keys with the reference's empty values.
 
 - decoded frames are numpy ``uint8 [T, H, W, 3]`` arrays keyed by a
   ``FrameExtractionSignature``, so a CPU prep stage extracts once and many
@@ -81,6 +80,7 @@ class Window:
     frame_fps: float | None = None
     caption: dict[str, str] = field(default_factory=dict)  # prompt_variant -> text
     enhanced_caption: dict[str, str] = field(default_factory=dict)
+    t5_embedding: np.ndarray | None = None  # float32 [tokens, dim] of the window's caption
 
     @property
     def num_frames(self) -> int:
@@ -138,6 +138,7 @@ class Clip:
     # model name -> float32 embedding
     embeddings: dict[str, np.ndarray] = field(default_factory=dict)
     windows: list[Window] = field(default_factory=list)
+    webp_preview: bytes | None = None
     aesthetic_score: float | None = None
     artificial_text_score: float | None = None
     semantic_pass: bool | None = None

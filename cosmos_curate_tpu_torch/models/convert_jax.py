@@ -11,11 +11,15 @@ The port names its modules after the flax ones, so the map is mechanical:
 - Conv ``kernel`` HWIO -> ``Conv2d.weight`` OIHW, a 1-D conv's WIO ->
   ``Conv1d.weight`` OIW, and a 3-D conv's ``[kt, kh, kw, in, out]`` ->
   ``Conv3d.weight [out, in, kt, kh, kw]``;
-- ``Embed.embedding`` -> ``Embedding.weight``;
+- ``Embed.embedding`` -> ``Embedding.weight`` (T5's ``shared``, the CLIP
+  text tower's ``tok_embed``), and T5's bucket table ``rel_bias.embedding``
+  -> ``rel_bias.weight``;
 - LayerNorm / RMSNorm ``scale`` -> ``weight`` (``bias`` stays ``bias``);
+  T5's RMS norms name theirs ``weight`` already, and it stays;
 - raw params (``cls``, ``pos_embed``, the pooler's ``query`` and
   ``time_embed``, InternVideo2's LayerScale ``ls1`` / ``ls2``, the MoE
-  experts ``moe/gate_up [E, D, 2H]`` and ``moe/down [E, H, D]``) keep
+  experts ``moe/gate_up [E, D, 2H]`` and ``moe/down [E, H, D]``, the CLIP
+  text tower's ``pos_embed [1, max_len, width]``) keep
   their names and layout (the MoE router is a Dense: its ``[D, E]``
   kernel transposes); ``load_state_dict`` casts each value to its
   parameter's dtype (bf16 for the experts of a bf16 model);

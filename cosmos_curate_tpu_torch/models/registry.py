@@ -39,6 +39,19 @@ WEIGHTS_DIR_ENV = "CURATE_MODEL_WEIGHTS_DIR"
 REPO_WEIGHTS_DIR = Path(__file__).resolve().parent.parent.parent / "weights"
 
 
+# model id -> description, filled by the model modules that register an id
+# (the CLIP text towers and T5 so far)
+_REGISTRY: dict[str, str] = {}
+
+
+def register_model(model_id: str, description: str = "") -> None:
+    _REGISTRY[model_id] = description
+
+
+def registered_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
 def weights_root() -> Path:
     return Path(os.environ.get(WEIGHTS_DIR_ENV, Path(tempfile.gettempdir()) / "curate_model_weights"))
 

@@ -11,6 +11,9 @@ The engine only calls ``encode``/``decode``/``decode_bytes``/``eos_id``/
   ``vocab.json`` + ``merges.txt`` with the checkpoint's EXACT token ids and
   Qwen2's pre-tokenizer split (needs the ``regex`` module, imported when
   one is built; there is no fallback to ``re``).
+- ``HFJsonTokenizer``: any checkpoint's ``tokenizer.json`` through the
+  ``tokenizers`` library (imported when one is built); ``t5_tokenizer``
+  serves T5 with it when the checkpoint ships one, else the byte tokenizer.
 """
 
 from __future__ import annotations
@@ -277,3 +280,61 @@ class HFVocabTokenizer:
     @property
     def pad_id(self) -> int:
         return self._pad
+
+
+class HFJsonTokenizer:
+    """A checkpoint's EXACT tokenization from its ``tokenizer.json``, through
+    the ``tokenizers`` library (imported here, when one is built). Satisfies
+    the engine's tokenizer protocol."""
+
+    def __init__(
+        self,
+        path: str | Path,
+        *,
+        eos_token: str = "</s>",
+        pad_token: str = "<pad>",
+        add_special_tokens: bool = True,
+    ) -> None:
+        from tokenizers import Tokenizer
+
+        self._tok = Tokenizer.from_file(str(path))
+        self._add_special = add_special_tokens
+        eos = self._tok.token_to_id(eos_token)
+        pad = self._tok.token_to_id(pad_token)
+        if eos is None or pad is None:
+            raise ValueError(f"tokenizer at {path} lacks {eos_token!r}/{pad_token!r}")
+        self._eos = eos
+        self._pad = pad
+        # max id + 1, not the token count: sparse added-token ids above the
+        # count would pass T5's vocab guard and then index past the table
+        vocab = self._tok.get_vocab(with_added_tokens=True)
+        self.vocab_size = (max(vocab.values()) + 1) if vocab else 0
+
+    def encode(self, text: str, *, add_bos: bool = False) -> list[int]:  # noqa: ARG002
+        return self._tok.encode(text, add_special_tokens=self._add_special).ids
+
+    def decode(self, ids: list[int]) -> str:
+        return self._tok.decode(list(ids), skip_special_tokens=True)
+
+    def decode_bytes(self, ids: list[int]) -> bytes:
+        return self.decode(ids).encode("utf-8")
+
+    @property
+    def eos_id(self) -> int:
+        return self._eos
+
+    @property
+    def pad_id(self) -> int:
+        return self._pad
+
+
+def t5_tokenizer(model_id: str = "t5-encoder-tpu"):
+    """The T5 tokenizer: the checkpoint's staged or committed
+    ``tokenizer.json`` when present (the embedding rows are indexed by its
+    ids), else the byte tokenizer, which only a seeded init may serve."""
+    from cosmos_curate_tpu_torch.models.registry import find_model_file
+
+    p = find_model_file(model_id, "tokenizer.json")
+    if p is not None:
+        return HFJsonTokenizer(p)
+    return ByteTokenizer()

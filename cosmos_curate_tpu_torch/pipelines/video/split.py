@@ -4,7 +4,8 @@
 download → clips (fixed stride, or TransNetV2 shot detection) → transcode →
 frame extraction → [aesthetic filter] → [artificial-text filter] →
 [semantic filter] → [embed] → [caption prep → caption] → [enhanced
-captions] → writer, through the port's own ``run_pipeline``. The model
+captions] → [T5 caption embeddings] → [previews] → writer, through the
+port's own ``run_pipeline``. The model
 stages run on ``SplitPipelineArgs.device`` ("cuda" unless the caller asks
 for the CPU).
 
@@ -35,6 +36,7 @@ from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature
 from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_split_tasks
 from cosmos_curate_tpu_torch.pipelines.video.stages.aesthetic_filter import AestheticFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.artificial_text_filter import ArtificialTextFilterStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.caption_embedding import CaptionEmbeddingStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.captioning import CaptionPrepStage, CaptionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.clip_extraction import (
     ClipTranscodingStage,
@@ -44,6 +46,7 @@ from cosmos_curate_tpu_torch.pipelines.video.stages.download import VideoDownloa
 from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import ClipEmbeddingStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.enhance_caption import EnhanceCaptionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.frame_extraction import ClipFrameExtractionStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.preview import PreviewStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.semantic_filter import SemanticFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.shot_detection import TransNetV2ClipExtractionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.writer import INDEX_NOT_PORTED, ClipWriterStage
@@ -134,13 +137,11 @@ _NOT_PORTED: tuple[tuple[str, Callable[[SplitPipelineArgs], bool], str], ...] = 
     ("sr", lambda a: a.sr, f"super resolution, {_LEGS}"),
     ("motion_filter", lambda a: a.motion_filter != "disable",
      "mv_extract.c with the motion filter (ROADMAP queue A item 16)"),
-    ("incremental_dedup", lambda a: a.incremental_dedup != "disable", f"dedup, {_LEGS}"),
+    ("incremental_dedup", lambda a: a.incremental_dedup != "disable", INDEX_NOT_PORTED),
     ("index_path", lambda a: bool(a.index_path), INDEX_NOT_PORTED),
     ("corpus_index", lambda a: a.corpus_index,
      "the corpus-index writer path and its consolidation (ROADMAP queue A item 12)"),
     ("multicam", lambda a: a.multicam, "multicam sessions (ROADMAP queue A item 11)"),
-    ("t5_embeddings", lambda a: a.t5_embeddings, f"T5 caption embeddings, {_LEGS}"),
-    ("previews", lambda a: a.previews, f"previews, {_LEGS}"),
     ("tracking", lambda a: a.tracking or a.tracking_annotated, f"the tracker, {_LEGS}"),
     ("per_event_captions", lambda a: a.per_event_captions, f"per-event captions, {_LEGS}"),
     ("tracing", lambda a: a.tracing, _OBSERVABILITY),
@@ -192,6 +193,10 @@ def assemble_stages(args: SplitPipelineArgs) -> list[Stage | StageSpec]:
     if args.enhance_captions:
         stages.append(EnhanceCaptionStage(prompt_variant=args.caption_prompt_variant,
                                           model_flavor=args.caption_model, device=args.device))
+    if args.t5_embeddings:
+        stages.append(CaptionEmbeddingStage(prompt_variant=args.caption_prompt_variant, device=args.device))
+    if args.previews:
+        stages.append(PreviewStage(extraction=primary_sig))
     stages.extend(args.extra_stages)
     stages.append(ClipWriterStage(args.output_path))
     return stages

@@ -2,6 +2,9 @@
 of ``cosmos_curate_tpu/pipelines/video/stages/writer.py``):
 
     <output>/clips/<clip-uuid>.mp4                       transcoded clip
+    <output>/previews/<clip-uuid>.webp                   preview (when produced)
+    <output>/t5_embeddings/<clip-uuid>.npz               T5 caption embeddings,
+                                                         ``window_{i}`` keys
     <output>/metas/v0/<clip-uuid>.json                   clip metadata + captions
     <output>/embeddings/<model>/<video-id>-<chunk>.parquet   clip embeddings
     <output>/processed_videos/<video-id>/chunk-<i>.json  resume record
@@ -10,17 +13,19 @@ Writing the resume record **last** is the crash-safety contract: a video is
 only skipped on re-run if all its chunks finished writing.
 
 A clip meta carries every key of the reference's. The keys of stages not
-ported yet (motion scores, dedup, tracks, event captions, T5 embeddings)
-hold the reference's empty values, so the file format stays the same.
+ported yet (motion scores, incremental dedup, tracks, event captions) hold
+the reference's empty values, so the file format stays the same.
 
 Not ported: the corpus-index fragments the reference appends when
 ``index_path`` is set (a non-empty ``index_path`` raises; ROADMAP queue A
-item 8, dedup), and the secondary cameras of multicam sessions (item 11).
+item 12, the corpus index), and the secondary cameras of multicam sessions
+(item 11).
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import threading
 from collections import defaultdict
 
@@ -32,7 +37,7 @@ from cosmos_curate_tpu_torch.models.registry import weights_provenance
 from cosmos_curate_tpu_torch.storage.client import write_bytes
 from cosmos_curate_tpu_torch.storage.writers import write_json, write_parquet
 
-INDEX_NOT_PORTED = "the corpus index and dedup are not ported yet (ROADMAP queue A item 8)"
+INDEX_NOT_PORTED = "the corpus index and incremental dedup are not ported yet (ROADMAP queue A item 12)"
 
 
 def video_record_id(path: str) -> str:
@@ -63,7 +68,7 @@ def _clip_meta(clip: Clip, provenance: dict | None = None) -> dict:
                 "end_frame": w.end_frame,
                 "captions": w.caption,
                 "enhanced_captions": w.enhanced_caption,
-                "has_t5_embedding": False,
+                "has_t5_embedding": w.t5_embedding is not None,
             }
             for w in clip.windows
         ],
@@ -119,9 +124,11 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
             # stats and metadata
             for clip in (*video.clips, *video.filtered_clips):
                 clip.encoded_data = None
+                clip.webp_preview = None
                 clip.release_frames()
                 for w in clip.windows:
                     w.frames = None
+                    w.t5_embedding = None  # persisted above
             task.stage_perf["clips_written"] = stats.num_clips
             with self._memo_lock:
                 memo = dict(self._provenance_memo)
@@ -156,12 +163,20 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
             clip.encoded_sha256 = hashlib.sha256(clip.encoded_data).hexdigest()
             clip.encoded_url = dest
             stats.num_transcoded += 1
+        if clip.webp_preview:
+            write_bytes(f"{self.output_path}/previews/{clip.uuid}.webp", clip.webp_preview)
+            stats.num_with_webp += 1
         for model, emb in clip.embeddings.items():
             embedding_rows[model].append((str(clip.uuid), emb))
         if clip.embeddings:
             stats.num_with_embeddings += 1
         if any(w.caption for w in clip.windows):
             stats.num_with_captions += 1
+        t5 = {f"window_{i}": w.t5_embedding for i, w in enumerate(clip.windows) if w.t5_embedding is not None}
+        if t5:
+            sink = io.BytesIO()
+            np.savez(sink, **t5)
+            write_bytes(f"{self.output_path}/t5_embeddings/{clip.uuid}.npz", sink.getvalue())
         write_json(f"{self.output_path}/metas/v0/{clip.uuid}.json", _clip_meta(clip, self._model_provenance(clip)))
 
     @staticmethod

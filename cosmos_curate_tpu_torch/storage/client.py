@@ -60,6 +60,9 @@ class LocalStorageClient:
         tmp.write_bytes(data)
         tmp.replace(p)  # atomic on POSIX
 
+    def exists(self, path: str) -> bool:
+        return Path(path).exists()
+
     def list_files(
         self, prefix: str, *, suffixes: tuple[str, ...] | None = None, recursive: bool = True
     ) -> Iterator[ObjectInfo]:

@@ -1,14 +1,15 @@
 """Typed output writers over the storage helpers (port of
-``cosmos_curate_tpu/storage/writers.py``: json and parquet, the two the
-split pipeline's writer and summary use). Both go through ``write_bytes``,
-so local writes are atomic.
+``cosmos_curate_tpu/storage/writers.py``: json and parquet, which the split
+pipeline's writer and summary use, and csv, the dedup summary's). All go
+through ``write_bytes``, so local writes are atomic.
 """
 
 from __future__ import annotations
 
+import csv
 import io
 import json
-from typing import Any, Mapping
+from typing import Any, Iterable, Mapping
 
 import numpy as np
 
@@ -41,3 +42,12 @@ def write_parquet(path: str, columns: Mapping[str, Any]) -> None:
     sink = io.BytesIO()
     pq.write_table(table, sink)
     write_bytes(path, sink.getvalue())
+
+
+def write_csv(path: str, rows: Iterable[Mapping[str, Any]], fieldnames: list[str]) -> None:
+    buf = io.StringIO()
+    writer = csv.DictWriter(buf, fieldnames=fieldnames)
+    writer.writeheader()
+    for row in rows:
+        writer.writerow(row)
+    write_bytes(path, buf.getvalue().encode())

@@ -451,6 +451,39 @@ def test_flash_kernel(dev, shape, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 12, 77, 64), (256, 8, 64, 64)], ids=["clip-text-l", "clip-text-b"])
+def test_flash_kernel_causal_at_the_clip_text_shapes(dev, shape):
+    """The CLIP text towers' causal attention over 256 queries: S = 77
+    (no tile multiple) and S = 64, both shorter than one key tile."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    n = kernels()["flash"].launches
+    got = flash_attention(q, k, v, causal=True)
+    assert kernels()["flash"].launches == n + 1
+    want = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+    assert torch.isfinite(got.float()).all()
+    # the first rows attend to one or two keys, so outputs reach |4|, where
+    # bf16's half ulp (0.0156) passes the bound: held to it beyond what
+    # rounding the plain output to bf16 costs by itself
+    rounding = (want.to(torch.bfloat16).float() - want).abs()
+    assert ((got.float() - want).abs() - rounding).max().item() <= BOUND
+    # the causal mask is on: the non-causal result differs beyond the bound
+    assert _err(got, flash_attention_plain(q.float(), k.float(), v.float())) > BOUND
+
+
+@pytest.mark.cuda
+def test_clip_text_tower_launches_flash_once_a_layer(dev):
+    from cosmos_curate_tpu_torch.models.clip_text import CLIPTextEmbeddings
+
+    model = CLIPTextEmbeddings("clip-text-tiny-test", device=dev)
+    model.setup()
+    n = kernels()["flash"].launches
+    out = model.encode_texts(["a dog", "the camera pans left over a city"])
+    assert kernels()["flash"].launches == n + model.cfg.layers
+    assert np.allclose(np.linalg.norm(out, axis=-1), 1.0, atol=1e-3)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_reads_strided_views(dev):
     """layers.Attention hands [B, S, H, D] projections over as transposed
     views; the output takes q's layout."""

@@ -43,7 +43,9 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "pipelines.video.stages.shot_detection", "models.vlm.vision_qwen", "models.vlm.chat",
                    "models.ocr", "pipelines.video.stages.artificial_text_filter",
                    "pipelines.video.stages.semantic_filter", "pipelines.video.stages.enhance_caption",
-                   "engine.autoscaler", "utils.health"):
+                   "engine.autoscaler", "utils.health", "models.t5", "models.clip_text",
+                   "pipelines.video.stages.caption_embedding", "pipelines.video.stages.preview", "dedup.kmeans",
+                   "pipelines.video.dedup", "pipelines.video.shard", "dataset.dimensions", "dataset.webdataset"):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -320,4 +322,70 @@ def test_ocr_models_build_every_parameter_on_the_context_device(model):
 
     with torch.device("meta"):
         module = {"detector": TextDetector, "recognizer": TextRecognizer}[model]()
+    assert {p.device.type for p in module.state_dict().values()} == {"meta"}
+
+
+@pytest.mark.parametrize("entry", ["t5", "caption_embedding_stage", "clip_text", "kmeans_fit", "semantic_dedup",
+                                   "run_dedup"])
+def test_caption_embedding_and_dedup_entry_points_default_to_the_gpu(entry, tmp_path):
+    """Each new entry point takes the card unless told otherwise: without
+    CUDA it raises before doing any work; with ``device="cpu"`` it runs the
+    plain versions."""
+    import numpy as np
+    import torch
+
+    from cosmos_curate_tpu_torch.dedup.kmeans import kmeans_fit, semantic_dedup
+    from cosmos_curate_tpu_torch.models.clip_text import CLIPTextEmbeddings
+    from cosmos_curate_tpu_torch.models.t5 import T5_TINY_TEST, T5EncoderTPU
+    from cosmos_curate_tpu_torch.pipelines.video.dedup import DedupPipelineArgs, run_dedup
+    from cosmos_curate_tpu_torch.pipelines.video.stages.caption_embedding import CaptionEmbeddingStage
+
+    x = np.eye(4, dtype=np.float32)
+    make = {
+        "t5": lambda **kw: T5EncoderTPU(T5_TINY_TEST, **kw).device,
+        "caption_embedding_stage": lambda **kw: CaptionEmbeddingStage(cfg=T5_TINY_TEST, **kw).model.device,
+        "clip_text": lambda **kw: CLIPTextEmbeddings("clip-text-tiny-test", **kw).device,
+        "kmeans_fit": lambda **kw: kmeans_fit(x, 2, **kw),
+        "semantic_dedup": lambda **kw: semantic_dedup(x, list("abcd"), **kw),
+        "run_dedup": lambda **kw: run_dedup(DedupPipelineArgs(input_path=str(tmp_path / "none"), **kw)),
+    }[entry]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    if entry == "run_dedup":
+        with pytest.raises(FileNotFoundError):  # it gets as far as reading the (absent) embeddings
+            make(device="cpu")
+    elif entry in ("kmeans_fit", "semantic_dedup"):
+        make(device="cpu")
+    else:
+        assert make(device="cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("option", [dict(t5_embeddings=True), dict(captioning=True, caption_model="tiny-test",
+                                                                   t5_embeddings=True, previews=True)])
+def test_run_split_with_t5_embeddings_defaults_to_the_gpu(option, tmp_path):
+    import torch
+
+    from cosmos_curate_tpu_torch.core.runner import SequentialRunner
+    from cosmos_curate_tpu_torch.pipelines.video import split
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    (tmp_path / "in").mkdir()
+    args = split.SplitPipelineArgs(input_path=str(tmp_path / "in"), output_path=str(tmp_path / "out"), **option)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        split.run_split(args, runner=SequentialRunner())
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("model", ["t5", "clip_text"])
+def test_text_encoders_build_every_parameter_on_the_context_device(model):
+    import torch
+
+    from cosmos_curate_tpu_torch.models.clip_text import CLIP_TEXT_L, CLIPTextEncoder
+    from cosmos_curate_tpu_torch.models.t5 import T5_SMALL, T5Encoder
+
+    with torch.device("meta"):
+        module = {"t5": lambda: T5Encoder(T5_SMALL), "clip_text": lambda: CLIPTextEncoder(CLIP_TEXT_L)}[model]()
     assert {p.device.type for p in module.state_dict().values()} == {"meta"}

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import io
 import json
 from pathlib import Path
 
@@ -694,8 +695,6 @@ REFUSED_OPTIONS = {
     "corpus_index": dict(corpus_index=True),
     "index_path": dict(index_path="/some/index"),
     "multicam": dict(multicam=True),
-    "t5_embeddings": dict(t5_embeddings=True),
-    "previews": dict(previews=True),
     "tracking": dict(tracking=True),
     "tracking_annotated": dict(tracking_annotated=True),
     "per_event_captions": dict(per_event_captions=True),
@@ -718,7 +717,7 @@ def test_unported_options_raise(case, videos, tmp_path, monkeypatch):
     elif case == "remote_output":
         kw["output_path"] = "gs://bucket/out"
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
             ClipWriterStage(str(tmp_path / "out"), index_path="/some/index")
         return
     # the Qwen3 flavor is ported: it refuses, as qwen2vl-2b does, for want
@@ -741,7 +740,120 @@ SERVED_OPTIONS = {
                                         caption_model="tiny-test"), "SemanticFilterStage"),
     "enhance_captions": (dict(captioning=True, caption_model="tiny-test", enhance_captions=True),
                          "EnhanceCaptionStage"),
+    "t5_embeddings": (dict(t5_embeddings=True, caption_prompt_variant="other"), "CaptionEmbeddingStage"),
+    "previews": (dict(previews=True, extract_fps=(4.0, 2.0)), "PreviewStage"),
 }
+
+
+def _preview_tasks(data, frames_by_clip):
+    key = data.FrameExtractionSignature("fps", 2.0).key()
+    clips = [data.Clip(source_video="v.mp4", span=(float(i), float(i + 1)), extracted_frames={key: f})
+             for i, f in enumerate(frames_by_clip)]
+    return [data.SplitPipeTask(video=data.Video(path="v.mp4", clips=clips))]
+
+
+@pytest.mark.parametrize("n,hw", [(3, (32, 48)), (20, (180, 640)), (0, (8, 8))], ids=["few-small", "many-wide", "none"])
+def test_preview_stage_matches_jax(n, hw):
+    """The same frames through both preview stages: the same WebP bytes
+    (the same PIL build encodes both), at most 8 frames no wider than 320."""
+    from PIL import Image
+
+    from cosmos_curate_tpu.pipelines.video.stages.preview import PreviewStage as JPreviewStage
+    from cosmos_curate_tpu_torch.pipelines.video.stages.preview import PreviewStage
+
+    frames = [np.random.default_rng(i).integers(0, 256, (n, *hw, 3), dtype=np.uint8) for i in range(2)]
+    j_tasks = JPreviewStage().process_data(_preview_tasks(jdata, frames))
+    t_tasks = PreviewStage().process_data(_preview_tasks(tdata, frames))
+    for j_clip, t_clip in zip(j_tasks[0].video.clips, t_tasks[0].video.clips, strict=True):
+        assert t_clip.webp_preview == j_clip.webp_preview
+        assert t_clip.errors == j_clip.errors == {}
+        if n == 0:
+            assert t_clip.webp_preview is None
+            continue
+        img = Image.open(io.BytesIO(t_clip.webp_preview))
+        assert img.format == "WEBP" and img.width <= 320 and getattr(img, "n_frames", 1) == min(n, 8)
+
+
+def test_failed_preview_is_recorded_on_the_clip(monkeypatch):
+    from PIL import Image
+
+    from cosmos_curate_tpu_torch.pipelines.video.stages.preview import PreviewStage
+
+    def refuse(self, *args, **kwargs):
+        raise KeyError("WEBP")
+
+    monkeypatch.setattr(Image.Image, "save", refuse)
+    tasks = PreviewStage().process_data(_preview_tasks(tdata, [np.zeros((2, 8, 8, 3), np.uint8)]))
+    clip = tasks[0].video.clips[0]
+    assert clip.webp_preview is None and "WEBP" in clip.errors["preview"]
+
+
+T5_PREVIEWS = dict(CAPTIONED, t5_embeddings=True, previews=True)
+
+
+@pytest.mark.parametrize("runner", ["sequential", "default"])
+def test_split_writes_t5_embeddings_and_previews(annotate_videos, jax_annotated, runner, tmp_path, monkeypatch):
+    """A tiny captioned run with ``t5_embeddings`` and ``previews`` in both
+    packages (the same staged caption weights; T5 on each package's seeded
+    init): the same files, metas and WebP bytes; one ``window_{i}`` array of
+    [tokens, 512] per captioned window, equal to the port's encoder on the
+    meta's captions (each stage call embeds one video's windows, in clip
+    order)."""
+    from PIL import Image
+
+    from cosmos_curate_tpu_torch.models.t5 import T5EncoderTPU
+
+    root, _, _, _, _ = jax_annotated
+    monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(root))
+    out, j_out = tmp_path / "out", tmp_path / "jout"
+    JShared.reset()
+    try:
+        j_summary = jsplit.run_split(
+            jsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(j_out), **T5_PREVIEWS),
+            runner=JSequentialRunner())
+    finally:
+        JShared.reset()
+    SharedCaptionEngine.reset()
+    try:
+        summary = tsplit.run_split(
+            tsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(out), device="cpu",
+                                     **T5_PREVIEWS),
+            runner=_runner(runner))
+    finally:
+        SharedCaptionEngine.reset()
+    assert _counts(summary) == _counts(j_summary)
+    assert summary["num_clips"] == summary["num_with_captions"] == 8
+    files = _files(out)
+    assert files == _files(j_out)
+    metas, j_metas = _metas(out), _metas(j_out)
+    assert sum(f.startswith("previews/") for f in files) == sum(f.startswith("t5_embeddings/") for f in files) == 8
+    encoder = T5EncoderTPU(device="cpu")
+    encoder.setup()
+    by_video: dict[str, list] = {}
+    for uuid, meta in sorted(metas.items(), key=lambda kv: kv[1]["span_start"]):
+        by_video.setdefault(meta["source_video"], []).append((uuid, meta["windows"][0]["captions"]["default"]))
+    want = {}
+    for rows in by_video.values():
+        for (uuid, _), sample in zip(rows, encoder.encode([text for _, text in rows]), strict=True):
+            want[uuid] = sample.embedding
+    for uuid, meta in metas.items():
+        j_meta = j_metas[uuid]
+        captions = [w.pop("captions")["default"] for w in meta["windows"]]
+        j_captions = [w.pop("captions")["default"] for w in j_meta["windows"]]
+        assert meta == j_meta and all(w["has_t5_embedding"] for w in meta["windows"])
+        webp = (out / "previews" / f"{uuid}.webp").read_bytes()
+        assert webp == (j_out / "previews" / f"{uuid}.webp").read_bytes()
+        img = Image.open(io.BytesIO(webp))
+        assert getattr(img, "n_frames", 1) <= 8 and img.width <= 320
+        with np.load(out / "t5_embeddings" / f"{uuid}.npz") as npz, \
+                np.load(j_out / "t5_embeddings" / f"{uuid}.npz") as j_npz:
+            assert sorted(npz.files) == sorted(j_npz.files) == [f"window_{i}" for i in range(len(captions))]
+            for i, (text, j_text) in enumerate(zip(captions, j_captions, strict=True)):
+                emb = npz[f"window_{i}"]
+                assert emb.dtype == np.float32 and emb.shape == (len(text.encode()) + 1, 512)
+                np.testing.assert_array_equal(emb, want[uuid])
+                if text == j_text:
+                    assert j_npz[f"window_{i}"].shape == emb.shape
 
 
 @pytest.mark.parametrize("case", list(SERVED_OPTIONS))
@@ -752,7 +864,8 @@ def test_lifted_options_are_served(case):
     names = [type(s).__name__ for s in t_stages]
     assert names == [type(s).__name__ for s in j_stages] and stage_name in names
     t_stage, j_stage = (stages[names.index(stage_name)] for stages in (t_stages, j_stages))
-    for attr in ("threshold", "score_only", "prompt", "prompt_variant", "max_new_tokens", "num_frames"):
+    for attr in ("threshold", "score_only", "prompt", "prompt_variant", "max_new_tokens", "num_frames", "max_frames",
+                 "target_width", "fps"):
         if hasattr(j_stage, attr):
             assert getattr(t_stage, attr) == getattr(j_stage, attr), attr
     assert t_stage.extraction.key() == j_stage.extraction.key() if hasattr(j_stage, "extraction") else True
@@ -850,8 +963,10 @@ STAGE_ARGS = ("threshold", "min_clip_len_s", "max_clip_len_s", "reduction", "sco
          semantic_filter_prompt="overlay-text", embedding_model="video", captioning=True, caption_model="tiny-test",
          enhance_captions=True),
     dict(text_filter="score-only", semantic_filter="enable", caption_model="tiny-test", enhance_captions=True),
+    dict(embedding_model="video", captioning=True, caption_model="tiny-test", enhance_captions=True,
+         t5_embeddings=True, previews=True, caption_prompt_variant="short"),
 ], ids=["transnet-aesthetic-clip", "transnet-iv2", "fixed-aesthetic-video-caption", "every-filter-and-enhance",
-        "filters-without-captions"])
+        "filters-without-captions", "captions-t5-previews"])
 def test_assemble_stages_puts_each_stage_where_the_reference_does(option):
     """The same stages in the same order as the JAX assembly, each with the
     same arguments, every model on the arguments' device."""
