@@ -168,6 +168,24 @@ and prints one JSON line per phase:
    and previews); dedup_shard (``run_dedup`` and ``run_shard`` on run A's
    output, k-means on 2^20 x 768 rows at K = 1024, semantic dedup on 2^16
    rows with planted near-copies).
+    index (``scripts/index_phase.py``, after curate; it sets
+   ``CURATE_INDEX_ALLOW_RANDOM=1`` itself, after checking that the gates
+   refuse the seeded models without it): a corpus index of 2^18 x 512
+   planted rows at K = 512 (built: k-means on the card, shard writes on the
+   host), ``incremental_dedup`` of 1024 queries at nprobe 8 (exactly the
+   512 planted near-copies removed, each ``duplicate_of`` its source), the
+   query wall split (routing, shard loads, device top-k, merge) and idle
+   share, recall@8 >= 0.95 against an exact top-8 on the card; an
+   ``IndexServer`` answering 256 concurrent clip, uuid and text requests
+   (the text tower ``clip-text-b-tpu`` runs flash's causal branch; every
+   shape checked against the plain version), each answer equal to
+   ``CorpusIndex.query`` on its rows; ``compact_index`` folding 4096 rows
+   while queries run, the server adopting the new generation, recall@8
+   still >= 0.95. index_split (run E): 8 corpus videos through
+   ``run_split`` with ``clip`` embeddings and ``corpus_index=True`` (all 32
+   clips consolidated), the same videos renamed through ``run_split`` with
+   ``incremental_dedup="enable"`` (all 32 removed as duplicates), and
+   ``run_dedup`` on the first output (``method == "index_query"``).
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -3137,6 +3155,7 @@ def main() -> int:
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     import curate_phase
+    import index_phase
 
     started = time.monotonic()
     dev = torch.device("cuda", 0)
@@ -3211,7 +3230,10 @@ def main() -> int:
         emit({"phase": "filters", **filters})
         # flash_causal, t5, clip_text, split_extras (run D), dedup_shard
         curate = curate_phase.run(sys.modules[__name__], dev, timer, root, corpus)
+        # index (the corpus index, its server and compaction), index_split (run E)
+        index = index_phase.run(sys.modules[__name__], dev, timer, root, corpus)
     checks["flash"]["cases"].update(curate["flash_causal"])
+    checks["flash"]["cases"].update(index["index"]["server"]["flash_checked_here"])
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3251,6 +3273,8 @@ def main() -> int:
             qwen3=qwen3_checks[QWEN3_FLAVOR].get(name),
             split_extras_launches=curate["split_extras"]["launches"][name],
             clip_text_launches=curate["clip_text"]["flash_launches"] if name == "flash" else 0,
+            index_server_launches=index["index"]["server"]["flash_launches"] if name == "flash" else 0,
+            index_split_launches=sum(index["index_split"][run]["launches"][name] for run in ("first", "second")),
             cases=c.get("cases"),
         ))
     emit({"phase": "timing", "script_s": time.monotonic() - started})

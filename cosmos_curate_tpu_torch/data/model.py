@@ -143,6 +143,8 @@ class Clip:
     artificial_text_score: float | None = None
     semantic_pass: bool | None = None
     filtered_by: str = ""  # which filter removed this clip ("" = kept)
+    # incremental dedup: the indexed clip this one duplicates ("" = none)
+    duplicate_of: str = ""
     errors: dict[str, str] = field(default_factory=dict)
 
     @property

@@ -60,17 +60,16 @@ from cosmos_curate_tpu_torch.models.vlm.paged_kv import (
 # full sampling surface (top_p/min_p/penalties/min_tokens) lives in
 # models/vlm/sampling.py; re-exported here for the existing import paths
 from cosmos_curate_tpu_torch.models.vlm.sampling import SamplingConfig, sample_token
-from cosmos_curate_tpu_torch.ops._build import KernelError
+from cosmos_curate_tpu_torch.ops._build import DEVICE_FAULTS
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
-# Device faults: a kernel that could not be built, refused its inputs or
-# failed to launch, or a CUDA error surfacing in a later op. The scheduler drops a request whose prep, claim or prefill
-# raises anything else, but these are never one request's fault (a CUDA
-# error is sticky, so every later request would fail the same way): they
-# propagate to the caller of step() / run_until_complete().
-_DEVICE_FAULTS = (KernelError, torch.AcceleratorError)
+# The scheduler drops a request whose prep, claim or prefill raises, but a
+# device fault is never one request's fault (every later request would fail
+# the same way): it propagates to the caller of step() /
+# run_until_complete().
+_DEVICE_FAULTS = DEVICE_FAULTS
 
 
 @dataclass

@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -44,6 +46,13 @@ class KernelInputError(KernelError, ValueError):
 
 class KernelLaunchError(KernelError):
     """A kernel launch returned a nonzero ``cudaGetLastError``."""
+
+
+# Device faults: a kernel that could not be built, refused its inputs or
+# failed to launch, or a CUDA error surfacing in a later op. They are never
+# one request's or one run's data at fault (a CUDA error is sticky), so a
+# handler that keeps a run going past other errors lets these through.
+DEVICE_FAULTS = (KernelError, torch.AcceleratorError)
 
 
 def _nvcc() -> str:

@@ -7,11 +7,12 @@ unless the caller asks for the CPU) and writes
 ``<output>/dedup_summary_<eps>.csv`` (removed rows first, then kept) and
 ``<output>/summary.json``, with the reference's rows and keys.
 
-Not ported: the corpus-index fast path (ROADMAP queue A item 12). Where
-the reference would query an index (``use_index`` on and ``meta.json`` and
-``centroids.npy`` at the resolved root), the port raises
-``NotImplementedError``: reclustering would give a different result. The
-reference's object-plane metrics call waits for item 14.
+Fast path: where a persistent corpus index exists (``<input>/index`` or
+``index_path``, built by ``run_split(corpus_index=True)``), ``run_dedup``
+queries it (``incremental_dedup``, scored on ``device``) instead of
+reclustering: O(probed shards) against the whole curated corpus. An index of
+another embedding model, or ``use_index=False``, reclusters. The
+reference's object-plane metrics call waits for ROADMAP queue A item 14.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from cosmos_curate_tpu_torch.core.model import model_device
+from cosmos_curate_tpu_torch.dedup.corpus_index import CorpusIndex, incremental_dedup
 from cosmos_curate_tpu_torch.dedup.kmeans import semantic_dedup
 from cosmos_curate_tpu_torch.storage.client import get_storage_client, read_bytes
 from cosmos_curate_tpu_torch.storage.writers import write_csv, write_json
@@ -34,7 +36,6 @@ logger = get_logger(__name__)
 
 # bounded fan-out for per-chunk parquet fetches
 FETCH_THREADS_ENV = "CURATE_WORKER_FETCH_THREADS"
-INDEX_NOT_PORTED = "querying a corpus index is not ported yet (ROADMAP queue A item 12)"
 
 
 @dataclass
@@ -50,11 +51,12 @@ class DedupPipelineArgs:
     max_iters: int = 20
     # a mesh of one card is the single-device path: the flag changes nothing
     use_mesh: bool = True
-    # corpus-index fast path: where an index exists, the port raises
+    # corpus-index fast path: query instead of recluster where one exists
     use_index: bool = True
     index_path: str = ""  # "" = <input>/index
-    nprobe: int = 0
-    # where k-means runs: "cuda" unless the caller asks for "cpu"
+    nprobe: int = 0  # 0 = the index's default
+    # where k-means and the index's products run: "cuda" unless the caller
+    # asks for "cpu"
     device: str = "cuda"
 
 
@@ -109,28 +111,48 @@ def load_embeddings(input_path: str, model: str = "") -> tuple[list[str], np.nda
     return ids, np.stack(vecs), found_model
 
 
-def _refuse_index(args: DedupPipelineArgs) -> None:
-    """Raise where the reference would query a corpus index (its
-    ``CorpusIndex.exists``: ``meta.json`` and ``centroids.npy`` at the
-    resolved root)."""
+def _open_index(args: DedupPipelineArgs, device, model: str) -> CorpusIndex | None:
+    """The corpus index this run should query, or None (absent, disabled or
+    of another embedding model: one embedding space per index, so a model
+    mismatch reclusters instead of comparing incompatible vectors)."""
     if not args.use_index:
-        return
+        return None
     root = (args.index_path or f"{args.input_path.rstrip('/')}/index").rstrip("/")
-    client = get_storage_client(root)
-    if client.exists(f"{root}/meta.json") and client.exists(f"{root}/centroids.npy"):
-        raise NotImplementedError(f"corpus index at {root}: {INDEX_NOT_PORTED}; pass use_index=False to recluster")
+    try:
+        if not CorpusIndex.exists(root):
+            return None
+        index = CorpusIndex.open(root, device=device)
+    except NotImplementedError:
+        raise  # a lance index: reclustering would answer differently
+    except (OSError, RuntimeError, ValueError) as e:
+        logger.warning("corpus index at %s unusable (%s); re-clustering", root, e)
+        return None
+    index_model = index.meta.get("model", "")
+    if index_model and model and index_model != model:
+        logger.warning("corpus index at %s holds %r embeddings but this run used %r; re-clustering instead", root,
+                       index_model, model)
+        return None
+    return index
 
 
 def run_dedup(args: DedupPipelineArgs) -> dict:
     t0 = time.monotonic()
     device = model_device(args.device, "run_dedup's k-means")
     out = (args.output_path or f"{args.input_path.rstrip('/')}/dedup").rstrip("/")
-    _refuse_index(args)
     ids, embeddings, model = load_embeddings(args.input_path, args.embedding_model)
     logger.info("dedup: %d embeddings (%s, dim %d)", len(ids), model, embeddings.shape[1])
-    result = semantic_dedup(
-        embeddings, ids, n_clusters=args.n_clusters or None, eps=args.eps, iters=args.max_iters, device=device
-    )
+    index = _open_index(args, device, model)
+    if index is not None:
+        # the index may already hold this very run (the writer's fragments):
+        # incremental_dedup's keep-first order handles self-matches
+        method = "index_query"
+        logger.info("dedup fast path: querying corpus index at %s (%d indexed vectors)", index.store.root,
+                    index.meta.get("num_vectors", 0))
+        result = incremental_dedup(index, ids, embeddings, eps=args.eps, nprobe=args.nprobe or None)
+    else:
+        method = "recluster"
+        result = semantic_dedup(embeddings, ids, n_clusters=args.n_clusters or None, eps=args.eps,
+                                iters=args.max_iters, device=device)
     rows = [
         {"clip_uuid": cid, "action": "removed", "duplicate_of": result["duplicate_of"].get(cid, "")}
         for cid in result["removed"]
@@ -139,8 +161,8 @@ def run_dedup(args: DedupPipelineArgs) -> dict:
     summary = {
         "embedding_model": model,
         "eps": args.eps,
-        "method": "recluster",
-        "index_path": "",
+        "method": method,
+        "index_path": index.store.root if index is not None else "",
         "num_embeddings": len(ids),
         "num_kept": len(result["kept"]),
         "num_removed": len(result["removed"]),

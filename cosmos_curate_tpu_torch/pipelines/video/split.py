@@ -3,11 +3,15 @@
 
 download → clips (fixed stride, or TransNetV2 shot detection) → transcode →
 frame extraction → [aesthetic filter] → [artificial-text filter] →
-[semantic filter] → [embed] → [caption prep → caption] → [enhanced
-captions] → [T5 caption embeddings] → [previews] → writer, through the
-port's own ``run_pipeline``. The model
-stages run on ``SplitPipelineArgs.device`` ("cuda" unless the caller asks
-for the CPU).
+[semantic filter] → [embed] → [incremental dedup] → [caption prep →
+caption] → [enhanced captions] → [T5 caption embeddings] → [previews] →
+writer, through the port's own ``run_pipeline``. The model stages and the
+corpus index's products run on ``SplitPipelineArgs.device`` ("cuda" unless
+the caller asks for the CPU). With ``corpus_index`` the writer appends
+pending index fragments and ``run_split`` consolidates them into the index
+after the run (the summary's ``corpus_index`` block); a consolidation that
+fails on storage or data is logged and leaves the run's output as it is,
+but a device fault propagates.
 
 ``assemble_stages`` raises ``NotImplementedError``, naming the ROADMAP item,
 for every option whose stage is not ported yet. ``run_split`` runs the
@@ -15,9 +19,8 @@ accelerator health gate first when ``CURATE_HEALTH_GATE`` is ``on`` or
 ``strict`` (utils/health.py: both abort on an unhealthy card; the port never
 moves a run to the CPU by itself, and a ``device="cpu"`` run has no card to
 gate). It leaves out what else the reference wraps around the run: live
-status, tracing and the observability wrappers (item 14), multi-node
-initialisation and work stealing (item 15) and corpus-index consolidation
-(item 12).
+status, tracing and the observability wrappers (item 14), and multi-node
+initialisation and work stealing (item 15).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from cosmos_curate_tpu_torch.core.pipeline import PipelineConfig, run_pipeline
 from cosmos_curate_tpu_torch.core.runner import RunnerInterface, default_runner
 from cosmos_curate_tpu_torch.core.stage import Stage, StageSpec
 from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature
+from cosmos_curate_tpu_torch.dedup.corpus_index import consolidate_index
+from cosmos_curate_tpu_torch.ops._build import DEVICE_FAULTS
 from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_split_tasks
 from cosmos_curate_tpu_torch.pipelines.video.stages.aesthetic_filter import AestheticFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.artificial_text_filter import ArtificialTextFilterStage
@@ -42,6 +47,7 @@ from cosmos_curate_tpu_torch.pipelines.video.stages.clip_extraction import (
     ClipTranscodingStage,
     FixedStrideExtractorStage,
 )
+from cosmos_curate_tpu_torch.pipelines.video.stages.dedup_stage import IncrementalDedupStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.download import VideoDownloadStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import ClipEmbeddingStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.enhance_caption import EnhanceCaptionStage
@@ -49,7 +55,7 @@ from cosmos_curate_tpu_torch.pipelines.video.stages.frame_extraction import Clip
 from cosmos_curate_tpu_torch.pipelines.video.stages.preview import PreviewStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.semantic_filter import SemanticFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.shot_detection import TransNetV2ClipExtractionStage
-from cosmos_curate_tpu_torch.pipelines.video.stages.writer import INDEX_NOT_PORTED, ClipWriterStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.writer import ClipWriterStage
 from cosmos_curate_tpu_torch.utils.health import accelerator_health_gate
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 from cosmos_curate_tpu_torch.utils.summary import build_summary, write_summary
@@ -137,10 +143,6 @@ _NOT_PORTED: tuple[tuple[str, Callable[[SplitPipelineArgs], bool], str], ...] = 
     ("sr", lambda a: a.sr, f"super resolution, {_LEGS}"),
     ("motion_filter", lambda a: a.motion_filter != "disable",
      "mv_extract.c with the motion filter (ROADMAP queue A item 16)"),
-    ("incremental_dedup", lambda a: a.incremental_dedup != "disable", INDEX_NOT_PORTED),
-    ("index_path", lambda a: bool(a.index_path), INDEX_NOT_PORTED),
-    ("corpus_index", lambda a: a.corpus_index,
-     "the corpus-index writer path and its consolidation (ROADMAP queue A item 12)"),
     ("multicam", lambda a: a.multicam, "multicam sessions (ROADMAP queue A item 11)"),
     ("tracking", lambda a: a.tracking or a.tracking_annotated, f"the tracker, {_LEGS}"),
     ("per_event_captions", lambda a: a.per_event_captions, f"per-event captions, {_LEGS}"),
@@ -186,6 +188,14 @@ def assemble_stages(args: SplitPipelineArgs) -> list[Stage | StageSpec]:
                                           device=args.device))
     if args.embedding_model:
         stages.append(ClipEmbeddingStage(variant=args.embedding_model, extraction=primary_sig, device=args.device))
+    if args.incremental_dedup != "disable":
+        if not args.embedding_model:
+            raise ValueError("--incremental-dedup needs an --embedding-model: dedup queries the corpus index "
+                             "with this run's clip embeddings")
+        # straight after embedding: duplicates go before captioning,
+        # previews and the writer's embedding and index writes
+        stages.append(IncrementalDedupStage(resolve_index_path(args), eps=args.dedup_eps, nprobe=args.dedup_nprobe,
+                                            score_only=args.incremental_dedup == "score-only", device=args.device))
     if args.captioning:
         stages.append(CaptionPrepStage(window_len=args.caption_window_len, extraction=primary_sig))
         stages.append(CaptionStage(prompt_variant=args.caption_prompt_variant, model_flavor=args.caption_model,
@@ -198,8 +208,14 @@ def assemble_stages(args: SplitPipelineArgs) -> list[Stage | StageSpec]:
     if args.previews:
         stages.append(PreviewStage(extraction=primary_sig))
     stages.extend(args.extra_stages)
-    stages.append(ClipWriterStage(args.output_path))
+    stages.append(ClipWriterStage(args.output_path, index_path=resolve_index_path(args) if args.corpus_index else ""))
     return stages
+
+
+def resolve_index_path(args: SplitPipelineArgs) -> str:
+    """The corpus-index root this run writes fragments to and queries: the
+    explicit ``index_path``, else ``<output>/index``."""
+    return (args.index_path or f"{args.output_path.rstrip('/')}/index").rstrip("/")
 
 
 def run_split(
@@ -217,9 +233,27 @@ def run_split(
     stages = assemble_stages(args)
     tasks = discover_split_tasks(args.input_path, args.output_path, limit=args.limit)
     out = run_pipeline(tasks, stages, config=config, runner=runner or default_runner()) or []
+    index_extra = _consolidate_corpus_index(args) if args.corpus_index else {}
     elapsed = time.monotonic() - t0
     num_chips = args.num_chips or max(1, torch.cuda.device_count())
-    summary = build_summary(out, pipeline_run_time_s=elapsed, num_chips=num_chips)
+    summary = build_summary(out, pipeline_run_time_s=elapsed, num_chips=num_chips, extra=index_extra or None)
     write_summary(f"{args.output_path.rstrip('/')}/summary.json", summary)
     logger.info("split done: %d videos, %d clips, %.1fs", summary["num_videos"], summary["num_clips"], elapsed)
     return summary
+
+
+def _consolidate_corpus_index(args: SplitPipelineArgs) -> dict:
+    """Fold the writer's pending index fragments into per-cluster shards
+    (training centroids on the first run). A failure of storage or data is
+    logged and leaves the run's output as it is; a device fault propagates."""
+    root = resolve_index_path(args)
+    try:
+        cstats = consolidate_index(root, device=args.device)
+    except DEVICE_FAULTS:
+        raise
+    except Exception:
+        logger.exception("index consolidation failed (run output unaffected)")
+        return {}
+    logger.info("corpus index consolidated: %d vectors in (%d random-provenance refused)", cstats["consolidated"],
+                cstats["skipped_random"])
+    return {"corpus_index": {**cstats, "path": root}}

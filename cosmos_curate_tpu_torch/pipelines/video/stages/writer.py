@@ -13,13 +13,18 @@ Writing the resume record **last** is the crash-safety contract: a video is
 only skipped on re-run if all its chunks finished writing.
 
 A clip meta carries every key of the reference's. The keys of stages not
-ported yet (motion scores, incremental dedup, tracks, event captions) hold
-the reference's empty values, so the file format stays the same.
+ported yet (motion scores, tracks, event captions) hold the reference's
+empty values, so the file format stays the same.
 
-Not ported: the corpus-index fragments the reference appends when
-``index_path`` is set (a non-empty ``index_path`` raises; ROADMAP queue A
-item 12, the corpus index), and the secondary cameras of multicam sessions
-(item 11).
+With ``index_path`` set, each chunk's embeddings are also appended as a
+pending corpus-index fragment (dedup/index_store.py), which the end-of-run
+consolidation folds into the index. Fragments carry their model's weights
+provenance, and "random" (seeded-init) embeddings are refused unless
+``CURATE_INDEX_ALLOW_RANDOM`` opts in; ``stage_perf`` counts
+``index_fragment_rows`` and ``index_skipped_random``.
+
+Not ported: the secondary cameras of multicam sessions (ROADMAP queue A
+item 11).
 """
 
 from __future__ import annotations
@@ -33,11 +38,13 @@ import numpy as np
 
 from cosmos_curate_tpu_torch.core.stage import Resources, Stage
 from cosmos_curate_tpu_torch.data.model import Clip, ClipStats, SplitPipeTask
+from cosmos_curate_tpu_torch.dedup.index_store import IndexStore, allow_random_provenance
 from cosmos_curate_tpu_torch.models.registry import weights_provenance
 from cosmos_curate_tpu_torch.storage.client import write_bytes
 from cosmos_curate_tpu_torch.storage.writers import write_json, write_parquet
+from cosmos_curate_tpu_torch.utils.logging import get_logger
 
-INDEX_NOT_PORTED = "the corpus index and incremental dedup are not ported yet (ROADMAP queue A item 12)"
+logger = get_logger(__name__)
 
 
 def video_record_id(path: str) -> str:
@@ -58,7 +65,7 @@ def _clip_meta(clip: Clip, provenance: dict | None = None) -> dict:
         "artificial_text_score": clip.artificial_text_score,
         "semantic_pass": clip.semantic_pass,
         "filtered_by": clip.filtered_by,
-        "duplicate_of": "",
+        "duplicate_of": clip.duplicate_of,
         "embedding_models": sorted(clip.embeddings),
         "tracks": [],
         "event_captions": [],
@@ -82,12 +89,15 @@ def _clip_meta(clip: Clip, provenance: dict | None = None) -> dict:
 
 class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
     def __init__(self, output_path: str, *, index_path: str = "") -> None:
-        if index_path:
-            raise NotImplementedError(f"index_path={index_path!r}: {INDEX_NOT_PORTED}")
         self.output_path = output_path.rstrip("/")
+        # corpus-index root for in-pipeline fragment appends ("" disables)
+        self.index_path = index_path.rstrip("/")
         # model -> weights_provenance, memoized per stage instance
         self._provenance_memo: dict[str, str] = {}
         self._memo_lock = threading.Lock()
+        self._warned_random_models: set[str] = set()
+        # one IndexStore for the run (built on the first fragment)
+        self._index_store: IndexStore | None = None
 
     @property
     def resources(self) -> Resources:
@@ -119,6 +129,8 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
                         "embedding": [r[1].astype(np.float32).tolist() for r in rows],
                     },
                 )
+                if self.index_path:
+                    self._write_index_fragment(chunk_tag, model, rows, task)
             self._write_resume_record(task)
             # free payloads (kept AND filtered clips): downstream only needs
             # stats and metadata
@@ -151,6 +163,30 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
                         self._provenance_memo[model] = "unknown"
                 out[model] = self._provenance_memo[model]
         return out
+
+    def _write_index_fragment(self, chunk_tag: str, model: str, rows: list, task: SplitPipeTask) -> None:
+        """Append this chunk's embeddings as a pending corpus-index fragment.
+        Chunk tags scope fragments to disjoint files, so the stage stays
+        thread-safe. Random-provenance embeddings are refused here, before
+        they can reach the index, unless CURATE_INDEX_ALLOW_RANDOM opts in."""
+        provenance = weights_provenance(model)
+        if provenance == "random" and not allow_random_provenance():
+            with self._memo_lock:
+                warn = model not in self._warned_random_models
+                self._warned_random_models.add(model)
+            if warn:
+                logger.warning("not indexing %s embeddings: weights provenance is random (stage a checkpoint, "
+                               "or set CURATE_INDEX_ALLOW_RANDOM=1)", model)
+            task.stage_perf["index_skipped_random"] = task.stage_perf.get("index_skipped_random", 0) + len(rows)
+            return
+        with self._memo_lock:
+            if self._index_store is None:
+                self._index_store = IndexStore(self.index_path)
+            store = self._index_store
+        store.write_pending_fragment(f"{chunk_tag}-{model}", [r[0] for r in rows],
+                                     np.stack([r[1].astype(np.float32) for r in rows]), model=model,
+                                     provenance=provenance)
+        task.stage_perf["index_fragment_rows"] = task.stage_perf.get("index_fragment_rows", 0) + len(rows)
 
     def _write_clip(self, clip: Clip, stats: ClipStats, embedding_rows) -> None:
         stats.num_clips += 1

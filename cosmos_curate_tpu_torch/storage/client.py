@@ -11,6 +11,7 @@ local file of the same name.
 from __future__ import annotations
 
 import os
+import shutil
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
@@ -62,6 +63,13 @@ class LocalStorageClient:
 
     def exists(self, path: str) -> bool:
         return Path(path).exists()
+
+    def delete(self, path: str) -> None:
+        p = Path(path)
+        if p.is_dir():
+            shutil.rmtree(p)
+        elif p.exists():
+            p.unlink()
 
     def list_files(
         self, prefix: str, *, suffixes: tuple[str, ...] | None = None, recursive: bool = True

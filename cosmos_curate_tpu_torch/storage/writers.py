@@ -1,6 +1,7 @@
 """Typed output writers over the storage helpers (port of
 ``cosmos_curate_tpu/storage/writers.py``: json and parquet, which the split
-pipeline's writer and summary use, and csv, the dedup summary's). All go
+pipeline's writer and summary use, csv, the dedup summary's, and npy, the
+corpus index's centroids). All go
 through ``write_bytes``, so local writes are atomic.
 """
 
@@ -41,6 +42,12 @@ def write_parquet(path: str, columns: Mapping[str, Any]) -> None:
     table = pa.table(dict(columns))
     sink = io.BytesIO()
     pq.write_table(table, sink)
+    write_bytes(path, sink.getvalue())
+
+
+def write_npy(path: str, arr: np.ndarray) -> None:
+    sink = io.BytesIO()
+    np.save(sink, arr)
     write_bytes(path, sink.getvalue())
 
 

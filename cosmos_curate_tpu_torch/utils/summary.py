@@ -24,6 +24,7 @@ def build_summary(
     *,
     pipeline_run_time_s: float,
     num_chips: int = 1,
+    extra: dict | None = None,
 ) -> dict:
     stats = ClipStats()
     total_video_duration_s = 0.0
@@ -56,6 +57,8 @@ def build_summary(
     }
     if provenance:
         summary["weights_provenance"] = provenance
+    if extra:
+        summary.update(extra)
     return summary
 
 

@@ -225,27 +225,6 @@ def test_run_dedup_writes_under_the_input_by_default(tmp_path, jax_picks, monkey
     assert {k: v for k, v in got.items() if k != "elapsed_s"} == {k: v for k, v in want.items() if k != "elapsed_s"}
 
 
-@pytest.mark.parametrize("where", ["default_root", "index_path"])
-def test_an_existing_corpus_index_is_refused(where, tmp_path):
-    x, _ = planted(6, 2, 6, 8)
-    write_split_embeddings(tmp_path / "split", x, [f"c{i}" for i in range(len(x))])
-    root = tmp_path / "split" / "index" if where == "default_root" else tmp_path / "elsewhere"
-    root.mkdir(parents=True)
-    (root / "meta.json").write_text("{}")
-    np.save(root / "centroids.npy", np.zeros((2, 8), np.float32))
-    kw = dict(input_path=str(tmp_path / "split"), device="cpu")
-    if where == "index_path":
-        kw["index_path"] = str(root)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
-        tdedup.run_dedup(tdedup.DedupPipelineArgs(**kw))
-    assert not (tmp_path / "split" / "dedup").exists()
-    # meta.json alone is not an index; use_index=False reclusters
-    (root / "centroids.npy").unlink()
-    assert tdedup.run_dedup(tdedup.DedupPipelineArgs(**kw))["method"] == "recluster"
-    np.save(root / "centroids.npy", np.zeros((2, 8), np.float32))
-    assert tdedup.run_dedup(tdedup.DedupPipelineArgs(use_index=False, **kw))["num_embeddings"] == len(x)
-
-
 def test_no_embeddings_raise_like_jax(tmp_path):
     (tmp_path / "embeddings").mkdir()
     with pytest.raises(FileNotFoundError, match="no embedding parquets"):

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
     assert out.returncode == 0, out.stdout + out.stderr
     lines = out.stdout.splitlines()
     n_modules = int(lines[0].split()[0])
-    assert n_modules >= 79
+    assert n_modules >= 84
     names = set(lines[1].split())
     for module in ("models.clip", "models.internvideo2", "models.transnetv2", "pipelines.video.stages.aesthetic_filter",
                    "pipelines.video.stages.shot_detection", "models.vlm.vision_qwen", "models.vlm.chat",
@@ -45,7 +45,9 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "pipelines.video.stages.semantic_filter", "pipelines.video.stages.enhance_caption",
                    "engine.autoscaler", "utils.health", "models.t5", "models.clip_text",
                    "pipelines.video.stages.caption_embedding", "pipelines.video.stages.preview", "dedup.kmeans",
-                   "pipelines.video.dedup", "pipelines.video.shard", "dataset.dimensions", "dataset.webdataset"):
+                   "pipelines.video.dedup", "pipelines.video.shard", "dataset.dimensions", "dataset.webdataset",
+                   "dedup.index_store", "dedup.corpus_index", "dedup.index_server", "dedup.compaction",
+                   "pipelines.video.stages.dedup_stage"):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -389,3 +391,42 @@ def test_text_encoders_build_every_parameter_on_the_context_device(model):
     with torch.device("meta"):
         module = {"t5": lambda: T5Encoder(T5_SMALL), "clip_text": lambda: CLIPTextEncoder(CLIP_TEXT_L)}[model]()
     assert {p.device.type for p in module.state_dict().values()} == {"meta"}
+
+
+@pytest.mark.parametrize("entry", ["corpus_index_open", "corpus_index_build", "consolidate_index", "index_server",
+                                   "compact_index", "compaction_thread", "dedup_stage"])
+def test_corpus_index_entry_points_default_to_the_gpu(entry, tmp_path):
+    """Every entry point of the corpus index takes the card unless told
+    otherwise: without CUDA it raises before doing any work; with
+    ``device="cpu"`` it runs the plain products."""
+    import numpy as np
+    import torch
+
+    from cosmos_curate_tpu_torch.dedup.compaction import CompactionThread, compact_index
+    from cosmos_curate_tpu_torch.dedup.corpus_index import CorpusIndex, consolidate_index
+    from cosmos_curate_tpu_torch.dedup.index_server import IndexServer
+    from cosmos_curate_tpu_torch.pipelines.video.stages.dedup_stage import IncrementalDedupStage
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    root = str(tmp_path / "index")
+    x = np.eye(4, dtype=np.float32)
+    make = {
+        "corpus_index_open": lambda **kw: CorpusIndex.open(root, **kw).device,
+        "corpus_index_build": lambda **kw: CorpusIndex.build(str(tmp_path / "other"), list("abcd"), x, k=2,
+                                                             **kw).device,
+        "consolidate_index": lambda **kw: consolidate_index(str(tmp_path / "empty"), **kw),
+        "index_server": lambda **kw: IndexServer(root, warmup=False, **kw),
+        "compact_index": lambda **kw: compact_index(root, **kw),
+        "compaction_thread": lambda **kw: CompactionThread(root, **kw).device,
+        "dedup_stage": lambda **kw: IncrementalDedupStage(root, **kw).device,
+    }[entry]
+    if entry != "corpus_index_build":
+        CorpusIndex.build(root, list("abcd"), x, k=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    got = make(device="cpu")
+    if entry == "index_server":
+        got.close()
+    elif entry in ("corpus_index_open", "corpus_index_build", "compaction_thread", "dedup_stage"):
+        assert got.type == "cpu"

@@ -84,7 +84,6 @@ from cosmos_curate_tpu_torch.pipelines.video.stages import captioning as tcap
 from cosmos_curate_tpu_torch.pipelines.video.stages import clip_extraction as tclip
 from cosmos_curate_tpu_torch.pipelines.video.stages import embedding as tembed
 from cosmos_curate_tpu_torch.pipelines.video.stages import shot_detection as tshot
-from cosmos_curate_tpu_torch.pipelines.video.stages.writer import ClipWriterStage
 from cosmos_curate_tpu_torch.video import decode as tdecode
 from cosmos_curate_tpu_torch.video import encode as tencode
 from cosmos_curate_tpu_torch.video import splitter as tsplitter
@@ -691,9 +690,6 @@ def test_chunked_split_matches_jax(long_videos, runner, tmp_path):
 REFUSED_OPTIONS = {
     "sr": dict(sr=True),
     "motion_filter": dict(motion_filter="score-only"),
-    "incremental_dedup": dict(incremental_dedup="enable", embedding_model="video"),
-    "corpus_index": dict(corpus_index=True),
-    "index_path": dict(index_path="/some/index"),
     "multicam": dict(multicam=True),
     "tracking": dict(tracking=True),
     "tracking_annotated": dict(tracking_annotated=True),
@@ -707,19 +703,15 @@ REFUSED_OPTIONS = {
 }
 
 
-@pytest.mark.parametrize("case", [*REFUSED_OPTIONS, "remote_input", "remote_output", "writer_index_path"])
+@pytest.mark.parametrize("case", [*REFUSED_OPTIONS, "remote_input", "remote_output"])
 def test_unported_options_raise(case, videos, tmp_path, monkeypatch):
     kw = dict(input_path=str(videos), output_path=str(tmp_path / "out"), **SPLIT)
     if case in REFUSED_OPTIONS:
         kw.update(REFUSED_OPTIONS[case])
     elif case == "remote_input":
         kw["input_path"] = "s3://bucket/videos"
-    elif case == "remote_output":
-        kw["output_path"] = "gs://bucket/out"
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
-            ClipWriterStage(str(tmp_path / "out"), index_path="/some/index")
-        return
+        kw["output_path"] = "gs://bucket/out"
     # the Qwen3 flavor is ported: it refuses, as qwen2vl-2b does, for want
     # of its staged tokenizer files (and then weights)
     err, match = (FileNotFoundError, "vocab.json") if case == "qwen_captions" else (
