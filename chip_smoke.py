@@ -85,7 +85,7 @@ and prints one JSON line per phase:
    ``PipelinedRunner``) over ``PIPELINE_TASKS`` tasks, more than one embed
    stage call can take, so the embed stage embeds while the caption stage
    decodes, from two host threads on one card; then ``SequentialRunner``
-   over 2 of the tasks; then the caption pipeline efficiency as
+   over 2 of the tasks (64 new tokens a window); then the caption pipeline efficiency as
    ``benchmarks/caption_benchmark.py`` defines it: the windows of
    ``EFFICIENCY_TASKS`` tasks straight into the shared engine, then the
    same windows through ``CaptionStage``, each pass's decode tokens over its
@@ -99,8 +99,9 @@ and prints one JSON line per phase:
 
 10. split: the whole main path through the port's own ``run_split``, from
    raw mp4 files to the output layout: bench.py's corpus (64 videos of 4 s
-   at 1280x720, mp4v, made by this script's copy of bench.py's generator;
-   its build is timed and kept out of the wall). Run A is bench.py's
+   at 1280x720, mp4v, made by this script's copy of bench.py's generator
+   on the host's other cores while the kernels build and the kernel phases
+   run; its build is timed and kept out of the wall). Run A is bench.py's
    headline row (1 s fixed-stride clips, 8 fps frames at 224x224,
    ``embedding_model="video"`` at ``VIDEO_EMBED_BASE``) through the default
    runner: wall, clips/s, ``summary.json``'s video hours per day per chip,
@@ -170,7 +171,7 @@ and prints one JSON line per phase:
    rows with planted near-copies).
     index (``scripts/index_phase.py``, after curate; it sets
    ``CURATE_INDEX_ALLOW_RANDOM=1`` itself, after checking that the gates
-   refuse the seeded models without it): a corpus index of 2^18 x 512
+   refuse the seeded models without it): a corpus index of 2^17 x 512
    planted rows at K = 512 (built: k-means on the card, shard writes on the
    host), ``incremental_dedup`` of 1024 queries at nprobe 8 (exactly the
    512 planted near-copies removed, each ``duplicate_of`` its source), the
@@ -186,6 +187,21 @@ and prints one JSON line per phase:
    clips consolidated), the same videos renamed through ``run_split`` with
    ``incremental_dedup="enable"`` (all 32 removed as duplicates), and
    ``run_dedup`` on the first output (``method == "index_query"``).
+    legs (``scripts/legs_phase.py``, after index): motion (48 calibration
+   clips at 1280x720 through ``MotionFilterStage(backend="frame-diff")``,
+   every score within 1e-5 relative of the CPU path's, static clips
+   filtered, full-frame moving clips kept); tracking (the NCC tracker and
+   the siamese tracker from a staged seeded checkpoint on a scaled
+   moving-box clip, boxes equal to the CPU path's and on the object, and on
+   32 corpus clips; ms and launches a frame, idle share); sr (one 24-frame
+   1280x720 window through the diffusion model, its final conv drawn
+   non-zero, and SRNet, bf16 against fp32 on the card; frames/s, chunk
+   group, peak memory); legs_split (run F: 8 corpus videos through
+   ``run_split`` with the motion filter, annotated tracking, per-event
+   captions and captions at ``VLM_BASE``, every tracked clip with its event
+   captions and annotated clip, no clip errors, kernels 1, 2, 3 and 5
+   launched; then 12 frames of one video with ``sr=True``, every clip at
+   2560x1440).
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -318,7 +334,11 @@ PIPELINE_KERNELS = ("paged_decode", "paged_prefill", "prefill", "flash")
 # starts and the two device stages never run at once
 PIPELINE_TASKS = 48
 PIPELINE_SEQUENTIAL_TASKS = 2
-EFFICIENCY_TASKS = 8  # 32 windows: through the engine alone, then CaptionStage
+# 64 new tokens a window (split.py's stage default is 128): the phase's
+# decode is host-bound at ~170 tok/s, and at 128 its 192 windows took 140 s
+# of the full call's 1200 s on a slow host
+PIPELINE_NEW_TOKENS = 64
+EFFICIENCY_TASKS = 4  # 16 windows: through the engine alone, then CaptionStage
 # split phase: bench.py's corpus (bench.py:41-47, :84-103) and headline
 # settings (bench.py:217-227), built by this script's own copy of its
 # generator: 64 videos of 2 scenes x 48 frames at 24 fps, 1280x720, mp4v,
@@ -1575,7 +1595,8 @@ def drive_pipeline(dev) -> dict:
     """The annotate half of the main path through ``run_pipeline``:
     embed -> caption prep -> caption, at VIDEO_EMBED_BASE and VLM_BASE
     (``model_flavor="base"``, seeded), with ``split.py``'s stage settings
-    (window_len 256, 8 frames a window, 128 new tokens, stage batch 32).
+    (window_len 256, 8 frames a window, stage batch 32) but
+    ``PIPELINE_NEW_TOKENS`` new tokens.
     Tasks of EMBED_CLIPS_PER_TASK clips x 8 random 224x224 frames at 8 fps,
     each clip 1 s of a 30 fps video: one caption window. First the default
     runner over PIPELINE_TASKS tasks, then SequentialRunner over
@@ -1626,7 +1647,7 @@ def drive_pipeline(dev) -> dict:
 
     def stages() -> list:
         out = [ClipEmbeddingStage(variant="video", extraction=sig), CaptionPrepStage(extraction=sig),
-               CaptionStage(model_flavor="base")]
+               CaptionStage(model_flavor="base", max_new_tokens=PIPELINE_NEW_TOKENS)]
         for stage in out:
             def traced(tasks, _run=stage.process_data, _name=stage.name):
                 t0 = time.monotonic()
@@ -1703,7 +1724,7 @@ def drive_pipeline(dev) -> dict:
     # wall on both sides
     prepped = run_pipeline(make_tasks(EFFICIENCY_TASKS), [CaptionPrepStage(extraction=sig)],
                            runner=SequentialRunner())
-    eff_stage = CaptionStage(model_flavor="base")
+    eff_stage = CaptionStage(model_flavor="base", max_new_tokens=PIPELINE_NEW_TOKENS)
     windows = [(f"{c.uuid}-{i}", w) for t in prepped for c in t.video.clips for i, w in enumerate(c.windows)]
     prefix_ids, prompt_ids = eff_stage.model.encode_prompt(eff_stage.prompt_text)
 
@@ -1891,6 +1912,38 @@ def split_corpus(n: int = SPLIT_VIDEOS):
         corpus = make_corpus(root / "videos", n)
         yield root, corpus, time.monotonic() - t0
     finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def corpus_in_background(n: int = SPLIT_VIDEOS):
+    """``split_corpus``, its videos written by spawned workers (one core
+    left to the caller) while the caller goes on: yields ``ready()``, which
+    waits for the last video and returns (root, video paths, seconds from
+    the start to the last video, seconds the caller waited)."""
+    import multiprocessing
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_split-"))
+    vids = root / "videos"
+    vids.mkdir(parents=True)
+    t0 = time.monotonic()
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    pool = ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    futures = [pool.submit(write_corpus_video, vids, i) for i in range(n)]
+    done: list = []
+
+    def ready() -> tuple:
+        if not done:
+            waited = time.monotonic()
+            paths = [f.result() for f in futures]
+            end = time.monotonic()
+            done.append((root, paths, end - t0, end - waited))
+        return done[0]
+
+    try:
+        yield ready
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -3145,6 +3198,11 @@ def phase_prologue(dev) -> tuple:
 
 
 def main() -> int:
+    with contextlib.ExitStack() as stack:
+        return _main(stack)
+
+
+def _main(stack: contextlib.ExitStack) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the GPU", file=sys.stderr)
         return 1
@@ -3156,6 +3214,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     import curate_phase
     import index_phase
+    import legs_phase
 
     started = time.monotonic()
     dev = torch.device("cuda", 0)
@@ -3163,6 +3222,10 @@ def main() -> int:
     emit({"phase": "device", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
           "modules": optional_modules()})
+    # the split corpus is written on the host's other cores while the
+    # kernels build and the kernel phases time device work; the host-bound
+    # phases from embed on start once it is done
+    corpus_ready = stack.enter_context(corpus_in_background())
 
     t0 = time.monotonic()
     _build.build_all()
@@ -3178,6 +3241,8 @@ def main() -> int:
                      "not timed), on the same [B, H, S, D] q/k/v for flash"})
     qwen_checks = check_qwen_kernels(timer, dev)
     emit({"phase": "qwen_kernels", "bound": BOUND, "results": qwen_checks})
+    root, corpus, corpus_s, corpus_wait_s = corpus_ready()
+    emit({"phase": "corpus", "videos": len(corpus), "build_s": corpus_s, "waited_s": corpus_wait_s})
 
     embed = drive_embed(dev)
     emit({"phase": "embed", **embed})
@@ -3221,19 +3286,21 @@ def main() -> int:
     for name in PIPELINE_KERNELS:
         assert pipeline["launches"][name] > 0, f"kernel {name} was not launched on the pipeline path"
 
-    with split_corpus() as (root, corpus, corpus_s):
-        split_run = drive_split(dev, timer, root, corpus, corpus_s)
-        emit({"phase": "split", **split_run})
-        canonical = drive_canonical(dev, timer, root, corpus)
-        emit({"phase": "canonical", **canonical})
-        filters = drive_filters(dev, root, corpus)
-        emit({"phase": "filters", **filters})
-        # flash_causal, t5, clip_text, split_extras (run D), dedup_shard
-        curate = curate_phase.run(sys.modules[__name__], dev, timer, root, corpus)
-        # index (the corpus index, its server and compaction), index_split (run E)
-        index = index_phase.run(sys.modules[__name__], dev, timer, root, corpus)
+    split_run = drive_split(dev, timer, root, corpus, corpus_s)
+    emit({"phase": "split", **split_run})
+    canonical = drive_canonical(dev, timer, root, corpus)
+    emit({"phase": "canonical", **canonical})
+    filters = drive_filters(dev, root, corpus)
+    emit({"phase": "filters", **filters})
+    # flash_causal, t5, clip_text, split_extras (run D), dedup_shard
+    curate = curate_phase.run(sys.modules[__name__], dev, timer, root, corpus)
+    # index (the corpus index, its server and compaction), index_split (run E)
+    index = index_phase.run(sys.modules[__name__], dev, timer, root, corpus)
+    # motion, tracking, sr, legs_split (run F)
+    legs = legs_phase.run(sys.modules[__name__], dev, timer, root, corpus)
     checks["flash"]["cases"].update(curate["flash_causal"])
     checks["flash"]["cases"].update(index["index"]["server"]["flash_checked_here"])
+    checks["flash"]["cases"].update(legs["legs_split"]["flash_checked_here"])
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3275,6 +3342,8 @@ def main() -> int:
             clip_text_launches=curate["clip_text"]["flash_launches"] if name == "flash" else 0,
             index_server_launches=index["index"]["server"]["flash_launches"] if name == "flash" else 0,
             index_split_launches=sum(index["index_split"][run]["launches"][name] for run in ("first", "second")),
+            legs_launches=legs["legs_split"]["launches"][name],
+            legs_sr_launches=legs["legs_split"]["sr"]["launches"][name],
             cases=c.get("cases"),
         ))
     emit({"phase": "timing", "script_s": time.monotonic() - started})

@@ -1,12 +1,9 @@
 """The video-curation data model: the payload flowing through every stage
-(port of ``cosmos_curate_tpu/data/model.py``, the fields the split,
-embed and caption stages read and write; each later stage's port adds the
-fields it uses).
+(port of ``cosmos_curate_tpu/data/model.py``, the fields the split's
+stages read and write).
 
-Not ported with their stages: the motion scores (ROADMAP queue A item
-16), tracks and event captions (item 8), and ``SplitPipeTask.aux_videos`` /
-``Video.camera`` of multicam sessions (item 11). The writer's meta still
-writes their keys with the reference's empty values.
+Not ported: ``SplitPipeTask.aux_videos`` / ``Video.camera`` of multicam
+sessions (ROADMAP queue A item 11).
 
 - decoded frames are numpy ``uint8 [T, H, W, 3]`` arrays keyed by a
   ``FrameExtractionSignature``, so a CPU prep stage extracts once and many
@@ -137,8 +134,15 @@ class Clip:
     extracted_frames: dict[str, np.ndarray] = field(default_factory=dict)
     # model name -> float32 embedding
     embeddings: dict[str, np.ndarray] = field(default_factory=dict)
+    motion_score_global: float | None = None
+    motion_score_per_patch_min: float | None = None
     windows: list[Window] = field(default_factory=list)
     webp_preview: bytes | None = None
+    # object tracks: list of tracks, each a list of per-frame dicts
+    # ({frame, x, y, w, h, score}); produced by the tracking stage
+    tracks: list[list[dict]] = field(default_factory=list)
+    event_captions: list[str] = field(default_factory=list)  # parallel to tracks
+    annotated_mp4: bytes | None = None
     aesthetic_score: float | None = None
     artificial_text_score: float | None = None
     semantic_pass: bool | None = None

@@ -221,15 +221,22 @@ def heatmap_to_boxes(prob: np.ndarray, *, threshold: float = 0.5, scale: int = 4
 
 @contextlib.contextmanager
 def _fp32(device: torch.device):
-    """True fp32 convolutions for the block: cuDNN's TF32 off on the GPU,
-    the other cuDNN settings left as they are, all restored on exit."""
+    """True fp32 convolutions and products for the block: cuDNN's and
+    cuBLAS's TF32 off on the GPU, the other cuDNN settings left as they
+    are, all restored on exit."""
     if device.type != "cuda":
         yield
         return
     cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
-                     allow_tf32=False):
-        yield
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = saved
 
 
 class OcrModel:

@@ -2,10 +2,14 @@
 ``cosmos_curate_tpu/pipelines/video/split.py``).
 
 download → clips (fixed stride, or TransNetV2 shot detection) → transcode →
-frame extraction → [aesthetic filter] → [artificial-text filter] →
-[semantic filter] → [embed] → [incremental dedup] → [caption prep →
-caption] → [enhanced captions] → [T5 caption embeddings] → [previews] →
-writer, through the port's own ``run_pipeline``. The model stages and the
+[super resolution] → [motion filter] → frame extraction → [aesthetic
+filter] → [artificial-text filter] → [semantic filter] → [embed] →
+[incremental dedup] → [caption prep → caption] → [enhanced captions] → [T5
+caption embeddings] → [previews] → [tracking] → [per-event captions] →
+writer, through the port's own ``run_pipeline``. Tracking runs with
+``tracking`` or ``per_event_captions``; ``tracking_annotated`` alone adds
+no stage (it only makes the tracking stage write annotated clips), as in
+the reference. The model stages and the
 corpus index's products run on ``SplitPipelineArgs.device`` ("cuda" unless
 the caller asks for the CPU). With ``corpus_index`` the writer appends
 pending index fragments and ``run_split`` consolidates them into the index
@@ -14,7 +18,9 @@ fails on storage or data is logged and leaves the run's output as it is,
 but a device fault propagates.
 
 ``assemble_stages`` raises ``NotImplementedError``, naming the ROADMAP item,
-for every option whose stage is not ported yet. ``run_split`` runs the
+for every option whose stage is not ported yet (multicam, the
+observability options, and super resolution's ``sr_sp_size > 1``).
+``run_split`` runs the
 accelerator health gate first when ``CURATE_HEALTH_GATE`` is ``on`` or
 ``strict`` (utils/health.py: both abort on an unhealthy card; the port never
 moves a run to the CPU by itself, and a ``device="cpu"`` run has no card to
@@ -52,9 +58,13 @@ from cosmos_curate_tpu_torch.pipelines.video.stages.download import VideoDownloa
 from cosmos_curate_tpu_torch.pipelines.video.stages.embedding import ClipEmbeddingStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.enhance_caption import EnhanceCaptionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.frame_extraction import ClipFrameExtractionStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.motion_filter import MotionFilterStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.per_event_caption import PerEventCaptionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.preview import PreviewStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.semantic_filter import SemanticFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.shot_detection import TransNetV2ClipExtractionStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.super_resolution import SuperResolutionStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.tracking import TrackingStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.writer import ClipWriterStage
 from cosmos_curate_tpu_torch.utils.health import accelerator_health_gate
 from cosmos_curate_tpu_torch.utils.logging import get_logger
@@ -136,16 +146,12 @@ class SplitPipelineArgs:
     device: str = "cuda"
 
 
-_LEGS = "ROADMAP queue A item 8"
 _OBSERVABILITY = "tracing, live status and the observability wrappers (ROADMAP queue A item 14)"
 # (option as set, whether args set it, what it waits for)
 _NOT_PORTED: tuple[tuple[str, Callable[[SplitPipelineArgs], bool], str], ...] = (
-    ("sr", lambda a: a.sr, f"super resolution, {_LEGS}"),
-    ("motion_filter", lambda a: a.motion_filter != "disable",
-     "mv_extract.c with the motion filter (ROADMAP queue A item 16)"),
+    ("sr_sp_size", lambda a: a.sr and a.sr_sp_size > 1,
+     "sequence-parallel super resolution (ROADMAP queue A item 7)"),
     ("multicam", lambda a: a.multicam, "multicam sessions (ROADMAP queue A item 11)"),
-    ("tracking", lambda a: a.tracking or a.tracking_annotated, f"the tracker, {_LEGS}"),
-    ("per_event_captions", lambda a: a.per_event_captions, f"per-event captions, {_LEGS}"),
     ("tracing", lambda a: a.tracing, _OBSERVABILITY),
     ("perf_profile", lambda a: a.perf_profile, _OBSERVABILITY),
     ("profile_cpu", lambda a: a.profile_cpu, _OBSERVABILITY),
@@ -167,13 +173,28 @@ def assemble_stages(args: SplitPipelineArgs) -> list[Stage | StageSpec]:
     else:
         stages.append(FixedStrideExtractorStage(clip_len_s=args.fixed_stride_len_s,
                                                 min_clip_len_s=args.min_clip_len_s))
-    stages += [
-        ClipTranscodingStage(num_threads=args.transcode_cpus, chunk_size=args.clip_chunk_size),
-        ClipFrameExtractionStage(
-            signatures=tuple(FrameExtractionSignature("fps", f) for f in args.extract_fps),
-            resize_hw=args.extract_resize_hw,
-        ),
-    ]
+    stages.append(ClipTranscodingStage(num_threads=args.transcode_cpus, chunk_size=args.clip_chunk_size))
+    if args.sr:
+        if args.sr_overlap_frames >= args.sr_window_frames:
+            # before any stage runs: the stage's per-clip error handling
+            # would otherwise write a full output set without SR
+            raise ValueError(f"--sr-overlap-frames ({args.sr_overlap_frames}) must be < "
+                             f"--sr-window-frames ({args.sr_window_frames})")
+        # straight after transcode: the filters and frame extraction see the
+        # upscaled clips
+        stages.append(SuperResolutionStage(variant=args.sr_variant, window_len=args.sr_window_frames,
+                                           overlap=args.sr_overlap_frames, sp_size=args.sr_sp_size,
+                                           device=args.device))
+    if args.motion_filter != "disable":
+        stages.append(MotionFilterStage(
+            score_only=args.motion_filter == "score-only", global_threshold=args.motion_global_threshold,
+            per_patch_threshold=args.motion_patch_threshold, backend=args.motion_backend,
+            mv_global_threshold=args.motion_mv_global_threshold, mv_patch_threshold=args.motion_mv_patch_threshold,
+            device=args.device))
+    stages.append(ClipFrameExtractionStage(
+        signatures=tuple(FrameExtractionSignature("fps", f) for f in args.extract_fps),
+        resize_hw=args.extract_resize_hw,
+    ))
     if args.aesthetic_threshold is not None:
         stages.append(AestheticFilterStage(threshold=args.aesthetic_threshold, extraction=primary_sig,
                                            device=args.device))
@@ -207,6 +228,10 @@ def assemble_stages(args: SplitPipelineArgs) -> list[Stage | StageSpec]:
         stages.append(CaptionEmbeddingStage(prompt_variant=args.caption_prompt_variant, device=args.device))
     if args.previews:
         stages.append(PreviewStage(extraction=primary_sig))
+    if args.tracking or args.per_event_captions:
+        stages.append(TrackingStage(write_annotated=args.tracking_annotated, device=args.device))
+    if args.per_event_captions:
+        stages.append(PerEventCaptionStage(model_flavor=args.caption_model, device=args.device))
     stages.extend(args.extra_stages)
     stages.append(ClipWriterStage(args.output_path, index_path=resolve_index_path(args) if args.corpus_index else ""))
     return stages

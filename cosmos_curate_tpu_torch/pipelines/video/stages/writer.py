@@ -3,6 +3,7 @@ of ``cosmos_curate_tpu/pipelines/video/stages/writer.py``):
 
     <output>/clips/<clip-uuid>.mp4                       transcoded clip
     <output>/previews/<clip-uuid>.webp                   preview (when produced)
+    <output>/tracking/<clip-uuid>.mp4                    annotated track (when produced)
     <output>/t5_embeddings/<clip-uuid>.npz               T5 caption embeddings,
                                                          ``window_{i}`` keys
     <output>/metas/v0/<clip-uuid>.json                   clip metadata + captions
@@ -12,9 +13,8 @@ of ``cosmos_curate_tpu/pipelines/video/stages/writer.py``):
 Writing the resume record **last** is the crash-safety contract: a video is
 only skipped on re-run if all its chunks finished writing.
 
-A clip meta carries every key of the reference's. The keys of stages not
-ported yet (motion scores, tracks, event captions) hold the reference's
-empty values, so the file format stays the same.
+A clip meta carries every key of the reference's, the motion scores,
+tracks and event captions among them.
 
 With ``index_path`` set, each chunk's embeddings are also appended as a
 pending corpus-index fragment (dedup/index_store.py), which the end-of-run
@@ -59,16 +59,16 @@ def _clip_meta(clip: Clip, provenance: dict | None = None) -> dict:
         "span_end": clip.span[1],
         "duration_s": clip.duration_s,
         "codec": clip.encoding_codec,
-        "motion_score_global": None,
-        "motion_score_per_patch_min": None,
+        "motion_score_global": clip.motion_score_global,
+        "motion_score_per_patch_min": clip.motion_score_per_patch_min,
         "aesthetic_score": clip.aesthetic_score,
         "artificial_text_score": clip.artificial_text_score,
         "semantic_pass": clip.semantic_pass,
         "filtered_by": clip.filtered_by,
         "duplicate_of": clip.duplicate_of,
         "embedding_models": sorted(clip.embeddings),
-        "tracks": [],
-        "event_captions": [],
+        "tracks": clip.tracks,
+        "event_captions": clip.event_captions,
         "windows": [
             {
                 "start_frame": w.start_frame,
@@ -137,6 +137,7 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
             for clip in (*video.clips, *video.filtered_clips):
                 clip.encoded_data = None
                 clip.webp_preview = None
+                clip.annotated_mp4 = None
                 clip.release_frames()
                 for w in clip.windows:
                     w.frames = None
@@ -202,6 +203,8 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
         if clip.webp_preview:
             write_bytes(f"{self.output_path}/previews/{clip.uuid}.webp", clip.webp_preview)
             stats.num_with_webp += 1
+        if clip.annotated_mp4:
+            write_bytes(f"{self.output_path}/tracking/{clip.uuid}.mp4", clip.annotated_mp4)
         for model, emb in clip.embeddings.items():
             embedding_rows[model].append((str(clip.uuid), emb))
         if clip.embeddings:

@@ -142,6 +142,15 @@ def extract_frames_multi(
     return {k: (np.stack(v) if v else empty) for k, v in frames.items()}
 
 
+def extract_frames_at_fps(
+    source: str | bytes, *, target_fps: float = 1.0, resize_hw: tuple[int, int] | None = None
+) -> np.ndarray:
+    """Frames sampled uniformly at ``target_fps``: one signature of
+    ``extract_frames_multi``, so the two never diverge."""
+    sig = FrameExtractionSignature("fps", target_fps)
+    return extract_frames_multi(source, (sig,), resize_hw=resize_hw)[sig.key()]
+
+
 def get_frame_timestamps(source: str | bytes) -> np.ndarray:
     """Per-frame presentation timestamps in seconds.
 

@@ -12,7 +12,7 @@ seeded weights, so the provenance gates would refuse everything) after one
 check that the gates do refuse without it. One JSON line per phase:
 
 - ``index``: a corpus of ``INDEX_N`` x ``INDEX_DIM`` fp32 rows around
-  ``INDEX_K`` planted centres (``curate_phase.planted_rows``), K = sqrt(N).
+  ``INDEX_K`` planted centres (``curate_phase.planted_rows``).
   ``CorpusIndex.build`` (k-means on the card, shard writes on the host);
   ``incremental_dedup`` of ``INDEX_QUERIES`` queries at nprobe
   ``INDEX_NPROBE``: near-copies of indexed rows (cosine distance below
@@ -58,9 +58,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-INDEX_N = 1 << 18
+# 2^17 rows: the parquet IO of the reference's list<double> shards bounds
+# every step of the phase (build, cold dedup, server warm-up, compaction),
+# and at 2^18 the phase took ~120 s of the full call's 1200 s limit
+INDEX_N = 1 << 17
 INDEX_DIM = 512  # clip-text-b-tpu's projection and the `clip` embedding's width
-INDEX_K = 512  # sqrt(N), the default
+INDEX_K = 512  # 256 rows a cluster
 INDEX_NPROBE = 8
 INDEX_TOP_K = 8
 INDEX_QUERIES = 1024  # half near-copies of indexed rows, half fresh rows
@@ -465,8 +468,9 @@ def drive_index(cs, dev, timer) -> dict:
             out.update(
                 config={"n": INDEX_N, "dim": INDEX_DIM, "k": INDEX_K, "nprobe": INDEX_NPROBE, "top_k": INDEX_TOP_K,
                         "queries": INDEX_QUERIES, "eps": DEDUP_EPS, "cache_bytes": CACHE_BYTES,
-                        "cut": "N = 2^18, a quarter of the k-means phase's 2^20: the reference's list<double> "
-                               "shards of 2^20 x 512 are 4 GB on disk", "allow_random": "set by the phase"},
+                        "cut": "N = 2^17, an eighth of the k-means phase's 2^20: the reference's list<double> "
+                               "shards bound every step's IO, and 2^20 x 512 are 4 GB on disk",
+                        "allow_random": "set by the phase"},
                 rows_made_s=rows_s, build={"wall_s": build_s, "kmeans_s": build_times["kmeans_fit"][0],
                                            "shard_writes_s": build_times["append_cluster_s"],
                                            "host_other_s": build_s - build_times["kmeans_fit"][0]

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
     assert out.returncode == 0, out.stdout + out.stderr
     lines = out.stdout.splitlines()
     n_modules = int(lines[0].split()[0])
-    assert n_modules >= 84
+    assert n_modules >= 92
     names = set(lines[1].split())
     for module in ("models.clip", "models.internvideo2", "models.transnetv2", "pipelines.video.stages.aesthetic_filter",
                    "pipelines.video.stages.shot_detection", "models.vlm.vision_qwen", "models.vlm.chat",
@@ -47,7 +47,10 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "pipelines.video.stages.caption_embedding", "pipelines.video.stages.preview", "dedup.kmeans",
                    "pipelines.video.dedup", "pipelines.video.shard", "dataset.dimensions", "dataset.webdataset",
                    "dedup.index_store", "dedup.corpus_index", "dedup.index_server", "dedup.compaction",
-                   "pipelines.video.stages.dedup_stage"):
+                   "pipelines.video.stages.dedup_stage", "models.tracker", "models.tracker_learned",
+                   "models.super_resolution", "models.diffusion_sr", "video.motion_vectors",
+                   "pipelines.video.stages.motion_filter", "pipelines.video.stages.tracking",
+                   "pipelines.video.stages.per_event_caption", "pipelines.video.stages.super_resolution"):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -430,3 +433,72 @@ def test_corpus_index_entry_points_default_to_the_gpu(entry, tmp_path):
         got.close()
     elif entry in ("corpus_index_open", "corpus_index_build", "compaction_thread", "dedup_stage"):
         assert got.type == "cpu"
+
+
+LEG_ENTRIES = ["ncc_tracker", "siamese_tracker", "tracking_stage", "motion_filter", "srnet_model", "diffusion_model",
+               "sr_stage", "sr_stage_srnet", "per_event_caption"]
+
+
+@pytest.mark.parametrize("entry", LEG_ENTRIES)
+def test_split_leg_entry_points_default_to_the_gpu(entry):
+    import torch
+
+    from cosmos_curate_tpu_torch.models.diffusion_sr import DIFF_SR_TINY_TEST, DiffusionSRModel
+    from cosmos_curate_tpu_torch.models.super_resolution import SR_TINY_TEST, SuperResolutionModel
+    from cosmos_curate_tpu_torch.models.tracker import TemplateTracker
+    from cosmos_curate_tpu_torch.models.tracker_learned import SiameseTracker
+    from cosmos_curate_tpu_torch.pipelines.video.stages.motion_filter import MotionFilterStage
+    from cosmos_curate_tpu_torch.pipelines.video.stages.per_event_caption import PerEventCaptionStage
+    from cosmos_curate_tpu_torch.pipelines.video.stages.super_resolution import SuperResolutionStage
+    from cosmos_curate_tpu_torch.pipelines.video.stages.tracking import TrackingStage
+
+    make = {
+        "ncc_tracker": lambda **kw: TemplateTracker(**kw).device,
+        "siamese_tracker": lambda **kw: SiameseTracker(**kw).device,
+        "tracking_stage": lambda **kw: TrackingStage(**kw).device,
+        "motion_filter": lambda **kw: MotionFilterStage(**kw).device,
+        "srnet_model": lambda **kw: SuperResolutionModel(SR_TINY_TEST, **kw).device,
+        "diffusion_model": lambda **kw: DiffusionSRModel(DIFF_SR_TINY_TEST, **kw).device,
+        "sr_stage": lambda **kw: SuperResolutionStage(**kw).model.device,
+        "sr_stage_srnet": lambda **kw: SuperResolutionStage(variant="srnet", **kw).model.device,
+        "per_event_caption": lambda **kw: PerEventCaptionStage(model_flavor="tiny-test", **kw).model.device,
+    }[entry]
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert make(device="cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("model", ["srnet", "denoiser", "embed_net"])
+def test_split_leg_models_build_every_parameter_on_the_context_device(model):
+    """The SR nets at their base widths and the siamese tower, built on
+    ``meta``: every parameter on the context device."""
+    import torch
+
+    from cosmos_curate_tpu_torch.models.diffusion_sr import DIFF_SR_BASE, DenoiserUNet
+    from cosmos_curate_tpu_torch.models.super_resolution import SR_BASE, SRNet
+    from cosmos_curate_tpu_torch.models.tracker_learned import EmbedNet
+
+    build = {"srnet": lambda: SRNet(SR_BASE), "denoiser": lambda: DenoiserUNet(DIFF_SR_BASE),
+             "embed_net": lambda: EmbedNet(32)}[model]
+    with torch.device("meta"):
+        module = build()
+    assert {p.device.type for p in module.state_dict().values()} == {"meta"}
+
+
+@pytest.mark.parametrize("option", [dict(sr=True), dict(motion_filter="enable"), dict(tracking=True),
+                                    dict(per_event_captions=True)])
+def test_run_split_with_the_legs_defaults_to_the_gpu(option, tmp_path):
+    import torch
+
+    from cosmos_curate_tpu_torch.core.runner import SequentialRunner
+    from cosmos_curate_tpu_torch.pipelines.video import split
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    args = split.SplitPipelineArgs(input_path=str(tmp_path / "in"), output_path=str(tmp_path / "out"), **option)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        split.run_split(args, runner=SequentialRunner())
+    assert not (tmp_path / "out").exists()

@@ -688,12 +688,8 @@ def test_chunked_split_matches_jax(long_videos, runner, tmp_path):
 # -- (e) refusals --------------------------------------------------------------
 
 REFUSED_OPTIONS = {
-    "sr": dict(sr=True),
-    "motion_filter": dict(motion_filter="score-only"),
+    "sr_sp_size": dict(sr=True, sr_sp_size=2),
     "multicam": dict(multicam=True),
-    "tracking": dict(tracking=True),
-    "tracking_annotated": dict(tracking_annotated=True),
-    "per_event_captions": dict(per_event_captions=True),
     "qwen_captions": dict(captioning=True, caption_model="qwen3vl-moe-a3b", device="cpu"),
     "tracing": dict(tracing=True),
     "perf_profile": dict(perf_profile=True),
@@ -734,6 +730,13 @@ SERVED_OPTIONS = {
                          "EnhanceCaptionStage"),
     "t5_embeddings": (dict(t5_embeddings=True, caption_prompt_variant="other"), "CaptionEmbeddingStage"),
     "previews": (dict(previews=True, extract_fps=(4.0, 2.0)), "PreviewStage"),
+    "sr": (dict(sr=True, sr_window_frames=32, sr_overlap_frames=8), "SuperResolutionStage"),
+    "motion_filter": (dict(motion_filter="score-only", motion_global_threshold=0.01, motion_backend="frame-diff"),
+                      "MotionFilterStage"),
+    "tracking": (dict(tracking=True), "TrackingStage"),
+    # tracking_annotated alone assembles no stage, in both packages
+    "tracking_annotated": (dict(tracking_annotated=True), None),
+    "per_event_captions": (dict(per_event_captions=True, caption_model="tiny-test"), "PerEventCaptionStage"),
 }
 
 
@@ -854,10 +857,16 @@ def test_lifted_options_are_served(case):
     j_stages = jsplit.assemble_stages(jsplit.SplitPipelineArgs(**option))
     t_stages = tsplit.assemble_stages(tsplit.SplitPipelineArgs(device="cpu", **option))
     names = [type(s).__name__ for s in t_stages]
-    assert names == [type(s).__name__ for s in j_stages] and stage_name in names
+    assert names == [type(s).__name__ for s in j_stages]
+    if stage_name is None:
+        assert names == [type(s).__name__ for s in tsplit.assemble_stages(tsplit.SplitPipelineArgs(device="cpu"))]
+        return
+    assert stage_name in names
     t_stage, j_stage = (stages[names.index(stage_name)] for stages in (t_stages, j_stages))
     for attr in ("threshold", "score_only", "prompt", "prompt_variant", "max_new_tokens", "num_frames", "max_frames",
-                 "target_width", "fps"):
+                 "target_width", "fps", "global_threshold", "per_patch_threshold", "backend", "mv_global_threshold",
+                 "mv_patch_threshold", "sample_fps", "window_len", "overlap", "write_annotated", "mode", "min_score",
+                 "frames_per_event"):
         if hasattr(j_stage, attr):
             assert getattr(t_stage, attr) == getattr(j_stage, attr), attr
     assert t_stage.extraction.key() == j_stage.extraction.key() if hasattr(j_stage, "extraction") else True
@@ -927,7 +936,9 @@ def test_qwen_caption_model_resolves_and_refuses_without_staged_weights(staged, 
 
 @pytest.mark.parametrize("option", [dict(embedding_model="video"), dict(captioning=True, caption_model="tiny-test"),
                                     dict(splitting_algorithm="transnetv2"), dict(aesthetic_threshold=3.5),
-                                    dict(embedding_model="clip"), dict(embedding_model="iv2")])
+                                    dict(embedding_model="clip"), dict(embedding_model="iv2"), dict(sr=True),
+                                    dict(sr=True, sr_variant="srnet"), dict(motion_filter="enable"),
+                                    dict(tracking=True), dict(per_event_captions=True, caption_model="tiny-test")])
 def test_split_model_stages_default_to_the_gpu(option, videos, tmp_path):
     import torch
 
@@ -943,7 +954,8 @@ def test_split_model_stages_default_to_the_gpu(option, videos, tmp_path):
 
 # the stage attributes assemble_stages sets from the arguments
 STAGE_ARGS = ("threshold", "min_clip_len_s", "max_clip_len_s", "reduction", "score_only", "variant", "clip_len_s",
-              "window_len", "prompt_variant", "num_threads", "chunk_size", "resize_hw")
+              "window_len", "prompt_variant", "num_threads", "chunk_size", "resize_hw", "overlap", "backend",
+              "global_threshold", "write_annotated", "mode", "frames_per_event")
 
 
 @pytest.mark.parametrize("option", [
@@ -957,8 +969,12 @@ STAGE_ARGS = ("threshold", "min_clip_len_s", "max_clip_len_s", "reduction", "sco
     dict(text_filter="score-only", semantic_filter="enable", caption_model="tiny-test", enhance_captions=True),
     dict(embedding_model="video", captioning=True, caption_model="tiny-test", enhance_captions=True,
          t5_embeddings=True, previews=True, caption_prompt_variant="short"),
+    dict(sr=True, sr_variant="srnet", sr_window_frames=64, sr_overlap_frames=16, motion_filter="enable",
+         motion_backend="frame-diff", text_filter="enable", embedding_model="video", captioning=True,
+         caption_model="tiny-test", previews=True, tracking=True, tracking_annotated=True, per_event_captions=True),
+    dict(sr=True, motion_filter="score-only", per_event_captions=True, caption_model="tiny-test"),
 ], ids=["transnet-aesthetic-clip", "transnet-iv2", "fixed-aesthetic-video-caption", "every-filter-and-enhance",
-        "filters-without-captions", "captions-t5-previews"])
+        "filters-without-captions", "captions-t5-previews", "every-leg", "diffusion-motion-events"])
 def test_assemble_stages_puts_each_stage_where_the_reference_does(option):
     """The same stages in the same order as the JAX assembly, each with the
     same arguments, every model on the arguments' device."""
