@@ -202,6 +202,21 @@ and prints one JSON line per phase:
    captions and annotated clip, no clip errors, kernels 1, 2, 3 and 5
    launched; then 12 frames of one video with ``sr=True``, every clip at
    2560x1440).
+    image and cli (``scripts/image_phase.py``, after legs): a corpus of 256
+   seeded stills (1920x1080 and 4032x3024 JPEGs, 1280x720 PNGs, 1024x768
+   WebPs, 640x480 BMPs) and two broken files through the port's own command
+   line, ``local image-annotate``: run I1 (CLIP ViT-B/16 and the aesthetic
+   filter over all of them: images/s, stage busy shares, peak, a sample held
+   against the CPU path, the embed stage's idle share), run I2 (the first
+   32 with the semantic filter, the classifier and captions at
+   ``VLM_BASE``: three owners of one engine; kernels 1, 2 and 5 launched),
+   run I3 (captions from a local fake OpenAI-compatible server that answers
+   one 503 first; byte-exact bodies), run I4 (I1 resumed: only the broken
+   files rediscovered) and the ``video`` embedder on stills; then ``info``
+   and ``local hello`` as subprocesses, ``local split --config`` on 2
+   corpus videos, ``local dedup``, ``local shard``, ``index build``,
+   ``query`` and ``stats`` against the entry points called directly, and
+   the refusals of ``--runner streaming`` and ``index serve``.
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -642,6 +657,19 @@ def check_flash(timer, bf16, shape: tuple, causal: bool, label: str) -> dict:
         library_ms=timer(lambda: sdpa(q, k, v, is_causal=causal)),
         max_abs_err_with_a_tile_dropped=dropped,
     ))
+
+
+@contextlib.contextmanager
+def counted_launches(out: dict):
+    """Every kernel's launch counter zeroed on entry; on exit ``out`` holds
+    each kernel's launches over the block, by name."""
+    from cosmos_curate_tpu_torch.ops import kernels
+
+    ks = kernels()
+    for k in ks.values():
+        k.launches = 0
+    yield
+    out.update({name: k.launches for name, k in ks.items()})
 
 
 @contextlib.contextmanager
@@ -3213,6 +3241,7 @@ def _main(stack: contextlib.ExitStack) -> int:
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     import curate_phase
+    import image_phase
     import index_phase
     import legs_phase
 
@@ -3301,6 +3330,9 @@ def _main(stack: contextlib.ExitStack) -> int:
     checks["flash"]["cases"].update(curate["flash_causal"])
     checks["flash"]["cases"].update(index["index"]["server"]["flash_checked_here"])
     checks["flash"]["cases"].update(legs["legs_split"]["flash_checked_here"])
+    # image (runs I1-I4 and the video embedder on stills), cli
+    image = image_phase.run(sys.modules[__name__], dev, timer, root, corpus)
+    checks["flash"]["cases"].update(image["image"]["flash_checked_here"])
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3339,11 +3371,14 @@ def _main(stack: contextlib.ExitStack) -> int:
             qwen3_launches=qwen3["gather" if name == "decode" else "auto"]["launches"][name],
             qwen3=qwen3_checks[QWEN3_FLAVOR].get(name),
             split_extras_launches=curate["split_extras"]["launches"][name],
-            clip_text_launches=curate["clip_text"]["flash_launches"] if name == "flash" else 0,
-            index_server_launches=index["index"]["server"]["flash_launches"] if name == "flash" else 0,
+            clip_text_launches=curate["clip_text"]["launches"][name],
+            index_server_launches=index["index"]["server"]["launches"][name],
             index_split_launches=sum(index["index_split"][run]["launches"][name] for run in ("first", "second")),
             legs_launches=legs["legs_split"]["launches"][name],
             legs_sr_launches=legs["legs_split"]["sr"]["launches"][name],
+            image_launches={run: image["image"][run]["launches"][name] for run in ("i1", "i2", "i3", "i4")}
+            | {"video_on_stills": image["image"]["video_on_stills"]["launches"][name]},
+            cli_launches=sum(c["launches"][name] for c in image["cli"]["commands"].values()),
             cases=c.get("cases"),
         ))
     emit({"phase": "timing", "script_s": time.monotonic() - started})

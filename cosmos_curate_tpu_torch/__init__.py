@@ -9,3 +9,5 @@ nor jax or flax. Every TPU kernel on a ported path is a hand-written Hopper
 Entry points run on the GPU (``device="cuda"``) unless the caller asks for
 the CPU; on a CPU tensor each kernel wrapper runs its plain PyTorch version.
 """
+
+__version__ = "0.1.0"

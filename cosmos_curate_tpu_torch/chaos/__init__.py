@@ -1,5 +1,6 @@
-"""Chaos fault injection for the runners (port of
-``cosmos_curate_tpu/chaos``, the sites the in-process runners fire).
+"""Chaos fault injection for the runners and the retry policy (port of
+``cosmos_curate_tpu/chaos``, the sites the in-process runners and
+``storage/retry.py`` fire).
 
 Every failure mode the runners must survive has a *named injection site*,
 one ``fire()`` call in production code, and a :class:`FaultPlan` arms a
@@ -9,6 +10,7 @@ default and costs one falsy module-attribute check per site.
 
 from cosmos_curate_tpu_torch.chaos.harness import (
     ALL_SITES,
+    SITE_STORAGE_REQUEST,
     SITE_WORKER_CRASH,
     SITE_WORKER_HANG,
     FaultPlan,
@@ -23,6 +25,7 @@ from cosmos_curate_tpu_torch.chaos.harness import (
 
 __all__ = [
     "ALL_SITES",
+    "SITE_STORAGE_REQUEST",
     "SITE_WORKER_CRASH",
     "SITE_WORKER_HANG",
     "FaultPlan",

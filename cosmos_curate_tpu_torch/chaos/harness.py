@@ -1,6 +1,7 @@
 """Fault-plan model and the per-process injection runtime (port of
 ``cosmos_curate_tpu/chaos/harness.py``: the worker-batch sites that
-``SequentialRunner`` and ``PipelinedRunner`` fire).
+``SequentialRunner`` and ``PipelinedRunner`` fire, and the
+``storage.request`` site of ``storage/retry.py``).
 
 - **No-op when disabled.** ``fire(site)`` is the only call on the hot path;
   while no plan is installed it is a single falsy check on a module global.
@@ -16,7 +17,7 @@ Fault kinds:
 - ``delay``: ``time.sleep(delay_s)`` then continue.
 
 Not ported: the sites of the streaming engine, the object and remote
-planes, storage, the job service and node agents, the ``CURATE_CHAOS``
+planes, the job service and node agents, the ``CURATE_CHAOS``
 environment hand-off to worker processes and the per-worker filter
 (``worker_re``); the port has none of those layers yet.
 """
@@ -31,8 +32,9 @@ from dataclasses import dataclass
 
 SITE_WORKER_CRASH = "worker.batch.crash"
 SITE_WORKER_HANG = "worker.batch.hang"
+SITE_STORAGE_REQUEST = "storage.request"
 
-ALL_SITES = (SITE_WORKER_CRASH, SITE_WORKER_HANG)
+ALL_SITES = (SITE_WORKER_CRASH, SITE_WORKER_HANG, SITE_STORAGE_REQUEST)
 
 _KINDS = ("crash", "hang", "error", "delay")
 

@@ -1,0 +1,74 @@
+"""``cosmos-curate-tpu-torch`` command line root (port of
+``cosmos_curate_tpu/cli/main.py``).
+
+The same argparse tree as the reference's, with the groups the port has:
+``info``, ``local`` (run the pipelines, ``cli/local_cli.py``) and ``index``
+(the corpus index, ``cli/index_cli.py``). The other groups of the
+reference (``export-lance``, ``agent``, ``serve``, ``view``, ``slurm``,
+``models``, ``lint``, ``postgres``, ``image``, ``dlq``, ``report``,
+``top``) wait for the layers they drive (ROADMAP queue A item 22).
+
+Run it as ``python -m cosmos_curate_tpu_torch.cli.main`` or through the
+``cosmos-curate-tpu-torch`` console script. Every command that runs a model
+runs it on the GPU unless given ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from cosmos_curate_tpu_torch import __version__
+from cosmos_curate_tpu_torch.cli import index_cli, local_cli
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="cosmos-curate-tpu-torch",
+        description="video curation pipelines on PyTorch and CUDA",
+    )
+    parser.add_argument("--version", action="version", version=__version__)
+    sub = parser.add_subparsers(dest="command", metavar="command")
+
+    info = sub.add_parser("info", help="show environment and device info")
+    info.set_defaults(func=_cmd_info)
+    local_cli.register(sub)
+    index_cli.register(sub)
+    return parser
+
+
+def _cmd_info(args: argparse.Namespace) -> int:
+    """A report of the environment: a host without a card says so."""
+    import platform
+
+    import torch
+
+    print(f"cosmos-curate-tpu-torch {__version__}")
+    print(f"python {platform.python_version()} on {platform.system().lower()}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda or 'none (CPU build)'}")
+    if torch.cuda.is_available():
+        count = torch.cuda.device_count()
+        print(f"{count} CUDA device(s): {', '.join(torch.cuda.get_device_name(i) for i in range(count))}")
+    else:
+        print("no CUDA device: pass --device cpu to run the pipelines on the CPU")
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not getattr(args, "command", None):
+        parser.print_help()
+        return 2
+    try:
+        return int(args.func(args) or 0)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except KeyboardInterrupt:
+        print("interrupted", file=sys.stderr)
+        return 130
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,9 +28,9 @@ RUNNER_ENV = "CURATE_RUNNER"
 ENGINE_DRIVER_PORT_ENV = "CURATE_ENGINE_DRIVER_PORT"
 # runners of the reference that the port does not have yet -> ROADMAP item
 _NOT_PORTED = {
-    "engine": "the streaming engine's StreamingRunner (ROADMAP queue A item 9)",
-    "streaming": "the streaming engine's StreamingRunner (ROADMAP queue A item 9)",
-    "map": "MapRunner (ROADMAP queue A item 9)",
+    "engine": "the streaming engine's StreamingRunner (ROADMAP queue A item 9b)",
+    "streaming": "the streaming engine's StreamingRunner (ROADMAP queue A item 9b)",
+    "map": "MapRunner (ROADMAP queue A item 9b)",
 }
 
 

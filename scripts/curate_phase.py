@@ -204,7 +204,6 @@ def drive_t5(dev) -> dict:
 
 def drive_clip_text(cs, dev, timer) -> dict:
     from cosmos_curate_tpu_torch.models.clip_text import CLIPTextEmbeddings, FallbackClipTokenizer
-    from cosmos_curate_tpu_torch.ops import kernels
     from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention_plain
 
     model = CLIPTextEmbeddings("clip-text-l-tpu", device=dev)
@@ -214,16 +213,15 @@ def drive_clip_text(cs, dev, timer) -> dict:
     model.encode_texts(queries[:32])  # warm-up
     assert isinstance(model._tokenizer, FallbackClipTokenizer)
     torch.cuda.synchronize()
-    flash = kernels()["flash"]
     pipeline = model.device_pipeline
     pipeline.records.clear()
     shapes: set = set()
-    flash.launches = 0
-    with cs.recorded_flash_shapes(shapes):
+    counts: dict = {}
+    with cs.counted_launches(counts), cs.recorded_flash_shapes(shapes):
         t0 = time.monotonic()
         got = model.encode_texts(queries)
         wall = time.monotonic() - t0
-    launches = flash.launches
+    launches = counts["flash"]
     records = list(pipeline.records)
     dispatches = len(records)
     compute_s = sum(r.compute_s for r in records)
@@ -245,7 +243,7 @@ def drive_clip_text(cs, dev, timer) -> dict:
                 "projection_dim": cfg.projection_dim, "vocab": cfg.vocab},
         queries=len(queries), wall_s=wall, queries_per_s=len(queries) / wall, dispatches=dispatches,
         device_compute_s=compute_s, device_idle_share=max(0.0, 1.0 - compute_s / wall),
-        flash_launches=launches, flash_launches_per_call=launches / dispatches,
+        launches=counts, flash_launches_per_call=launches / dispatches,
         flash_shapes=[[*shape, causal] for shape, causal in sorted(shapes)], flash_checked_here=checked,
         max_abs_err_vs_plain_flash=err, bound=CLIP_TEXT_BOUND, max_norm_error=float(np.abs(norms - 1.0).max()),
         provenance=model.provenance,

@@ -253,7 +253,6 @@ def drive_server(cs, timer, srv, index, ids, x, copies, fresh) -> dict:
     """``SERVER_REQUESTS`` concurrent requests through the ``IndexServer``
     ``srv``, each answer held against ``CorpusIndex.query`` on its rows."""
     from cosmos_curate_tpu_torch.dedup.index_server import IndexServer
-    from cosmos_curate_tpu_torch.ops import kernels
 
     rng = np.random.default_rng(cs.SEED + 43)
     texts = texts_of(rng, SERVER_TEXTS)
@@ -272,7 +271,6 @@ def drive_server(cs, timer, srv, index, ids, x, copies, fresh) -> dict:
             return out
         return embed
 
-    flash = kernels()["flash"]
     results: list = [None] * len(requests)
     latencies: list = [0.0] * len(requests)
     barrier = threading.Barrier(len(requests))
@@ -291,12 +289,12 @@ def drive_server(cs, timer, srv, index, ids, x, copies, fresh) -> dict:
 
     # the text tower's setup (seeded init) outside the measured burst
     srv.search(text="warm up", top_k=INDEX_TOP_K)
-    flash.launches = 0
     shapes: set = set()
     rss: dict = {}
+    kernel_launches: dict = {}
     before = srv.stats()["counts"]
-    with (wrapped(IndexServer, "_text_embeddings", recording), cs.recorded_flash_shapes(shapes),
-          cs.peak_rss(rss)):
+    with (cs.counted_launches(kernel_launches), wrapped(IndexServer, "_text_embeddings", recording),
+          cs.recorded_flash_shapes(shapes), cs.peak_rss(rss)):
         threads = [threading.Thread(target=one, args=(s,)) for s in range(len(requests))]
         t0 = time.monotonic()
         for t in threads:
@@ -304,7 +302,7 @@ def drive_server(cs, timer, srv, index, ids, x, copies, fresh) -> dict:
         for t in threads:
             t.join(timeout=300)
         wall = time.monotonic() - t0
-    launches = flash.launches
+    launches = kernel_launches["flash"]
     assert not any(t.is_alive() for t in threads), "server: requests still waiting"
     assert all(r is not None and r[0] and all(len(h) == INDEX_TOP_K for h in r[0]) for r in results), \
         "server: a request came back without results"
@@ -332,7 +330,7 @@ def drive_server(cs, timer, srv, index, ids, x, copies, fresh) -> dict:
                     "max": lat_ms[-1]},
         batches=counts["batches"], mean_batch=counts["batched_requests"] / max(counts["batches"], 1),
         answers_equal=equal, answers_bit_equal=exact_equal, answer_atol=ANSWER_ATOL,
-        flash_launches=launches, flash_shapes=[[*s, c] for s, c in sorted(shapes)],
+        launches=kernel_launches, flash_shapes=[[*s, c] for s, c in sorted(shapes)],
         flash_checked_here=cs.check_new_flash_shapes(timer, shapes, cs.SEED + 44), peak_host_rss_bytes=rss["bytes"],
     )
 
