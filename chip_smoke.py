@@ -115,7 +115,20 @@ and prints one JSON line per phase:
    flash launched. Then the first 2 videos through ``SequentialRunner`` and
    the default runner (the same clip uuids and output files, embeddings
    within ``EMBED_BOUND``), and a second ``run_split`` on run A's output,
-   which must discover no video.
+   which must discover no video. Every run leaves its live status: run A's
+   ``report/live/status.json`` must be final with every stage finished.
+   observe (``scripts/observe_phase.py``, on the split phase's corpus and
+   outputs): run B again with ``tracing=True`` (the same clips and
+   embeddings within ``EMBED_BOUND``, every window captioned, the four
+   kernels of ``PIPELINE_KERNELS`` launched; the NDJSON trace and a
+   connected run report whose dispatch section equals the embed
+   pipeline's own records and whose stage spans agree with the
+   ``process_data`` timings), the tracing overhead against the untraced
+   run B before it and an untraced run B after it, and the trace's size
+   and cost a span; ``SequentialRunner`` over the 2 videos
+   traced the same way, its spans exported over OTLP/HTTP to a local fake
+   collector; a toy pipeline whose hung batch must show as a
+   ``stuck_batch`` anomaly in the live status while it hangs.
 
 11. canonical: run C, the reference's canonical split through ``run_split``
    on the split phase's corpus, clipped as run A clips it (1 s clips, none
@@ -2103,6 +2116,10 @@ def drive_split(dev, timer, root: Path, corpus: list[Path], corpus_s: float) -> 
     # run A's stages ask more CPUs of first grants than 8 cores hold
     if os.cpu_count() <= 8:
         assert runner.plans == [[1] * 6], f"run A planned {runner.plans}"
+    # every run leaves its final live status
+    status = json.loads((root / "out_a" / "report" / "live" / "status.json").read_text())
+    assert status["state"] == "finished" and status["runner"] == "pipelined", status["state"]
+    assert len(status["stages"]) == 6 and all(st["finished"] for st in status["stages"].values()), "run A: live status"
     metas, embs, files = split_outputs(root / "out_a", model)
     assert len(metas) == SPLIT_CLIPS, f"run A: {len(metas)} metas"
     assert len(embs) == SPLIT_CLIPS and set(embs) == set(metas), f"run A: {len(embs)} parquet rows"
@@ -2126,6 +2143,9 @@ def drive_split(dev, timer, root: Path, corpus: list[Path], corpus_s: float) -> 
         plans=runner.plans, workers={name: c["workers"] for name, c in runner.stage_counts.items()},
         peak_device_memory_bytes=a["peak_device"], peak_host_rss_bytes=a["peak_rss"],
         host_rss_at_start_bytes=a["start_rss"],
+        live_status={"state": status["state"], "seq": status["seq"], "stages": len(status["stages"]),
+                     "anomaly_count": status["anomaly_count"],
+                     "anomalies": [f"{ev['kind']}@{ev['stage']}" for ev in status["anomalies"]]},
     )
 
     # resume: a second run_split on run A's output finds every video done
@@ -2187,6 +2207,7 @@ def drive_split(dev, timer, root: Path, corpus: list[Path], corpus_s: float) -> 
         flash_shapes={"run_a": [list(shape) for shape, _ in sorted(a["flash_shapes"])],
                       "run_b": [list(shape) for shape, _ in sorted(b["flash_shapes"])],
                       "checked_here": flash_here},
+        flash_shapes_ran=[[list(shape), causal] for shape, causal in sorted(ran | checked_shapes)],
         split_launches={name: run_a["launches"][name] + run_b["launches"][name] for name in run_a["launches"]},
     )
 
@@ -3244,6 +3265,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     import image_phase
     import index_phase
     import legs_phase
+    import observe_phase
 
     started = time.monotonic()
     dev = torch.device("cuda", 0)
@@ -3317,6 +3339,9 @@ def _main(stack: contextlib.ExitStack) -> int:
 
     split_run = drive_split(dev, timer, root, corpus, corpus_s)
     emit({"phase": "split", **split_run})
+    # traced run B, the traced sequential run over OTLP, stall detection
+    observe = observe_phase.run(sys.modules[__name__], dev, timer, root, corpus, split_run)
+    checks["flash"]["cases"].update(observe["flash_checked_here"])
     canonical = drive_canonical(dev, timer, root, corpus)
     emit({"phase": "canonical", **canonical})
     filters = drive_filters(dev, root, corpus)
@@ -3363,6 +3388,7 @@ def _main(stack: contextlib.ExitStack) -> int:
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], bound_share=c["bound_share"], vs_library=c["vs_library"],
             pipeline_launches=pipeline["launches"][name], split_launches=split_run["split_launches"][name],
+            observe_launches=observe["launches"][name],
             canonical_launches=canonical["launches"][name],
             filters_launches=filters["run"]["launches"][name],
             qwen_launches=qwen["gather" if name == "decode" else "auto"]["launches"][name],

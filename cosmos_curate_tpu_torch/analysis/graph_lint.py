@@ -24,7 +24,7 @@ Checks:
 Not ported: the reference's mesh-divisibility check of a stage's declared
 device mesh, which waits for ``Stage.mesh_spec`` (ROADMAP queue A item 7);
 its summed STREAMING budget and worker-count checks, which belong to the
-runners that reserve devices and size pools (ROADMAP queue A item 9).
+runners that reserve devices and size pools (ROADMAP queue A item 9b).
 """
 
 from __future__ import annotations

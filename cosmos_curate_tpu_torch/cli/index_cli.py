@@ -144,7 +144,8 @@ def _cmd_build(args: argparse.Namespace) -> int:
 
     root = _index_root(args)
     ids, vecs, model = load_embeddings(args.input_path, args.embedding_model)
-    index = CorpusIndex.build(root, ids, vecs, model=model, k=args.k or None, iters=args.iters, device=args.device)
+    index = CorpusIndex.build(root, ids, vecs, model=model, k=args.k or None, iters=args.iters, device=args.device,
+                              metrics_name="index_cli")
     # Pending in-pipeline fragments at this root (a --corpus-index run that
     # skipped consolidation) hold the SAME rows the writer also wrote to the
     # embeddings parquet, which the build above ingested: consolidating
@@ -158,7 +159,7 @@ def _cmd_add(args: argparse.Namespace) -> int:
     from cosmos_curate_tpu_torch.dedup.corpus_index import CorpusIndex
     from cosmos_curate_tpu_torch.pipelines.video.dedup import load_embeddings
 
-    index = CorpusIndex.open(_index_root(args), device=args.device)
+    index = CorpusIndex.open(_index_root(args), device=args.device, metrics_name="index_cli")
     ids, vecs, model = load_embeddings(args.input_path, args.embedding_model)
     if index.meta.get("model") and model != index.meta["model"]:
         print(
@@ -177,7 +178,7 @@ def _cmd_query(args: argparse.Namespace) -> int:
     from cosmos_curate_tpu_torch.pipelines.video.dedup import load_embeddings
 
     root = _index_root(args)
-    index = CorpusIndex.open(root, device=args.device)
+    index = CorpusIndex.open(root, device=args.device, metrics_name="index_cli")
     ids, vecs, model = load_embeddings(args.input_path, args.embedding_model)
     result = incremental_dedup(index, ids, vecs, eps=args.eps, nprobe=args.nprobe or None, top_k=args.top_k)
     if args.output_csv:
@@ -213,7 +214,8 @@ def _cmd_consolidate(args: argparse.Namespace) -> int:
     from cosmos_curate_tpu_torch.dedup.corpus_index import consolidate_index
 
     root = args.index_path.rstrip("/")
-    result = consolidate_index(root, k=args.k or None, iters=args.iters, device=args.device)
+    result = consolidate_index(root, k=args.k or None, iters=args.iters, device=args.device,
+                               metrics_name="index_cli")
     print(json.dumps({"index_path": root, **result}, indent=2))
     return 0
 

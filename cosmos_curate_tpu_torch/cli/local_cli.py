@@ -9,8 +9,8 @@ a YAML / JSON config (``--config``), as the reference's does.
 
 Refused, naming what they wait for: ``split --runner streaming|map``
 (ROADMAP queue A item 9b), ``av`` (item 19) and ``merge-summaries`` (item
-15, with item 14's flight recorder). A split option that ``run_split``
-refuses passes through and raises there.
+15). A split option that ``run_split`` refuses passes through and raises
+there; ``split --tracing`` runs.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ CAPTION_MODEL_CHOICES = (
 )
 
 _AV = "the multi-camera AV pipelines (ROADMAP queue A item 19)"
-_MERGE = "multi-node summaries (ROADMAP queue A item 15) and their run report (item 14)"
+_MERGE = "multi-node summaries and their merged run report (ROADMAP queue A item 15)"
 
 
 def _device_flag(p: argparse.ArgumentParser, default: str | None = "cuda") -> None:

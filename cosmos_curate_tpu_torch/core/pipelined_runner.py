@@ -40,15 +40,24 @@ Placement rules:
 
 Device work crosses stages only as host arrays: every device stage reads
 its results back (numpy embeddings, caption text) before it returns its
-batch. Each worker thread launches on its current CUDA stream, the default
-one unless a stage chooses another.
+batch, so a ``stage.<name>.process`` span covers the stage's device work
+without the runner synchronising anything. Each worker thread launches on
+its current CUDA stream, the default one unless a stage chooses another.
 
-Not ported: the reference's tracing spans, stage-flow gauges and
-live-status snapshots, which wait for the observability layer (ROADMAP).
+Observability, as in the reference: the run opens a ``pipeline.run`` span,
+and each worker thread starts under ``contextvars.copy_context()``, so its
+``stage.<name>.setup`` and ``stage.<name>.process`` spans parent onto the
+run's span across the thread hop. Every completed batch folds its busy
+seconds into stage_timer's stage flow; every replan tick exports the queue
+depth and busy fraction. The driver loop, never a worker, publishes the
+live-status snapshot (observability/live_status.py) from the counters and
+the registry of in-flight batches kept here, when ``CURATE_LIVE_STATUS_DIR``
+is set.
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 import threading
 import time
@@ -64,6 +73,9 @@ from cosmos_curate_tpu_torch.core.tasks import PipelineTask
 from cosmos_curate_tpu_torch.engine.autoscaler import Budget, StageScaleState, plan_allocation
 from cosmos_curate_tpu_torch.engine.dead_letter import DeadLetterQueue, record_exhausted_batch
 from cosmos_curate_tpu_torch.engine.metrics import get_metrics
+from cosmos_curate_tpu_torch.observability.live_status import MAX_INFLIGHT_PER_STAGE, LiveStatusPublisher
+from cosmos_curate_tpu_torch.observability.stage_timer import record_stage_busy, record_stage_flow
+from cosmos_curate_tpu_torch.observability.tracing import traced_span
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -172,6 +184,10 @@ class _StageRuntime:
         self.finalized = False
         self.next_worker_idx = 0
         self.next_batch_id = 0
+        # in-flight batches for the live status: batch_id -> {started,
+        # worker, attempt} (guarded by self.lock). A hung process_data stays
+        # here the whole time it hangs: the stuck_batch signal
+        self.inflight: dict[int, dict] = {}
         # accounting (guarded by self.lock)
         self.busy_s = 0.0
         self.samples: deque = deque(maxlen=256)  # (t_end, batch seconds)
@@ -181,6 +197,14 @@ class _StageRuntime:
         self.completed = 0
         self.errored = 0
         self.dead_lettered = 0
+        # busy-fraction window of the replan tick (driver loop only)
+        self.tick_busy_s = 0.0
+        self.tick_t = time.monotonic()
+
+    def busy_frac(self, now: float, busy: float, workers: int) -> float:
+        """Worker busy fraction since the last replan tick."""
+        dt = now - self.tick_t
+        return min(1.0, (busy - self.tick_busy_s) / (dt * max(1, workers))) if dt > 0 else 0.0
 
     @property
     def alive(self) -> bool:
@@ -262,6 +286,13 @@ class PipelinedRunner(RunnerInterface):
     def run(self, spec: PipelineSpec) -> list[PipelineTask] | None:
         if not spec.stages:
             return list(spec.input_data) if spec.config.return_last_stage_outputs else None
+        # the run's span rides the contextvar stack; worker threads start
+        # under a copy of this context (_start_worker), so their spans
+        # parent onto it
+        with traced_span("pipeline.run", runner="pipelined", stages=len(spec.stages)):
+            return self._run_pipelined(spec)
+
+    def _run_pipelined(self, spec: PipelineSpec) -> list[PipelineTask] | None:
         t_start = time.monotonic()
         self._abort.clear()
         self._stop.clear()
@@ -304,6 +335,7 @@ class PipelinedRunner(RunnerInterface):
         # destroy lifecycle runs for every stage, as in SequentialRunner
         budget = Budget(cpus=self._node.num_cpus, gpus=float(self._node.num_gpus))
         self._apply_allocation(runtimes, self._plan(runtimes, budget), cfg)
+        publisher = LiveStatusPublisher.from_env(runner="pipelined")
         last_replan = time.monotonic()
         try:
             while not self._abort.is_set():
@@ -318,7 +350,10 @@ class PipelinedRunner(RunnerInterface):
                 now = time.monotonic()
                 if now - last_replan >= self.replan_interval_s:
                     self._apply_allocation(runtimes, self._plan(runtimes, budget), cfg)
+                    self._export_flow(runtimes)
                     last_replan = now
+                if publisher is not None:
+                    publisher.maybe_publish(lambda: self._build_live_snapshot(runtimes))
                 time.sleep(_POLL_S)
         finally:
             # ANY exit path (normal, abort, or a foreign exception such as
@@ -343,7 +378,13 @@ class PipelinedRunner(RunnerInterface):
                     continue
                 self._finalize_stage(rt)
             self.pipeline_wall_s = time.monotonic() - t_start
+            self._export_flow(runtimes)  # the last tick (short runs too)
             self._record_run_stats(runtimes)
+            if publisher is not None:
+                try:
+                    publisher.finalize(self._build_live_snapshot(runtimes))
+                except Exception:
+                    logger.exception("final live-status publish failed")
 
         if self._abort_exc is not None:
             raise self._abort_exc
@@ -370,7 +411,7 @@ class PipelinedRunner(RunnerInterface):
                 rt.dispatched += 1
                 batch_id = rt.next_batch_id
                 rt.next_batch_id += 1
-            result = self._run_batch(rt, batch, batch_id, attempts)
+            result = self._run_batch(rt, batch, batch_id, attempts, w.meta.worker_id)
             if result is _ABORTED:
                 return
             if result:
@@ -385,8 +426,9 @@ class PipelinedRunner(RunnerInterface):
                 rt.setup_state = "running"
         if claim:
             try:
-                rt.stage.setup_on_node(self._node, w.meta)
-                rt.stage.setup(w.meta)
+                with traced_span(f"stage.{rt.stage.name}.setup"):
+                    rt.stage.setup_on_node(self._node, w.meta)
+                    rt.stage.setup(w.meta)
                 rt.setup_state = "ok"
                 return True
             except Exception as e:
@@ -400,14 +442,19 @@ class PipelinedRunner(RunnerInterface):
                 return False
         return rt.setup_state == "ok"
 
-    def _run_batch(self, rt: _StageRuntime, batch: list, batch_id: int, attempts: int):
+    def _run_batch(self, rt: _StageRuntime, batch: list, batch_id: int, attempts: int, worker_id: str):
         stage = rt.stage
         for attempt in range(attempts):
             t0 = time.monotonic()
+            with rt.lock:
+                # registered before the chaos sites and process_data, so a
+                # hang shows as an aging in-flight batch from its first second
+                rt.inflight[batch_id] = {"started": t0, "worker": worker_id, "attempt": attempt + 1}
             try:
                 chaos.fire(chaos.SITE_WORKER_CRASH)  # kind=crash: os._exit
                 chaos.fire(chaos.SITE_WORKER_HANG)  # kind=hang: stuck batch
-                result = stage.process_data(batch)
+                with traced_span(f"stage.{stage.name}.process", batch_size=len(batch)):
+                    result = stage.process_data(batch)
                 if result is not None and not isinstance(result, list):
                     # contract violation, not a batch failure: it surfaces
                     # whatever raise_on_error says, never burns retries or
@@ -419,8 +466,9 @@ class PipelinedRunner(RunnerInterface):
                         )
                     )
                     return _ABORTED
-                self._account(rt, t0, completed=True)
-                self.metrics.observe_result(stage.name, time.monotonic() - t0, len(result or []))
+                elapsed = self._account(rt, t0, completed=True)
+                record_stage_busy(stage.name, elapsed)
+                self.metrics.observe_result(stage.name, elapsed, len(result or []))
                 return result or []
             except Exception as e:
                 self._account(rt, t0, completed=False)
@@ -441,10 +489,14 @@ class PipelinedRunner(RunnerInterface):
                 )
                 self._dead_letter(rt, batch_id, batch, attempts)
                 return []
+            finally:
+                with rt.lock:
+                    rt.inflight.pop(batch_id, None)
         return []  # unreachable; attempts >= 1
 
     @staticmethod
-    def _account(rt: _StageRuntime, t0: float, *, completed: bool) -> None:
+    def _account(rt: _StageRuntime, t0: float, *, completed: bool) -> float:
+        """Fold one attempt's busy time into the stage; returns it."""
         t1 = time.monotonic()
         with rt.lock:
             rt.busy_s += t1 - t0
@@ -453,6 +505,7 @@ class PipelinedRunner(RunnerInterface):
             if completed:
                 rt.samples.append((t1, t1 - t0))
                 rt.completed += 1
+        return t1 - t0
 
     def _trigger_abort(self, exc: BaseException) -> None:
         with self._abort_lock:
@@ -527,7 +580,10 @@ class PipelinedRunner(RunnerInterface):
             gpu_ids=tuple(range(self._node.num_gpus)) if rt.stage.resources.uses_gpu else (),
         )
         w = _Worker(meta=meta)
-        w.thread = threading.Thread(target=self._worker_loop, args=(rt, w), daemon=True, name=meta.worker_id)
+        # the caller's context (the run's span) into the worker thread
+        ctx = contextvars.copy_context()
+        w.thread = threading.Thread(target=ctx.run, args=(self._worker_loop, rt, w), daemon=True,
+                                    name=meta.worker_id)
         rt.workers.append(w)
         w.thread.start()
 
@@ -539,6 +595,50 @@ class PipelinedRunner(RunnerInterface):
             except Exception:
                 logger.exception("stage %s destroy failed", rt.stage.name)
         rt.finalized = True
+
+    def _export_flow(self, runtimes: list[_StageRuntime]) -> None:
+        """One replan tick of per-stage queue depth and busy fraction into
+        stage_timer's stage flow (and its gauges)."""
+        now = time.monotonic()
+        for rt in runtimes:
+            workers = len(rt.live_workers())
+            with rt.lock:
+                busy = rt.busy_s
+            frac = rt.busy_frac(now, busy, workers)
+            rt.tick_busy_s = busy
+            rt.tick_t = now
+            record_stage_flow(rt.stage.name, queue_depth=len(rt.in_q), busy_frac=frac, workers=workers)
+
+    def _build_live_snapshot(self, runtimes: list[_StageRuntime]) -> dict:
+        """One live-status snapshot from state the runner already keeps:
+        counters, the batch-time window and the in-flight registry."""
+        now = time.monotonic()
+        stages: dict[str, dict] = {}
+        for rt in runtimes:
+            workers = len(rt.live_workers())
+            with rt.lock:
+                inflight = sorted(rt.inflight.items(), key=lambda kv: kv[1]["started"])[:MAX_INFLIGHT_PER_STAGE]
+                durs = sorted(d for (_t, d) in rt.samples)
+                busy = rt.busy_s
+                counts = (rt.dispatched, rt.completed, rt.errored, rt.dead_lettered)
+            stages[rt.stage.name] = {
+                "queue_depth": len(rt.in_q),
+                "busy_frac": round(rt.busy_frac(now, busy, workers), 4),
+                "workers": workers,
+                "dispatched": counts[0],
+                "completed": counts[1],
+                "errored": counts[2],
+                "dead_lettered": counts[3],
+                "finished": rt.finalized,
+                "p50_s": round(durs[len(durs) // 2], 4) if durs else 0.0,
+                "p99_s": round(durs[min(len(durs) - 1, int(len(durs) * 0.99))], 4) if durs else 0.0,
+                "inflight": [
+                    {"batch_id": bid, "age_s": round(now - info["started"], 3), "attempt": info["attempt"],
+                     "worker": info["worker"]}
+                    for bid, info in inflight
+                ],
+            }
+        return {"stages": stages}
 
     def _record_run_stats(self, runtimes: list[_StageRuntime]) -> None:
         self.stage_counts = {}

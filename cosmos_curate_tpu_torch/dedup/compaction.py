@@ -21,8 +21,10 @@ of ``cosmos_curate_tpu/dedup/compaction.py``).
 Superseded fragments are not deleted at publish (in-flight snapshot readers
 still hold them): :func:`gc_superseded` (the server's drain callback) or
 :func:`gc_index` (a full sweep with no readers) reclaim them. One compactor
-per index root at a time. The reference's compaction metrics wait for ROADMAP
-queue A item 14; the report holds the same counts.
+per index root at a time. A published pass folds its vectors into
+stage_timer's index aggregate and its generation and wall into the search
+aggregate, under ``metrics_name``, as in the reference; the report holds
+the same counts.
 """
 
 from __future__ import annotations
@@ -34,8 +36,10 @@ import numpy as np
 import torch
 
 from cosmos_curate_tpu_torch.core.model import model_device
+from cosmos_curate_tpu_torch.dedup.corpus_index import _record_index_ops
 from cosmos_curate_tpu_torch.dedup.index_store import IndexStore, allow_random_provenance, normalize_rows
 from cosmos_curate_tpu_torch.dedup.kmeans import kmeans_fit
+from cosmos_curate_tpu_torch.observability.stage_timer import record_search
 from cosmos_curate_tpu_torch.ops._build import DEVICE_FAULTS
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 
@@ -63,6 +67,7 @@ def compact_index(
     drift_tol: float = DEFAULT_DRIFT_TOL,
     force: bool = False,
     gc: bool = False,
+    metrics_name: str = "compaction",
 ) -> dict:
     """One compaction pass over the index at ``root``. Returns a report;
     ``report["published"]`` is False when nothing needed doing."""
@@ -252,8 +257,14 @@ def compact_index(
         report["pending_cleared"] = store.delete_fragments(pending_rel)
     if gc:
         report["gc_deleted"] = gc_index(store)
+    wall = time.monotonic() - t0
+    _record_index_ops(metrics_name, adds=report["folded"], add_s=wall)
+    try:
+        record_search(metrics_name, compactions=1, compaction_s=wall, generation=gen)
+    except Exception:  # metrics must never take down a compaction
+        logger.debug("compaction metrics recording failed", exc_info=True)
     logger.info("compaction published generation %d: folded %d, split %d cluster(s), drift %.4f, %d vectors (%.2fs)",
-                gen, report["folded"], report["clusters_split"], drift, num_vectors, time.monotonic() - t0)
+                gen, report["folded"], report["clusters_split"], drift, num_vectors, wall)
     return report
 
 

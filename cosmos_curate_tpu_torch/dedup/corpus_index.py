@@ -18,10 +18,11 @@ k-means (port of ``cosmos_curate_tpu/dedup/corpus_index.py``).
 The reference pads each shard's query group to a power of two to bound
 XLA's compile cache; the port has no such cache and scores the group as it
 is. Its ``mesh`` becomes ``device``: sharding queries over several cards
-waits for ROADMAP queue A item 7. The reference's ``pipeline_index_*``
-metrics (``record_index_ops`` / ``record_search``) wait for item 14; until
-then each index keeps the same counts on itself (``CorpusIndex.ops``, in
-``stats()``).
+waits for ROADMAP queue A item 7. Operations fold into stage_timer's index
+aggregate (``record_index_ops``) and the shard cache's byte traffic into its
+search aggregate (``record_search``), under the caller's ``metrics_name``,
+as in the reference; each index also keeps the same counts on itself
+(``CorpusIndex.ops``, in ``stats()``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 from cosmos_curate_tpu_torch.core.model import model_device
 from cosmos_curate_tpu_torch.dedup.index_store import IndexStore, allow_random_provenance, normalize_rows
 from cosmos_curate_tpu_torch.dedup.kmeans import _fp32, kmeans_fit
+from cosmos_curate_tpu_torch.observability.stage_timer import record_index_ops, record_search
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -98,11 +100,14 @@ class ShardCache:
     ``max_entries`` (int or callable) bounds the entry count too.
     ``drop_generation`` purges a superseded snapshot's shards when its
     refcount drains; ``invalidate`` drops one entry after an append.
-    Thread-safe; hit / miss / evicted bytes are kept in ``stats()``."""
+    Thread-safe; hit / miss / evicted bytes are kept in ``stats()`` and
+    folded into stage_timer's search aggregate under ``metrics_name``."""
 
-    def __init__(self, budget_bytes: int | None = None, *, max_entries=None) -> None:
+    def __init__(self, budget_bytes: int | None = None, *, metrics_name: str = "index_server",
+                 max_entries=None) -> None:
         self._budget_fixed = int(budget_bytes) if budget_bytes else None
         self._max_entries = max_entries
+        self.metrics_name = metrics_name
         self._lock = threading.Lock()
         # insertion-ordered: oldest first = LRU victim order
         self._entries: dict[tuple[int, int], tuple[list[str], np.ndarray, int]] = {}
@@ -127,6 +132,7 @@ class ShardCache:
             if entry is not None:
                 self._entries[key] = self._entries.pop(key)  # LRU touch
                 self.hit_bytes += entry[2]
+                _record_search_bytes(self.metrics_name, cache_hit_bytes=entry[2])
                 return entry[0], entry[1]
         ids, mat = loader()
         nbytes = shard_nbytes(ids, mat)
@@ -134,14 +140,19 @@ class ShardCache:
         cap = self._entry_cap()
         with self._lock:
             self.miss_bytes += nbytes
+            _record_search_bytes(self.metrics_name, cache_miss_bytes=nbytes)
             if nbytes > budget:
                 return ids, mat  # never cache what cannot fit
+            evicted = 0
             for victim in [k for k in self._entries if k not in pinned]:
                 if self.bytes + nbytes <= budget and (cap is None or len(self._entries) < cap):
                     break
                 vbytes = self._entries.pop(victim)[2]
                 self.bytes -= vbytes
-                self.evicted_bytes += vbytes
+                evicted += vbytes
+            if evicted:
+                self.evicted_bytes += evicted
+                _record_search_bytes(self.metrics_name, cache_evicted_bytes=evicted)
             if (self.bytes + nbytes <= budget and (cap is None or len(self._entries) < cap)
                     and key not in self._entries):
                 self._entries[key] = (ids, mat, nbytes)
@@ -265,13 +276,14 @@ class CorpusIndex:
     (and cached) on demand. ``build`` / ``open`` are the entry points."""
 
     def __init__(self, store: IndexStore, meta: dict, centroids: np.ndarray, *,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda", metrics_name: str = "corpus_index") -> None:
         self.store = store
         self.meta = meta
         self.centroids = np.asarray(centroids, np.float32)
         self._topk = DeviceTopK(device)
         self.device = self._topk.device
-        self.cache = ShardCache(max_entries=_cluster_cache_entries)
+        self.metrics_name = metrics_name
+        self.cache = ShardCache(metrics_name=metrics_name, max_entries=_cluster_cache_entries)
         self.ops = Counts("adds", "add_s", "queries", "probes", "query_s", "duplicates")
 
     # -- lifecycle -----------------------------------------------------------
@@ -281,16 +293,17 @@ class CorpusIndex:
         return IndexStore(root).exists()
 
     @classmethod
-    def open(cls, root: str, *, device: str | torch.device = "cuda") -> "CorpusIndex":
+    def open(cls, root: str, *, device: str | torch.device = "cuda",
+             metrics_name: str = "corpus_index") -> "CorpusIndex":
         store = IndexStore(root)
         if not store.exists():
             raise FileNotFoundError(f"no corpus index at {root} (run `index build` first)")
-        return cls(store, store.load_meta(), store.load_centroids(), device=device)
+        return cls(store, store.load_meta(), store.load_centroids(), device=device, metrics_name=metrics_name)
 
     @classmethod
     def build(cls, root: str, ids: list[str], vecs: np.ndarray, *, model: str = "", k: int | None = None,
               iters: int = 20, seed: int = 0, device: str | torch.device = "cuda", provenance: str = "",
-              backend: str | None = None) -> "CorpusIndex":
+              backend: str | None = None, metrics_name: str = "corpus_index") -> "CorpusIndex":
         """Train centroids on ``vecs`` (the port's k-means on ``device``) and
         write the initial per-cluster shards."""
         if len(ids) == 0:
@@ -316,8 +329,10 @@ class CorpusIndex:
         store.save_meta(meta)
         logger.info("built corpus index at %s: %d vectors, %d clusters, dim %d", root, len(ids), meta["k"],
                     meta["dim"])
-        index = cls(store, store.load_meta(), centroids, device=device)
-        index.ops.add(adds=len(ids), add_s=time.monotonic() - t0)
+        index = cls(store, store.load_meta(), centroids, device=device, metrics_name=metrics_name)
+        add_s = time.monotonic() - t0
+        index.ops.add(adds=len(ids), add_s=add_s)
+        _record_index_ops(metrics_name, adds=len(ids), add_s=add_s)
         return index
 
     # -- writes --------------------------------------------------------------
@@ -338,7 +353,9 @@ class CorpusIndex:
             self.cache.invalidate(0, int(cid))  # the shard grew; reload on demand
         self.meta["num_vectors"] = int(self.meta.get("num_vectors", 0)) + len(ids)
         self.store.save_meta(self.meta)
-        self.ops.add(adds=len(ids), add_s=time.monotonic() - t0)
+        add_s = time.monotonic() - t0
+        self.ops.add(adds=len(ids), add_s=add_s)
+        _record_index_ops(self.metrics_name, adds=len(ids), add_s=add_s)
         return len(ids)
 
     # -- queries -------------------------------------------------------------
@@ -371,7 +388,9 @@ class CorpusIndex:
         # per-query probes of non-empty shards (~ n * nprobe)
         probes = sum(len(by_cluster[cid]) for cid, _cids, _mat in loaded)
         results = score_shards(q, by_cluster, loaded, top_k, self._topk) if loaded else [[] for _ in range(n)]
-        self.ops.add(queries=n, probes=probes, query_s=time.monotonic() - t0)
+        query_s = time.monotonic() - t0
+        self.ops.add(queries=n, probes=probes, query_s=query_s)
+        _record_index_ops(self.metrics_name, queries=n, probes=probes, query_s=query_s)
         return results
 
     def stats(self) -> dict:
@@ -437,11 +456,12 @@ def incremental_dedup(index: CorpusIndex, ids: list[str], vecs: np.ndarray, *, e
             duplicate_of[qid] = dup
             removed_set.add(qid)
     index.ops.add(duplicates=len(removed))
+    _record_index_ops(index.metrics_name, duplicates=len(removed))
     return {"kept": kept, "removed": removed, "duplicate_of": duplicate_of}
 
 
 def consolidate_index(root: str, *, k: int | None = None, iters: int = 20,
-                      device: str | torch.device = "cuda") -> dict:
+                      device: str | torch.device = "cuda", metrics_name: str = "consolidate") -> dict:
     """End-of-run consolidation: fold the pending fragments
     ``ClipWriterStage`` appended into per-cluster shards, training
     centroids (k-means on ``device``) when the index does not exist yet,
@@ -476,9 +496,23 @@ def consolidate_index(root: str, *, k: int | None = None, iters: int = 20,
         ids = [ids[i] for i in keep]
         vecs = vecs[keep]
     if store.exists():
-        CorpusIndex.open(root, device=device).add(ids, vecs, normalized=True)
+        CorpusIndex.open(root, device=device, metrics_name=metrics_name).add(ids, vecs, normalized=True)
     else:
-        CorpusIndex.build(root, ids, vecs, model=model, k=k, iters=iters, device=device)
+        CorpusIndex.build(root, ids, vecs, model=model, k=k, iters=iters, device=device, metrics_name=metrics_name)
     result["consolidated"] = len(ids)
     result["pending_cleared"] = store.clear_pending()
     return result
+
+
+def _record_search_bytes(name: str, **deltas) -> None:
+    try:
+        record_search(name, **deltas)
+    except Exception:  # metrics must never take down the read path
+        logger.debug("search cache metrics recording failed", exc_info=True)
+
+
+def _record_index_ops(name: str, **deltas) -> None:
+    try:
+        record_index_ops(name, **deltas)
+    except Exception:  # metrics must never take down an index operation
+        logger.debug("index metrics recording failed", exc_info=True)

@@ -17,9 +17,10 @@ micro-batched similarity search (port of
   causal branch). Text on seeded weights is refused (:class:`ProvenanceError`)
   unless ``CURATE_INDEX_ALLOW_RANDOM=1``.
 
-The reference's latency histogram and gauges (``record_search``,
-``engine.metrics``) wait for ROADMAP queue A item 14; the server keeps the
-same counts (``stats()["counts"]``). ``pyarrow.parquet`` is imported in the
+Requests, batches, latencies and the shard cache's byte traffic fold into
+stage_timer's search aggregate (``record_search``, whose ``search_*``
+series carry the latency histogram) under ``metrics_name``, as in the
+reference; the server also keeps the same counts (``stats()["counts"]``). ``pyarrow.parquet`` is imported in the
 constructing thread before the worker starts: pyarrow imported first in a
 worker thread has crashed a later read in the main thread.
 """
@@ -45,6 +46,7 @@ from cosmos_curate_tpu_torch.dedup.corpus_index import (
     shard_nbytes,
 )
 from cosmos_curate_tpu_torch.dedup.index_store import IndexStore, allow_random_provenance, normalize_rows
+from cosmos_curate_tpu_torch.observability.stage_timer import record_search
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -210,6 +212,7 @@ class IndexServer:
         max_batch: int = 64,
         adopt_interval_s: float = 1.0,
         gc_drained: bool = False,
+        metrics_name: str = "index_server",
     ) -> None:
         import pyarrow.parquet  # noqa: F401  (in this thread, before the worker reads)
 
@@ -223,7 +226,8 @@ class IndexServer:
         self.gc_drained = gc_drained
         self._topk = DeviceTopK(device)
         self.device = self._topk.device
-        self.cache = ShardCache(cache_bytes)
+        self.metrics_name = metrics_name
+        self.cache = ShardCache(cache_bytes, metrics_name=metrics_name)
         self.counts = Counts("searches", "queries", "batches", "batched_requests", "search_s",
                              "generations_adopted")
         self._snapshot = self._open_snapshot(self.store.current_generation())
@@ -274,6 +278,7 @@ class IndexServer:
             old.on_drain = self._gc_snapshot
         old.release()  # the owner ref; in-flight batches still hold theirs
         self.counts.add(generations_adopted=1)
+        _record_search(self.metrics_name, generations_adopted=1)
         logger.info("index server adopted generation %d (was %d)", latest, old.generation)
         return True
 
@@ -316,6 +321,10 @@ class IndexServer:
         if req.error is not None:
             raise req.error
         self.counts.add(searches=1, queries=len(req.results))
+        # search_s is recorded per BATCH by the serving loop, not per
+        # request: summed latencies would read qps as 1 / mean latency
+        _record_search(self.metrics_name, latency_s=time.monotonic() - req.t0, mode=req.mode, searches=1,
+                       queries=len(req.results))
         return req.results, req.generation
 
     def stats(self) -> dict:
@@ -404,7 +413,9 @@ class IndexServer:
                 self._serve_batch(snap, batch)
             finally:
                 snap.release()
-            self.counts.add(batches=1, batched_requests=len(batch), search_s=time.monotonic() - t0)
+            search_s = time.monotonic() - t0
+            self.counts.add(batches=1, batched_requests=len(batch), search_s=search_s)
+            _record_search(self.metrics_name, batches=1, batched_requests=len(batch), search_s=search_s)
 
     def _serve_batch(self, snap: IndexSnapshot, batch: list[_SearchRequest]) -> None:
         rows: list[np.ndarray] = []
@@ -460,3 +471,10 @@ class IndexServer:
                 r.generation = snap.generation
                 pos += b - a
                 r.event.set()
+
+
+def _record_search(name: str, *, latency_s: float | None = None, mode: str = "clip", **deltas) -> None:
+    try:
+        record_search(name, latency_s=latency_s, mode=mode, **deltas)
+    except Exception:  # metrics must never take down the read path
+        logger.debug("search metrics recording failed", exc_info=True)

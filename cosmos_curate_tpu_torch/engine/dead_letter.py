@@ -9,7 +9,7 @@ Layout (one directory per run, one per dead batch)::
 
     <root>/<run_id>/
         batch-<id>-<stage>/
-            meta.json     # stage, attempts, reason, error tail
+            meta.json     # stage, attempts, reason, error tail, trace id
             tasks.pkl     # cloudpickle list[PipelineTask]
 
 ``root`` resolves from ``CURATE_DLQ_DIR`` (default
@@ -17,8 +17,9 @@ Layout (one directory per run, one per dead batch)::
 Directories are created lazily: a clean run writes nothing. ``cloudpickle``
 is imported only when a batch is written or read.
 
-Not ported: the trace id of the batch's span (the port has no tracing
-yet), the node-loss fields of the streaming engine, and the requeue CLI.
+An entry carries the trace id of the span that dropped it (``""`` when
+tracing is off), so an entry leads back to its trace. Not ported: the
+node-loss fields of the streaming engine, and the requeue CLI.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import uuid
 from dataclasses import dataclass
 from pathlib import Path
 
+from cosmos_curate_tpu_torch.observability.tracing import current_trace_id
 from cosmos_curate_tpu_torch.utils import schema_stamp
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 
@@ -116,6 +118,8 @@ class DeadLetterQueue:
                 "error_tail": error[-_ERROR_TAIL:] if error else "",
                 "dropped_at": time.time(),
                 "run_id": self.run_id,
+                # the runners drop from inside their run span
+                "trace_id": current_trace_id() or "",
             }
             schema_stamp.stamp(meta, "dlq-meta")
             (entry / "meta.json").write_text(json.dumps(meta, indent=2))

@@ -30,9 +30,13 @@ Buffer donation, the XLA compile cache and the ``CURATE_MICRO_BATCH``
 environment variable have no counterpart: PyTorch compiles nothing per
 shape, and the cap is the ``micro_batch`` constructor argument.
 
-Each dispatch leaves a :class:`DispatchRecord` in ``records``: its
-host-to-device, compute and device-to-host times (CUDA events on the GPU,
-the host clock on the CPU) and the device idle gap before its compute.
+Each dispatch leaves a ``DispatchRecord`` (observability/stage_timer.py) in
+``records`` and folds it into stage_timer's dispatch aggregate under the
+pipeline's name: its host-to-device, compute and device-to-host times (CUDA
+events on the GPU, the host clock on the CPU) and the device idle gap before
+its compute. The events are read at drain, after the dispatch's own
+``d2h_end`` wait, so recording adds no device synchronisation. A drain opens
+a ``device.<name>.drain`` span.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ import numpy as np
 import torch
 
 from cosmos_curate_tpu_torch.models.batching import next_pow2
+from cosmos_curate_tpu_torch.observability.stage_timer import DispatchRecord, record_dispatch
+from cosmos_curate_tpu_torch.observability.tracing import traced_span
 
 DEFAULT_MICRO_BATCH = 32
 IN_FLIGHT = 2  # dispatches holding device buffers at once
@@ -80,21 +86,6 @@ def plan_micro_batches(n: int, cap: int) -> list[tuple[int, int, int]]:
 
 
 @dataclass
-class DispatchRecord:
-    """One dispatch's times in seconds. On the GPU each is a CUDA-event
-    interval: the side-stream copy in, the compute on the compute stream,
-    the side-stream copy out, and the device idle time between the previous
-    dispatch's compute and this one's (0 for a burst's first dispatch)."""
-
-    h2d_s: float
-    compute_s: float
-    d2h_s: float
-    gap_s: float
-    rows: int
-    padded_rows: int
-
-
-@dataclass
 class _InFlight:
     host: Any  # pinned host tensor(s) the result lands in
     n_valid: int | None
@@ -103,6 +94,10 @@ class _InFlight:
     host_times: dict = field(default_factory=dict)  # name -> seconds (CPU)
     inputs: list = field(default_factory=list)  # pinned inputs kept alive until settled
     settled: bool = False
+
+    @property
+    def rows(self) -> int:
+        return self.padded_rows if self.n_valid is None else self.n_valid
 
 
 def _map(fn, x):
@@ -244,8 +239,7 @@ class DevicePipeline:
         else:
             h2d, compute, d2h = (inf.host_times[k] for k in ("h2d_s", "compute_s", "d2h_s"))
             gap = 0.0
-        rows = inf.padded_rows if inf.n_valid is None else inf.n_valid
-        return DispatchRecord(h2d, compute, d2h, gap, rows, inf.padded_rows)
+        return DispatchRecord(h2d, compute, d2h, gap, inf.rows, inf.padded_rows)
 
     def drain(self) -> list[Any]:
         """Everything submitted since the last drain, in submission order,
@@ -253,6 +247,12 @@ class DevicePipeline:
         pipeline aborts first."""
         burst = self._settled + self._pending
         self._settled, self._pending = [], []
+        if not burst:
+            return []
+        with traced_span(f"device.{self.name}.drain", dispatches=len(burst), rows=sum(inf.rows for inf in burst)):
+            return self._drain_burst(burst)
+
+    def _drain_burst(self, burst: list[_InFlight]) -> list[Any]:
         out: list[Any] = []
         prev = None
         try:
@@ -262,7 +262,9 @@ class DevicePipeline:
                 host = _map(lambda t: t.numpy().copy() if isinstance(t, torch.Tensor) else t, inf.host)
                 if inf.n_valid is not None:
                     host = _map(lambda a, n=inf.n_valid: a[:n] if getattr(a, "ndim", 0) >= 1 else a, host)
-                self.records.append(self._times(inf, prev))
+                rec = self._times(inf, prev)
+                self.records.append(rec)
+                record_dispatch(self.name, rec)
                 prev = inf
                 out.append(host)
         except Exception:

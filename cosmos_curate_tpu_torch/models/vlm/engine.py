@@ -287,7 +287,7 @@ class CaptionEngine:
         self.device = model_device(device, "CaptionEngine")
         if mesh is not None:
             raise NotImplementedError(
-                "tensor-parallel serving (mesh) is not ported yet (ROADMAP queue A: TP)"
+                "tensor-parallel serving (mesh) is not ported yet (ROADMAP queue A item 7)"
             )
         self.cfg = cfg
         # qwen3 deepstack: the number of LM layers that take visual features

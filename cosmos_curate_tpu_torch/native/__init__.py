@@ -18,7 +18,7 @@ falls back to cv2's negotiated codec (video/encode.py) and the motion
 filter to its frame-difference estimator.
 
 Not ported: the streaming engine's object-store framing
-(``curate_native.cpp``, ROADMAP queue A item 9).
+(``curate_native.cpp``, ROADMAP queue A item 9b).
 """
 
 from __future__ import annotations

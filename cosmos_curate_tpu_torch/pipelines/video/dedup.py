@@ -11,8 +11,9 @@ Fast path: where a persistent corpus index exists (``<input>/index`` or
 ``index_path``, built by ``run_split(corpus_index=True)``), ``run_dedup``
 queries it (``incremental_dedup``, scored on ``device``) instead of
 reclustering: O(probed shards) against the whole curated corpus. An index of
-another embedding model, or ``use_index=False``, reclusters. The
-reference's object-plane metrics call waits for ROADMAP queue A item 14.
+another embedding model, or ``use_index=False``, reclusters. The parquet
+fetches fold into stage_timer's object-plane aggregate as store reads, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 from cosmos_curate_tpu_torch.core.model import model_device
 from cosmos_curate_tpu_torch.dedup.corpus_index import CorpusIndex, incremental_dedup
 from cosmos_curate_tpu_torch.dedup.kmeans import semantic_dedup
+from cosmos_curate_tpu_torch.observability.stage_timer import record_object_plane
 from cosmos_curate_tpu_torch.storage.client import get_storage_client, read_bytes
 from cosmos_curate_tpu_torch.storage.writers import write_csv, write_json
 from cosmos_curate_tpu_torch.utils.logging import get_logger
@@ -97,6 +99,7 @@ def load_embeddings(input_path: str, model: str = "") -> tuple[list[str], np.nda
     else:
         with ThreadPoolExecutor(max_workers=min(workers, len(files)), thread_name_prefix="embed-fetch") as pool:
             parts = list(pool.map(fetch, (f.path for f in files)))
+    elapsed = time.monotonic() - t0
     ids: list[str] = []
     vecs: list[np.ndarray] = []
     total_bytes = 0
@@ -104,9 +107,13 @@ def load_embeddings(input_path: str, model: str = "") -> tuple[list[str], np.nda
         ids.extend(chunk_ids)
         vecs.extend(chunk_vecs)
         total_bytes += nbytes
+    try:
+        record_object_plane(store_reads=len(files), store_read_bytes=total_bytes, store_read_wait_s=elapsed)
+    except Exception:  # metrics must never take down the load path
+        logger.debug("object-plane recording failed", exc_info=True)
     logger.info(
         "loaded %d embeddings from %d parquets (%.1f MB) in %.2fs (%d fetch threads)",
-        len(ids), len(files), total_bytes / 1e6, time.monotonic() - t0, min(workers, len(files)),
+        len(ids), len(files), total_bytes / 1e6, elapsed, min(workers, len(files)),
     )
     return ids, np.stack(vecs), found_model
 
@@ -121,7 +128,7 @@ def _open_index(args: DedupPipelineArgs, device, model: str) -> CorpusIndex | No
     try:
         if not CorpusIndex.exists(root):
             return None
-        index = CorpusIndex.open(root, device=device)
+        index = CorpusIndex.open(root, device=device, metrics_name="run_dedup")
     except NotImplementedError:
         raise  # a lance index: reclustering would answer differently
     except (OSError, RuntimeError, ValueError) as e:

@@ -18,15 +18,20 @@ fails on storage or data is logged and leaves the run's output as it is,
 but a device fault propagates.
 
 ``assemble_stages`` raises ``NotImplementedError``, naming the ROADMAP item,
-for every option whose stage is not ported yet (multicam, the
-observability options, and super resolution's ``sr_sp_size > 1``).
+for every option whose stage is not ported yet (multicam, the profiling
+options, and super resolution's ``sr_sp_size > 1``).
 ``run_split`` runs the
 accelerator health gate first when ``CURATE_HEALTH_GATE`` is ``on`` or
 ``strict`` (utils/health.py: both abort on an unhealthy card; the port never
 moves a run to the CPU by itself, and a ``device="cpu"`` run has no card to
-gate). It leaves out what else the reference wraps around the run: live
-status, tracing and the observability wrappers (item 14), and multi-node
-initialisation and work stealing (item 15).
+gate). Every run publishes its live status to
+``<output>/report/live/status.json``. With ``tracing`` the run's spans go to
+``<output>/profile/traces/driver.ndjson``, all rooted on one ``run.split``
+span, and the flight recorder writes ``<output>/report/run_report.json`` at
+the end; a recorder failure is logged and leaves the run's output as it is.
+It leaves out what else the reference wraps around the run: the profiling
+wrappers (item 14, second slice), and multi-node initialisation and work
+stealing (item 15).
 """
 
 from __future__ import annotations
@@ -43,6 +48,10 @@ from cosmos_curate_tpu_torch.core.runner import RunnerInterface, default_runner
 from cosmos_curate_tpu_torch.core.stage import Stage, StageSpec
 from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature
 from cosmos_curate_tpu_torch.dedup.corpus_index import consolidate_index
+from cosmos_curate_tpu_torch.observability import tracing
+from cosmos_curate_tpu_torch.observability.artifacts import collect_artifacts, finalize_delivery
+from cosmos_curate_tpu_torch.observability.flight_recorder import clear_trace_artifacts, write_run_report
+from cosmos_curate_tpu_torch.observability.live_status import export_live_status_dir
 from cosmos_curate_tpu_torch.ops._build import DEVICE_FAULTS
 from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_split_tasks
 from cosmos_curate_tpu_torch.pipelines.video.stages.aesthetic_filter import AestheticFilterStage
@@ -146,13 +155,12 @@ class SplitPipelineArgs:
     device: str = "cuda"
 
 
-_OBSERVABILITY = "tracing, live status and the observability wrappers (ROADMAP queue A item 14)"
+_OBSERVABILITY = "the profiling and stage-replay wrappers (ROADMAP queue A item 14, second slice)"
 # (option as set, whether args set it, what it waits for)
 _NOT_PORTED: tuple[tuple[str, Callable[[SplitPipelineArgs], bool], str], ...] = (
     ("sr_sp_size", lambda a: a.sr and a.sr_sp_size > 1,
      "sequence-parallel super resolution (ROADMAP queue A item 7)"),
     ("multicam", lambda a: a.multicam, "multicam sessions (ROADMAP queue A item 11)"),
-    ("tracing", lambda a: a.tracing, _OBSERVABILITY),
     ("perf_profile", lambda a: a.perf_profile, _OBSERVABILITY),
     ("profile_cpu", lambda a: a.profile_cpu, _OBSERVABILITY),
     ("profile_memory", lambda a: a.profile_memory, _OBSERVABILITY),
@@ -255,10 +263,43 @@ def run_split(
     # crashed model setups (off | on | strict; on means strict here)
     if os.environ.get(HEALTH_GATE_ENV, "off") in ("on", "strict") and torch.device(args.device).type == "cuda":
         accelerator_health_gate(attempts=3, probe_timeout_s=120, backoff_s=30, require=True)
-    stages = assemble_stages(args)
-    tasks = discover_split_tasks(args.input_path, args.output_path, limit=args.limit)
-    out = run_pipeline(tasks, stages, config=config, runner=runner or default_runner()) or []
-    index_extra = _consolidate_corpus_index(args) if args.corpus_index else {}
+    # before the runner exists: every runner publishes its snapshots to
+    # <output>/report/live/status.json
+    export_live_status_dir(args.output_path)
+    # resolved here, not in run_pipeline, so the flight recorder reads the
+    # instance that ran (its dead-letter counts, stage times, overlap)
+    runner = runner or default_runner()
+    index_extra: dict = {}
+    run_root = None
+    # tracing starts right before the try whose finally ends it
+    if args.tracing:
+        # a re-run into the same root starts from a clean trace: stale
+        # rotation parts carry the old run's trace ids
+        clear_trace_artifacts(args.output_path)
+        tracing.enable_tracing(f"{args.output_path.rstrip('/')}/profile/traces/driver.ndjson")
+        # join a caller-stamped trace where there is one, then root every
+        # span of the run on ONE run.split span, carried as the process
+        # parent (not the contextvar stack), so any thread joins it
+        tracing.attach_traceparent(os.environ.get(tracing.TRACEPARENT_ENV))
+        run_root = tracing.start_span("run.split", output_path=args.output_path)
+        tracing.attach_traceparent(tracing.format_traceparent(run_root))
+    try:
+        tasks = discover_split_tasks(args.input_path, args.output_path, limit=args.limit)
+        stages = assemble_stages(args)
+        out = run_pipeline(tasks, stages, config=config, runner=runner) or []
+        if args.corpus_index:
+            # before the report, so its index aggregates land in it
+            index_extra = _consolidate_corpus_index(args)
+    finally:
+        if args.tracing:
+            tracing.end_span(run_root)
+            tracing.disable_tracing()  # flushes the buffered spans
+            collect_artifacts(args.output_path)
+            finalize_delivery(args.output_path)
+            try:
+                write_run_report(args.output_path, runner=runner)
+            except Exception:
+                logger.exception("flight recorder failed (run output unaffected)")
     elapsed = time.monotonic() - t0
     num_chips = args.num_chips or max(1, torch.cuda.device_count())
     summary = build_summary(out, pipeline_run_time_s=elapsed, num_chips=num_chips, extra=index_extra or None)

@@ -15,9 +15,12 @@ and ``qwen3moe-tiny-test``. The converted-checkpoint flavors serve the
 checkpoint's own vocabulary (``HFVocabTokenizer`` over the staged
 ``vocab.json`` / ``merges.txt``, local files only) and its chat template
 (models/vlm/chat.py). The engine stage runs on ``device="cuda"``
-unless the caller asks for the CPU. The reference's tracing spans and stage-timer records are
-left out with the observability layer (ROADMAP); the engine counters the
-stage writes into ``task.stage_perf`` stay.
+unless the caller asks for the CPU. Each engine drive opens the
+reference's ``caption.submit`` and ``caption.engine`` spans (the latter
+carries the drive's ``caption.*`` phase attributes) and folds its phases
+into stage_timer's caption aggregate; the engine counters the stage writes
+into ``task.stage_perf`` stay. The engine synchronises at its own phase
+boundaries, so the spans add no device synchronisation.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from cosmos_curate_tpu_torch.models.tokenizer import HFVocabTokenizer, default_c
 from cosmos_curate_tpu_torch.models.vlm.chat import build_qwen_vl_chat
 from cosmos_curate_tpu_torch.models.vlm.engine import CaptionEngine, CaptionRequest, SamplingConfig
 from cosmos_curate_tpu_torch.models.vlm.model import VLM_BASE, VLMConfig, vlm_flavor
+from cosmos_curate_tpu_torch.observability import stage_timer
+from cosmos_curate_tpu_torch.observability.tracing import traced_span
 from cosmos_curate_tpu_torch.models.vlm.shared_engine import SharedCaptionEngine
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 from cosmos_curate_tpu_torch.video.windowing import compute_windows
@@ -281,21 +286,27 @@ class CaptionStage(Stage[SplitPipeTask, SplitPipeTask]):
         phases0 = engine.phase_seconds
         stats0 = self._engine_counts(engine)
         windows: dict[str, Window] = {}
-        for task in tasks:
-            for clip in task.video.clips:
-                for w_i, win in enumerate(clip.windows):
-                    if win.frames is None:
-                        continue
-                    rid = f"{clip.uuid}-{w_i}"
-                    windows[rid] = win
-                    # non-blocking: the engine preps (vision encode +
-                    # embedding) in its background thread while
-                    # run_until_complete below decodes
-                    engine.add_request(self._make_request(rid, win))
+        with traced_span("caption.submit", stage=self.name):
+            for task in tasks:
+                for clip in task.video.clips:
+                    for w_i, win in enumerate(clip.windows):
+                        if win.frames is None:
+                            continue
+                        rid = f"{clip.uuid}-{w_i}"
+                        windows[rid] = win
+                        # non-blocking: the engine preps (vision encode +
+                        # embedding) in its background thread while
+                        # run_until_complete below decodes
+                        engine.add_request(self._make_request(rid, win))
         if not windows:
             return tasks
-        results = engine.run_until_complete(owner=self.owner)
-        phases = self._phase_delta(engine, phases0, stats0, time.monotonic() - t_start)
+        with traced_span("caption.engine", stage=self.name) as span:
+            results = engine.run_until_complete(owner=self.owner)
+            phases = self._phase_delta(engine, phases0, stats0, time.monotonic() - t_start)
+            phases["requests"] = len(results)
+            for k, v in phases.items():
+                span.set_attribute(f"caption.{k}", round(v, 4) if isinstance(v, float) else v)
+        stage_timer.record_caption_phases(self.name, phases)
         try:
             get_metrics().observe_caption_owners(engine.owner_stats())
         except Exception:  # metrics must never take down the caption path
@@ -344,7 +355,18 @@ class CaptionStage(Stage[SplitPipeTask, SplitPipeTask]):
         now = self._engine_counts(engine)
         counts = {k: now[k] - stats0[k] for k in now}
         busy = phases["prefill_s"] + phases["decode_s"]
-        return {**phases, **counts, "wall_s": wall, "idle_s": max(0.0, wall - busy)}
+        return {
+            **phases,
+            **counts,
+            "wall_s": wall,
+            "idle_s": max(0.0, wall - busy),
+            # occupancy gauges (absolute, not deltas) and the owner, for the
+            # run report's per-owner accounting
+            "owner": self.owner,
+            "kv_blocks_total": engine.kv_blocks_total,
+            "kv_blocks_peak": engine.kv_blocks_used_peak,
+            "kv_blocks_used": engine.kv_blocks_used,
+        }
 
     def _make_request(self, rid: str, win: Window) -> CaptionRequest:
         if self._encoded_prompt is None:

@@ -57,7 +57,7 @@ class IncrementalDedupStage(Stage[SplitPipeTask, SplitPipeTask]):
             logger.warning("no corpus index at %s yet: incremental dedup passes everything through this run "
                            "(the end-of-run consolidation builds it)", self.index_path)
             return
-        self._index = CorpusIndex.open(self.index_path, device=self.device)
+        self._index = CorpusIndex.open(self.index_path, device=self.device, metrics_name=self.name)
 
     def _provenance_ok(self, model: str) -> bool:
         if registry.weights_provenance(model) != "random" or allow_random_provenance():

@@ -21,7 +21,8 @@ pending corpus-index fragment (dedup/index_store.py), which the end-of-run
 consolidation folds into the index. Fragments carry their model's weights
 provenance, and "random" (seeded-init) embeddings are refused unless
 ``CURATE_INDEX_ALLOW_RANDOM`` opts in; ``stage_perf`` counts
-``index_fragment_rows`` and ``index_skipped_random``.
+``index_fragment_rows`` and ``index_skipped_random``, and stage_timer's
+index aggregate the same adds and refusals under the stage's name.
 
 Not ported: the secondary cameras of multicam sessions (ROADMAP queue A
 item 11).
@@ -32,6 +33,7 @@ from __future__ import annotations
 import hashlib
 import io
 import threading
+import time
 from collections import defaultdict
 
 import numpy as np
@@ -40,6 +42,7 @@ from cosmos_curate_tpu_torch.core.stage import Resources, Stage
 from cosmos_curate_tpu_torch.data.model import Clip, ClipStats, SplitPipeTask
 from cosmos_curate_tpu_torch.dedup.index_store import IndexStore, allow_random_provenance
 from cosmos_curate_tpu_torch.models.registry import weights_provenance
+from cosmos_curate_tpu_torch.observability.stage_timer import record_index_ops
 from cosmos_curate_tpu_torch.storage.client import write_bytes
 from cosmos_curate_tpu_torch.storage.writers import write_json, write_parquet
 from cosmos_curate_tpu_torch.utils.logging import get_logger
@@ -178,8 +181,10 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
             if warn:
                 logger.warning("not indexing %s embeddings: weights provenance is random (stage a checkpoint, "
                                "or set CURATE_INDEX_ALLOW_RANDOM=1)", model)
+            record_index_ops(self.name, skipped_random=len(rows))
             task.stage_perf["index_skipped_random"] = task.stage_perf.get("index_skipped_random", 0) + len(rows)
             return
+        t0 = time.monotonic()
         with self._memo_lock:
             if self._index_store is None:
                 self._index_store = IndexStore(self.index_path)
@@ -187,6 +192,7 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
         store.write_pending_fragment(f"{chunk_tag}-{model}", [r[0] for r in rows],
                                      np.stack([r[1].astype(np.float32) for r in rows]), model=model,
                                      provenance=provenance)
+        record_index_ops(self.name, adds=len(rows), add_s=time.monotonic() - t0)
         task.stage_perf["index_fragment_rows"] = task.stage_perf.get("index_fragment_rows", 0) + len(rows)
 
     def _write_clip(self, clip: Clip, stats: ClipStats, embedding_rows) -> None:

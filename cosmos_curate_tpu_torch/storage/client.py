@@ -6,6 +6,10 @@ serves local paths only. A remote URL (``s3://``, ``gs://``, ``az://``)
 raises ``NotImplementedError``: the reference's S3, GCS and Azure clients
 wait for ROADMAP queue A item 10, and a remote path never falls back to a
 local file of the same name.
+
+The module-level ``read_bytes`` / ``write_bytes`` open one ``storage.read``
+/ ``storage.write`` span per request (observability/tracing.py), free when
+tracing is off.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import shutil
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
+
+from cosmos_curate_tpu_torch.observability.tracing import traced_span
 
 _REMOTE_SCHEMES = ("s3://", "gs://", "az://")
 REMOTE_NOT_PORTED = "the remote storage clients (S3, GCS, Azure) are not ported yet (ROADMAP queue A item 10)"
@@ -95,11 +101,25 @@ def get_storage_client(path: str | os.PathLike[str]) -> LocalStorageClient:
     return _LOCAL
 
 
+def backend_name(path: str | os.PathLike[str]) -> str:
+    s = str(path)
+    for scheme in _REMOTE_SCHEMES:
+        if s.startswith(scheme):
+            return scheme[:-3]  # "s3://" -> "s3"
+    return "local"
+
+
 def read_bytes(path: str | os.PathLike[str]) -> bytes:
+    """Read with one trace span per request (backend, path and bytes)."""
     p = str(path)
-    return get_storage_client(p).read_bytes(p)
+    with traced_span("storage.read", backend=backend_name(p), path=p) as span:
+        data = get_storage_client(p).read_bytes(p)
+        span.set_attribute("bytes", len(data))
+        return data
 
 
 def write_bytes(path: str | os.PathLike[str], data: bytes) -> None:
+    """Write with one trace span per request (see :func:`read_bytes`)."""
     p = str(path)
-    get_storage_client(p).write_bytes(p, data)
+    with traced_span("storage.write", backend=backend_name(p), path=p, bytes=len(data)):
+        get_storage_client(p).write_bytes(p, data)

@@ -9,10 +9,9 @@ Backoff is exponential with **full jitter**: ``sleep ~ U(0, min(cap, base *
 2**attempt))``, so a fleet of workers that all saw the same outage does not
 retry in lockstep.
 
-Not ported: ``sleep_backoff``'s annotation of the enclosing ``storage.*``
-trace span with the retry count and summed backoff, which waits for the
-port's tracing (ROADMAP queue A item 14). The chaos harness's
-``storage.request`` site is :func:`chaos_storage_fault`.
+``sleep_backoff`` annotates the enclosing ``storage.*`` trace span with the
+retry count and the summed backoff. The chaos harness's ``storage.request``
+site is :func:`chaos_storage_fault`.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import random
 import time
 
 from cosmos_curate_tpu_torch import chaos
+from cosmos_curate_tpu_torch.observability.tracing import current_span
 
 # 429 (throttling) and the transient 5xx family. 501/505 etc. are
 # deterministic and excluded: retrying them only delays the error.
@@ -53,8 +53,17 @@ def sleep_backoff(
     cap: float = DEFAULT_CAP_S,
     rng: random.Random | None = None,
 ) -> float:
-    """Sleep the jittered backoff; returns the slept duration (for logs)."""
+    """Sleep the jittered backoff; returns the slept duration (for logs).
+
+    It also annotates the enclosing ``storage.*`` span with the retry count
+    and the summed backoff, so a slow storage span reads as retries or as a
+    slow backend. Other callers' spans (the API caption stage's) are left
+    alone: retry attributes there would misattribute the wait."""
     d = backoff_s(attempt, base=base, cap=cap, rng=rng)
+    span = current_span()
+    if span is not None and span.name.startswith("storage."):
+        span.set_attribute("attempt", attempt + 2)  # the one about to run
+        span.set_attribute("backoff_s", round(float(span.attributes.get("backoff_s", 0.0)) + d, 4))
     time.sleep(d)
     return d
 

@@ -1,6 +1,7 @@
 """Schema-version stamping of durable JSON (port of the part of
-``cosmos_curate_tpu/utils/schema_stamp.py`` that the dead-letter queue and
-the corpus index's manifests write and read through). The versions are the
+``cosmos_curate_tpu/utils/schema_stamp.py`` that the dead-letter queue, the
+corpus index's manifests, the run report and the live status write and read
+through). The versions are the
 reference's, so a record the port writes reads as the same version of the
 same surface, and a manifest either package wrote opens in the other."""
 
@@ -16,6 +17,10 @@ SCHEMA_VERSIONS: dict[str, int] = {
     "dlq-meta": 2,
     # dedup/index_store.py manifests/gen-N.json + MANIFEST.json pointer
     "index-manifest": 2,
+    # observability/flight_recorder.py report/run_report.json
+    "run-report": 1,
+    # observability/live_status.py report/live/status.json
+    "live-status": 1,
 }
 
 

@@ -53,6 +53,7 @@ from cosmos_curate_tpu_torch.pipelines.video import shard as tshard
 from cosmos_curate_tpu_torch.pipelines.video import split as tsplit
 from cosmos_curate_tpu_torch.utils import config as tconfig
 from tests.fixtures.media import make_scene_video
+from tests.fixtures.observability import observability_state  # noqa: F401  (autouse)
 from tests.test_torch_dedup import planted, write_split_embeddings
 from tests.test_torch_image_pipeline import corpus, fp32, read_output, tiny_path, tiny_weights  # noqa: F401
 
@@ -190,9 +191,8 @@ def test_main_exit_codes(tmp_path, monkeypatch, capsys):
     (["local", "merge-summaries"], "item 15"),
     (["index", "serve", "--index-path", "x"], "item 19"),
     (["local", "split", "--multicam", "--device", "cpu"], "item 11"),
-    (["local", "split", "--tracing", "--device", "cpu"], "item 14"),
     (["local", "split", "--sr", "--sr-sp-size", "2", "--device", "cpu"], "item 7"),
-], ids=["streaming", "map", "av", "merge-summaries", "index-serve", "multicam", "tracing", "sr-sp"])
+], ids=["streaming", "map", "av", "merge-summaries", "index-serve", "multicam", "sr-sp"])
 def test_refusals_name_their_roadmap_item(argv, item, tmp_path):
     if argv[:2] in (["local", "split"], ["local", "av"]):
         argv = [*argv, "--input-path", str(tmp_path), "--output-path", str(tmp_path / "out")]
@@ -272,9 +272,8 @@ def _timeless(d: dict) -> dict:
             if not k.endswith("_s") and k not in ("ops", "cache", "timestamp", "video_hours_per_day_per_chip")}
 
 
-def _files(root: Path, skip: tuple[str, ...] = ()) -> list[str]:
-    return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file() and not str(
-        p.relative_to(root)).startswith(skip))
+def _files(root: Path) -> list[str]:
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
 
 
 def _split(tmp_path, capsys) -> dict:
@@ -302,12 +301,34 @@ def test_split_with_a_config_matches_run_split(tmp_path, capsys):
     runs = _split(tmp_path, capsys)
     got = runs["cli"][0]
     assert _timeless(got) == _timeless(runs["direct"][0]) == _timeless(runs["jax"][0]) and got["num_clips"] == 4
-    # the JAX run also publishes report/live/status.json (A14, not ported)
-    files = {name: _files(root, skip=("report/",)) for name, (_, root) in runs.items()}
+    # every run also publishes report/live/status.json, in both packages
+    files = {name: _files(root) for name, (_, root) in runs.items()}
+    assert "report/live/status.json" in files["cli"]
     assert files["cli"] == files["direct"] == files["jax"]
     for name in files["cli"]:
         if name.startswith(("metas/", "processed_videos/")):
             assert (tmp_path / "cli" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes(), name
+
+
+def test_split_tracing_runs_like_the_jax_cli(tmp_path, capsys):
+    """``local split --tracing``, refused by earlier slices, runs: the span
+    trace and the connected run report, with the JAX CLI's span names and
+    report sections."""
+    videos = tmp_path / "videos"
+    videos.mkdir()
+    make_scene_video(videos / "v0.mp4", scene_len_frames=24, num_scenes=2)
+    traced = {}
+    for name, main, extra in (("jax", jmain.main, []), ("cli", tmain.main, ["--device", "cpu"])):
+        out = tmp_path / name
+        assert main(["local", "split", "--input-path", str(videos), "--output-path", str(out), "--tracing",
+                     "--fixed-stride-len-s", "1.0", "--min-clip-len-s", "0.5", *extra]) == 0
+        assert _printed(capsys)["num_clips"] == 2
+        spans = [json.loads(line) for line in (out / "profile" / "traces" / "driver.ndjson").read_text().splitlines()]
+        traced[name] = ({s["name"] for s in spans}, json.loads((out / "report" / "run_report.json").read_text()))
+    (names, report), (j_names, j_report) = traced["cli"], traced["jax"]
+    assert names == j_names and "run.split" in names and "pipeline.run" in names
+    assert set(report) == set(j_report) and report["connected"] and j_report["connected"]
+    assert _files(tmp_path / "cli") == _files(tmp_path / "jax")
 
 
 def test_shard_of_a_split_matches_the_jax_cli(tmp_path, capsys):

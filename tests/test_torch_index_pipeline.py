@@ -42,6 +42,7 @@ from cosmos_curate_tpu_torch.pipelines.video import split as tsplit
 from cosmos_curate_tpu_torch.pipelines.video.stages import dedup_stage as tstage
 from cosmos_curate_tpu_torch.pipelines.video.stages import writer as twriter
 from tests.fixtures.media import make_scene_video
+from tests.fixtures.observability import observability_state  # noqa: F401  (autouse)
 from tests.test_torch_dedup import record_jax_picks, write_split_embeddings
 
 MODEL = "video-embed-tpu"

@@ -10,6 +10,8 @@ from pathlib import Path
 
 import pytest
 
+from tests.fixtures.observability import observability_state  # noqa: F401  (autouse)
+
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -53,8 +55,31 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "pipelines.video.stages.per_event_caption", "pipelines.video.stages.super_resolution",
                    "storage.retry", "utils.config", "pipelines.image.annotate", "pipelines.image.filters",
                    "pipelines.image.api_caption", "pipelines.examples.hello_world",
-                   "pipelines.examples.chunking_demo", "cli.main", "cli.local_cli", "cli.index_cli"):
+                   "pipelines.examples.chunking_demo", "cli.main", "cli.local_cli", "cli.index_cli",
+                   "observability.tracing", "observability.stage_timer", "observability.anomaly",
+                   "observability.live_status", "observability.artifacts", "observability.flight_recorder"):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
+
+
+def test_observability_layer_imports_neither_torch_nor_jax():
+    """The port's observability layer is host code, as the reference's is:
+    importing every module of it (and the storage client it writes through)
+    loads no torch and no JAX."""
+    script = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        import cosmos_curate_tpu_torch.observability as obs
+        names = [m.name for m in pkgutil.walk_packages(obs.__path__, obs.__name__ + ".")]
+        for name in names + ["cosmos_curate_tpu_torch.storage.client", "cosmos_curate_tpu_torch.storage.retry"]:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "flax", "cosmos_curate_tpu"))
+        print(len(names), bad)
+        sys.exit(1 if bad or not names else 0)
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) == 6
 
 
 def test_engine_defaults_to_the_gpu():

@@ -9,9 +9,9 @@ The motion filter's ``auto`` backend scores with codec motion vectors where
 the native binding builds, in both packages alike.
 
 Tolerances:
-- summary counts (clock keys aside), output file names (``report/`` aside,
-  the reference's live status), the ``tracking/`` files, filtered clips and
-  every meta key but the scores below: exactly equal;
+- summary counts (clock keys aside), output file names (the live status
+  ``report/live/status.json`` among them), the ``tracking/`` files,
+  filtered clips and every meta key but the scores below: exactly equal;
 - track scores: ``TRACK_SCORE_RTOL`` / ``TRACK_SCORE_ATOL``, looser than the
   unit bounds of ``test_torch_tracker.py`` for two cases these clips hold:
   the reference's fp32 correlation rounds a first-frame score by up to
@@ -62,6 +62,7 @@ from cosmos_curate_tpu_torch.pipelines.video.stages import super_resolution as t
 from tests.fixtures.media import make_scene_video, make_static_video
 from tests.test_torch_engine import LOGIT_TOL, _record_logits
 from tests.test_torch_motion_filter import SCORE_ATOL, SCORE_RTOL
+from tests.fixtures.observability import observability_state  # noqa: F401  (autouse)
 from tests.test_torch_split import CAPTION_MODEL_ID, SPLIT, _cv2_codec, _counts, _files, _frames  # noqa: F401
 
 UINT8_LEVELS = 2

@@ -59,6 +59,7 @@ from cosmos_curate_tpu_torch.models.vlm import CaptionEngine, CaptionRequest, Sa
 from cosmos_curate_tpu_torch.models.vlm import model as tmodel
 from cosmos_curate_tpu_torch.pipelines.video import split as tsplit
 from cosmos_curate_tpu_torch.pipelines.video.stages import captioning as tcap
+from tests.fixtures.observability import observability_state  # noqa: F401  (autouse)
 from tests.test_torch_caption_stage import _tasks, _windows
 from tests.test_torch_engine import LOGIT_TOL, PREFIX, _record_logits
 from tests.test_torch_qwen_vlm import write_gpt2_files

@@ -27,9 +27,12 @@ Tolerances:
   ``LOGIT_TOL`` at every compared step; a window's comparison stops at a
   JAX top-2 margin below ``2 * LOGIT_TOL``, where either token could win).
 
-The JAX ``run_split`` also writes ``report/live/status.json`` (its live
-status, not ported: ROADMAP queue A item 14); file-name comparisons leave
-``report/`` out.
+Both packages' ``run_split`` write ``report/live/status.json`` (the live
+status) on every run, so file-name comparisons take it in like any other
+file. With ``tracing`` both write ``profile/traces/driver.ndjson`` and
+``report/run_report.json``: the traced split holds the span names, the
+report's sections, the dispatch counts and the caption-phase keys against
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -89,6 +92,7 @@ from cosmos_curate_tpu_torch.video import encode as tencode
 from cosmos_curate_tpu_torch.video import splitter as tsplitter
 from cosmos_curate_tpu_torch.video.h264 import h264_available
 from tests.fixtures.media import make_scene_video
+from tests.fixtures.observability import observability_state, preserved_observability_state  # noqa: F401
 from tests.test_torch_engine import LOGIT_TOL, _record_logits
 
 EMBED_TOL = 2e-2
@@ -153,7 +157,7 @@ def _runner(name: str):
 
 
 def _files(out: Path) -> set[str]:
-    return {str(p.relative_to(out)) for p in out.rglob("*") if p.is_file() and p.relative_to(out).parts[0] != "report"}
+    return {str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()}
 
 
 def _frames(source) -> np.ndarray:
@@ -336,7 +340,8 @@ def _jax_split(videos: Path, out: Path) -> dict:
 @pytest.fixture(scope="module")
 def jax_split(videos, tmp_path_factory) -> tuple[Path, dict]:
     out = tmp_path_factory.mktemp("jax_split") / "out"
-    return out, _jax_split(videos, out)
+    with preserved_observability_state():
+        return out, _jax_split(videos, out)
 
 
 @pytest.mark.parametrize("codec", ["cv2", "native"])
@@ -418,20 +423,21 @@ def jax_annotated(annotate_videos, tmp_path_factory):
     mp.setenv(jregistry.WEIGHTS_DIR_ENV, str(root))
     JShared.reset()
     try:
-        eng = JEngine(J_TINY, max_batch=2)
-        eng.setup(9)
-        jregistry.save_params(CAPTION_MODEL_ID, eng.params, root=root)
-        eng.shutdown()
-        sig = jdata.FrameExtractionSignature("fps", 8.0)
-        embed = jembed.ClipEmbeddingStage(variant="video", video_cfg=jemb.VIDEO_EMBED_TINY_TEST, extraction=sig)
-        embed.setup(JWorkerMetadata())  # the stage's seeded init, carried to the port below
-        traced = jcap.CaptionStage(model_flavor="tiny-test")
-        traced.model.setup()  # the shared engine the split's caption stage joins
-        trace = _record_logits(traced.model.engine)
-        summary = jsplit.run_split(
-            jsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(out), extra_stages=[embed],
-                                     **CAPTIONED),
-            runner=JSequentialRunner())
+        with preserved_observability_state():
+            eng = JEngine(J_TINY, max_batch=2)
+            eng.setup(9)
+            jregistry.save_params(CAPTION_MODEL_ID, eng.params, root=root)
+            eng.shutdown()
+            sig = jdata.FrameExtractionSignature("fps", 8.0)
+            embed = jembed.ClipEmbeddingStage(variant="video", video_cfg=jemb.VIDEO_EMBED_TINY_TEST, extraction=sig)
+            embed.setup(JWorkerMetadata())  # the stage's seeded init, carried to the port below
+            traced = jcap.CaptionStage(model_flavor="tiny-test")
+            traced.model.setup()  # the shared engine the split's caption stage joins
+            trace = _record_logits(traced.model.engine)
+            summary = jsplit.run_split(
+                jsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(out), extra_stages=[embed],
+                                         **CAPTIONED),
+                runner=JSequentialRunner())
         yield root, flax_to_state_dict(embed.model._params), out, summary, dict(trace)
     finally:
         JShared.reset()
@@ -500,6 +506,86 @@ def test_split_embed_caption_matches_jax(annotate_videos, jax_annotated, runner,
             if full:
                 assert text == j_text, rid
     assert compared >= len(metas)  # greedy steps held to the rule: 17 of them here
+
+
+def _trace_summary(out: Path) -> dict:
+    """What a traced split left: its span names, run report, dispatch
+    counts and caption-phase keys, and its live status."""
+    spans = [json.loads(line) for f in (out / "profile").rglob("*.ndjson") for line in f.read_text().splitlines()]
+    report = json.loads((out / "report" / "run_report.json").read_text())
+    return dict(
+        names={s["name"] for s in spans}, report=report,
+        dispatch={name: (agg["dispatches"], agg["rows"]) for name, agg in report["dispatch"].items()},
+        caption={name: sorted(agg) for name, agg in report["caption_phases"].items()},
+        status=json.loads((out / "report" / "live" / "status.json").read_text()),
+    )
+
+
+@pytest.fixture(scope="module")
+def jax_traced(annotate_videos, jax_annotated, tmp_path_factory) -> dict:
+    """The JAX run_split of ``jax_annotated``'s settings with ``tracing``,
+    through each of its in-process runners: runner -> trace summary."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv(jregistry.WEIGHTS_DIR_ENV, str(jax_annotated[0]))
+    runs = {}
+    try:
+        for runner in ("sequential", "default"):
+            out = tmp_path_factory.mktemp(f"jax_traced_{runner}") / "out"
+            sig = jdata.FrameExtractionSignature("fps", 8.0)
+            embed = jembed.ClipEmbeddingStage(variant="video", video_cfg=jemb.VIDEO_EMBED_TINY_TEST, extraction=sig)
+            JShared.reset()
+            with preserved_observability_state():
+                jsplit.run_split(
+                    jsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(out),
+                                             extra_stages=[embed], tracing=True, **CAPTIONED),
+                    runner=JSequentialRunner() if runner == "sequential" else JPipelinedRunner(raise_on_error=False))
+            runs[runner] = _trace_summary(out)
+    finally:
+        JShared.reset()
+        mp.undo()
+    return runs
+
+
+@pytest.mark.parametrize("runner", ["sequential", "default"])
+def test_traced_split_matches_jax(annotate_videos, jax_annotated, jax_traced, runner, tmp_path, monkeypatch):
+    """``tracing=True``, refused by earlier slices, runs: the same span
+    names, report sections, dispatch counts and caption-phase keys as the
+    JAX package's traced split through the same kind of runner."""
+    root, embed_params, *_ = jax_annotated
+    monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(root))
+    out = tmp_path / "out"
+    SharedCaptionEngine.reset()
+    try:
+        sig = tdata.FrameExtractionSignature("fps", 8.0)
+        embed = tembed.ClipEmbeddingStage(variant="video", video_cfg=temb.VIDEO_EMBED_TINY_TEST, extraction=sig,
+                                          params=embed_params, device="cpu")
+        summary = tsplit.run_split(
+            tsplit.SplitPipelineArgs(input_path=str(annotate_videos), output_path=str(out), extra_stages=[embed],
+                                     device="cpu", tracing=True, **CAPTIONED),
+            runner=_runner(runner))
+    finally:
+        SharedCaptionEngine.reset()
+    assert summary["num_clips"] == summary["num_with_embeddings"] == summary["num_with_captions"] == 8
+    from cosmos_curate_tpu_torch.observability import tracing as ttracing
+
+    assert not ttracing.tracing_enabled() and ttracing._process_parent is None
+    got, want = _trace_summary(out), jax_traced[runner]
+    assert got["names"] == want["names"]
+    assert {"run.split", "pipeline.run", "stage.ClipEmbeddingStage.process", "device.embed/video-embed-tpu.drain",
+            "caption.submit", "caption.engine", "storage.write"} <= got["names"]
+    report = got["report"]
+    assert set(report) == set(want["report"])
+    assert report["connected"] and want["report"]["connected"] and report["span_count"] > 0
+    assert report["dead_lettered"] == 0 and report["critical_path"][0]["name"] == "run.split"
+    # one embed dispatch per clip batch: the runners' batch sizes decide the
+    # count, so it is exact through the sequential runner; rows always are
+    if runner == "sequential":
+        assert got["dispatch"] == want["dispatch"]
+    assert {k: rows for k, (_, rows) in got["dispatch"].items()} == \
+        {k: rows for k, (_, rows) in want["dispatch"].items()} == {"embed/video-embed-tpu": 8}
+    assert got["caption"] == want["caption"] and list(got["caption"]) == ["CaptionStage"]
+    assert report["caption_phases"]["CaptionStage"]["requests"] == 8
+    assert set(got["status"]) == set(want["status"]) and got["status"]["state"] == "finished"
 
 
 # -- (c2) the split's filters and enhanced captions ---------------------------
@@ -691,7 +777,6 @@ REFUSED_OPTIONS = {
     "sr_sp_size": dict(sr=True, sr_sp_size=2),
     "multicam": dict(multicam=True),
     "qwen_captions": dict(captioning=True, caption_model="qwen3vl-moe-a3b", device="cpu"),
-    "tracing": dict(tracing=True),
     "perf_profile": dict(perf_profile=True),
     "profile_cpu": dict(profile_cpu=True),
     "profile_memory": dict(profile_memory=True),
@@ -715,7 +800,12 @@ def test_unported_options_raise(case, videos, tmp_path, monkeypatch):
     monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(tmp_path / "weights"))
     with pytest.raises(err, match=match):
         tsplit.run_split(tsplit.SplitPipelineArgs(**kw), runner=SequentialRunner())
-    assert not (tmp_path / "out").exists()
+    if case == "qwen_captions":
+        # refused at the caption stage's setup, inside the run: the runner's
+        # final live status is all the run leaves, as in the reference
+        assert _files(tmp_path / "out") == {"report/live/status.json"}
+    else:
+        assert not (tmp_path / "out").exists()
 
 
 # options earlier slices refused, now served: each assembles its stage where
