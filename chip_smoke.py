@@ -129,9 +129,26 @@ and prints one JSON line per phase:
    traced the same way, its spans exported over OTLP/HTTP to a local fake
    collector; a toy pipeline whose hung batch must show as a
    ``stuck_batch`` anomaly in the live status while it hangs.
+   engine (``scripts/engine_phase.py``, right after observe, on the split
+   phase's corpus): run B's settings on its first 2 videos through the
+   default runner plain and then with stage save, cProfile and tracemalloc
+   on (the same uuids and files, embeddings within ``EMBED_BOUND``, every
+   window captioned, a profile and saved batches for every stage, no saved
+   CUDA tensor); the embed stage replayed over its saved batches (held by
+   ``compare_tasks`` against the next stage's saved inputs at
+   ``EMBED_BOUND``, flash launched) and the caption stage (every window
+   captioned, kernels 1-3 launched); one embed call under
+   ``ProfilingConfig(device=True)`` (its Chrome trace's flash kernels equal
+   to the counted launches); the same videos through ``StreamingRunner`` in
+   ``STREAMING`` (traced) and ``BATCH`` mode and through ``MapRunner`` (the
+   baseline's uuids and files, the kernels of ``PIPELINE_KERNELS``
+   launched, the object store's native framing for every driver put, no
+   CPU worker holding the card); ``report``, ``top`` and ``dlq`` as
+   subprocesses of the port's command line.
 
 11. canonical: run C, the reference's canonical split through ``run_split``
-   on the split phase's corpus, clipped as run A clips it (1 s clips, none
+   on the first ``CANONICAL_VIDEOS`` (32) videos of the split phase's
+   corpus, clipped as run A clips it (1 s clips, none
    under 0.5 s): TransNetV2 shot detection (``transnetv2_threshold`` above
    1: the seeded detector has no signal, so no frame is a cut and each
    video is one scene, which ``max_clip_len_s`` cuts into four 1 s clips;
@@ -184,7 +201,7 @@ and prints one JSON line per phase:
    rows with planted near-copies).
     index (``scripts/index_phase.py``, after curate; it sets
    ``CURATE_INDEX_ALLOW_RANDOM=1`` itself, after checking that the gates
-   refuse the seeded models without it): a corpus index of 2^17 x 512
+   refuse the seeded models without it): a corpus index of 2^16 x 512
    planted rows at K = 512 (built: k-means on the card, shard writes on the
    host), ``incremental_dedup`` of 1024 queries at nprobe 8 (exactly the
    512 planted near-copies removed, each ``duplicate_of`` its source), the
@@ -206,10 +223,10 @@ and prints one JSON line per phase:
    filtered, full-frame moving clips kept); tracking (the NCC tracker and
    the siamese tracker from a staged seeded checkpoint on a scaled
    moving-box clip, boxes equal to the CPU path's and on the object, and on
-   32 corpus clips; ms and launches a frame, idle share); sr (one 24-frame
+   32 corpus clips; ms and launches a frame, idle share); sr (one 16-frame
    1280x720 window through the diffusion model, its final conv drawn
    non-zero, and SRNet, bf16 against fp32 on the card; frames/s, chunk
-   group, peak memory); legs_split (run F: 8 corpus videos through
+   group, peak memory); legs_split (run F: 4 corpus videos through
    ``run_split`` with the motion filter, annotated tracking, per-event
    captions and captions at ``VLM_BASE``, every tracked clip with its event
    captions and annotated clip, no clip errors, kernels 1, 2, 3 and 5
@@ -221,7 +238,7 @@ and prints one JSON line per phase:
    line, ``local image-annotate``: run I1 (CLIP ViT-B/16 and the aesthetic
    filter over all of them: images/s, stage busy shares, peak, a sample held
    against the CPU path, the embed stage's idle share), run I2 (the first
-   32 with the semantic filter, the classifier and captions at
+   16 with the semantic filter, the classifier and captions at
    ``VLM_BASE``: three owners of one engine; kernels 1, 2 and 5 launched),
    run I3 (captions from a local fake OpenAI-compatible server that answers
    one 503 first; byte-exact bodies), run I4 (I1 resumed: only the broken
@@ -229,7 +246,8 @@ and prints one JSON line per phase:
    and ``local hello`` as subprocesses, ``local split --config`` on 2
    corpus videos, ``local dedup``, ``local shard``, ``index build``,
    ``query`` and ``stats`` against the entry points called directly, and
-   the refusals of ``--runner streaming`` and ``index serve``.
+   the refusals of ``--runner streaming`` with ``CURATE_ENGINE_DRIVER_PORT``
+   set (the engine's cross-node plane) and ``index serve``.
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -317,7 +335,13 @@ from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# a spawned child (the corpus writers, the streaming engine's and the map
+# runner's CPU workers) imports this script again as ``__mp_main__`` and runs
+# none of its device code: it skips torch, as a worker of the command line
+# (whose main module imports no torch) does
+if __name__ != "__mp_main__":
+    import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
@@ -392,6 +416,9 @@ SPLIT_RSS_SAMPLE_S = 0.05
 # a threshold of 0 keeps about half the clips and drops the rest
 CANONICAL_CLIP_LEN_S = 1.0
 CANONICAL_SHOT_THRESHOLD = 1.5
+# run C's videos: the corpus's first half since the engine phase joined the
+# call (the full call's time, PERF.md §5)
+CANONICAL_VIDEOS = 32
 AESTHETIC_THRESHOLD = 0.0
 CANONICAL_L14_CLIPS = 4  # kept clips whose frames make the L/14 check's batch
 # bf16 detector probabilities vs the fp32 module on the card (a CPU reading
@@ -411,8 +438,9 @@ IV2_CHECK_CLIPS = 4
 # fanned out and with one worker a stage. OCR on the card vs its CPU path:
 # max abs logit difference over the largest CPU logit (stated before the
 # first run; the port's CPU path matches the JAX package within 1e-4 on
-# these weights)
-FILTER_VIDEOS = 16
+# these weights). 8 videos since the engine phase joined the call (16 before;
+# the full call's time, PERF.md §5)
+FILTER_VIDEOS = 8
 FILTER_FANOUT_CPUS = 16
 OCR_BOUND = 1e-4
 OCR_TIMED_CLIPS = 32
@@ -2455,9 +2483,11 @@ def drive_canonical(dev, timer, root: Path, corpus: list[Path]) -> dict:
     stage_classes = (split.VideoDownloadStage, split.TransNetV2ClipExtractionStage, split.ClipTranscodingStage,
                      split.ClipFrameExtractionStage, split.AestheticFilterStage, split.ClipEmbeddingStage,
                      ClipWriterStage)
+    corpus = corpus[:CANONICAL_VIDEOS]
     out = root / "out_canonical"
     args = split.SplitPipelineArgs(
-        input_path=str(corpus[0].parent), output_path=str(out), splitting_algorithm="transnetv2",
+        input_path=str(subset(root, corpus, "videos_canonical", len(corpus))), output_path=str(out),
+        splitting_algorithm="transnetv2",
         transnetv2_threshold=CANONICAL_SHOT_THRESHOLD, min_clip_len_s=0.5, max_clip_len_s=CANONICAL_CLIP_LEN_S,
         extract_fps=(8.0,), extract_resize_hw=(224, 224), aesthetic_threshold=AESTHETIC_THRESHOLD,
         embedding_model="clip")
@@ -2472,7 +2502,7 @@ def drive_canonical(dev, timer, root: Path, corpus: list[Path]) -> dict:
     scores = {u: m["aesthetic_score"] for u, m in {**kept, **filtered}.items()}
     ordered = sorted(scores.values())
     # no frame is a cut: each 4 s video is one scene, four 1 s clips
-    assert summary["num_clips"] == len(scores) == SPLIT_CLIPS, (summary, len(scores))
+    assert summary["num_clips"] == len(scores) == len(corpus) * SPLIT_CLIPS // SPLIT_VIDEOS, (summary, len(scores))
     assert all(isinstance(v, float) and np.isfinite(v) for v in ordered), "a clip's meta has no aesthetic score"
     assert all(scores[u] >= AESTHETIC_THRESHOLD and not m["filtered_by"] for u, m in kept.items()), ordered
     assert all(scores[u] < AESTHETIC_THRESHOLD and m["filtered_by"] == "aesthetic" for u, m in filtered.items())
@@ -3264,6 +3294,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     import curate_phase
     import image_phase
     import index_phase
+    import engine_phase
     import legs_phase
     import observe_phase
 
@@ -3342,6 +3373,9 @@ def _main(stack: contextlib.ExitStack) -> int:
     # traced run B, the traced sequential run over OTLP, stall detection
     observe = observe_phase.run(sys.modules[__name__], dev, timer, root, corpus, split_run)
     checks["flash"]["cases"].update(observe["flash_checked_here"])
+    # stage save / replay / profiling, the streaming engine and the map runner, report / top / dlq
+    engine_run = engine_phase.run(sys.modules[__name__], dev, timer, root, corpus)
+    checks["flash"]["cases"].update(engine_run["flash_checked_here"])
     canonical = drive_canonical(dev, timer, root, corpus)
     emit({"phase": "canonical", **canonical})
     filters = drive_filters(dev, root, corpus)
@@ -3389,6 +3423,7 @@ def _main(stack: contextlib.ExitStack) -> int:
             library_ms=c["library_ms"], bound_share=c["bound_share"], vs_library=c["vs_library"],
             pipeline_launches=pipeline["launches"][name], split_launches=split_run["split_launches"][name],
             observe_launches=observe["launches"][name],
+            engine_launches=engine_run["launches"][name],
             canonical_launches=canonical["launches"][name],
             filters_launches=filters["run"]["launches"][name],
             qwen_launches=qwen["gather" if name == "decode" else "auto"]["launches"][name],

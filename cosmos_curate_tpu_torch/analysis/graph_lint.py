@@ -23,8 +23,10 @@ Checks:
 
 Not ported: the reference's mesh-divisibility check of a stage's declared
 device mesh, which waits for ``Stage.mesh_spec`` (ROADMAP queue A item 7);
-its summed STREAMING budget and worker-count checks, which belong to the
-runners that reserve devices and size pools (ROADMAP queue A item 9b).
+and its summed STREAMING device and CPU budget checks: the port's runners
+(the pipelined runner and the streaming engine, whose device stages are
+threads of the driver) share the host's cards between device stages in
+either execution mode, so their claims are not summed.
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ unless given ``cpu``) on ``hello``, ``split``, ``image-annotate`` and
 ``dedup``; ``shard`` is host work and takes none. ``split`` takes flags or
 a YAML / JSON config (``--config``), as the reference's does.
 
-Refused, naming what they wait for: ``split --runner streaming|map``
-(ROADMAP queue A item 9b), ``av`` (item 19) and ``merge-summaries`` (item
-15). A split option that ``run_split`` refuses passes through and raises
+``split --runner streaming|map`` runs the streaming engine
+(engine/runner.py) or the map runner (core/map_runner.py). Refused, naming
+what they wait for: ``split --runner streaming`` with
+``CURATE_ENGINE_DRIVER_PORT`` set (the cross-node data plane, ROADMAP queue
+A item 15), ``av`` (item 19) and ``merge-summaries`` (item 15). A split option that ``run_split`` refuses passes through and raises
 there; ``split --tracing`` runs.
 """
 
@@ -124,8 +126,8 @@ def register(sub: argparse._SubParsersAction) -> None:
         choices=["auto", "sequential", "pipelined", "streaming", "map"],
         default="auto",
         help="execution backend: stage-overlapped thread pools (pipelined; "
-        "the single-host default), in-process sequential; streaming and "
-        "map are not ported yet",
+        "the single-host default), streaming engine, in-process "
+        "sequential, or barrier map over a process pool",
     )
     split.add_argument("--profile-cpu", action="store_true")
     split.add_argument("--profile-memory", action="store_true")
@@ -286,10 +288,13 @@ def _cmd_shard(args: argparse.Namespace) -> int:
 
 def _split_runner(choice: str):
     """The runner ``--runner`` names (None: run_split's default)."""
-    from cosmos_curate_tpu_torch.core.runner import _NOT_PORTED, SequentialRunner
+    import os
 
-    if choice in _NOT_PORTED:
-        raise NotImplementedError(f"--runner {choice} selects {_NOT_PORTED[choice]}, not ported yet")
+    from cosmos_curate_tpu_torch.core.runner import ENGINE_DRIVER_PORT_ENV, REMOTE_PLANE, SequentialRunner
+
+    if choice == "streaming" and os.environ.get(ENGINE_DRIVER_PORT_ENV):
+        raise NotImplementedError(f"--runner streaming with {ENGINE_DRIVER_PORT_ENV} set selects {REMOTE_PLANE}, "
+                                  "not ported yet")
     if choice == "sequential":
         return SequentialRunner()
     if choice == "pipelined":
@@ -298,6 +303,14 @@ def _split_runner(choice: str):
         # the same poison-batch semantics as `auto` (default_runner):
         # exhausted batches dead-letter, the run continues
         return PipelinedRunner(raise_on_error=False)
+    if choice == "map":
+        from cosmos_curate_tpu_torch.core.map_runner import MapRunner
+
+        return MapRunner()
+    if choice == "streaming":
+        from cosmos_curate_tpu_torch.engine.runner import StreamingRunner
+
+        return StreamingRunner()
     return None
 
 

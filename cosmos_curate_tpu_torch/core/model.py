@@ -15,8 +15,10 @@ across micro-batches.
 from __future__ import annotations
 
 import abc
+from typing import TYPE_CHECKING
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 
 class ModelInterface(abc.ABC):
@@ -51,7 +53,12 @@ class ModelInterface(abc.ABC):
 
 def model_device(device: str | torch.device, what: str) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device where CUDA is not
-    available raises: a model never falls back to the CPU by itself."""
+    available raises: a model never falls back to the CPU by itself.
+    torch is imported here, not with the module: the core's contracts, and
+    the host stages built on them, load without it (the streaming engine's
+    CPU workers start faster)."""
+    import torch
+
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

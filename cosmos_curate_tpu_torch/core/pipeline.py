@@ -5,14 +5,16 @@ The reference counts TPU chips (``num_tpu_chips``); the port counts CUDA
 devices (``num_gpus``). The queue bound the pipelined runner sizes each
 stage's input queue with is the reference's ``StreamingSpec`` formula,
 ``max(max_queued_lower_bound, max_queued_multiplier x workers)``, with its
-two knobs on the config itself. Not ported: the execution mode and the rest
-of the streaming tuning, which the reference's multi-node streaming engine
-reads (ROADMAP queue A item 9b); the port's pipelined runner keeps every
-stage live at once on one host, sharing its cards.
+two knobs on the config itself, where both the pipelined runner and the
+streaming engine read them. ``execution_mode`` (STREAMING keeps every stage
+live at once; BATCH runs stage by stage) and the rest of ``StreamingSpec``
+(the autoscaler's cadence and speed window, the object store's share of
+host memory) are what the streaming engine reads (engine/runner.py).
 """
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Sequence
 
@@ -23,8 +25,29 @@ if TYPE_CHECKING:
     from cosmos_curate_tpu_torch.core.runner import RunnerInterface
 
 
+class ExecutionMode(enum.Enum):
+    """STREAMING keeps every stage's pool live at once; BATCH runs stage by
+    stage, each stage with the whole budget."""
+
+    STREAMING = "streaming"
+    BATCH = "batch"
+
+
+@dataclass
+class StreamingSpec:
+    """The streaming engine's tuning; the reference's defaults (a 180 s
+    autoscale cadence)."""
+
+    autoscale_interval_s: float = 180.0
+    speed_estimation_window_s: float = 180.0
+    # the object store's budget for payloads in flight, a share of host RAM
+    object_store_fraction: float = 0.3
+
+
 @dataclass
 class PipelineConfig:
+    execution_mode: ExecutionMode = ExecutionMode.STREAMING
+    streaming: StreamingSpec = field(default_factory=StreamingSpec)
     return_last_stage_outputs: bool = True
     # CPUs the runner's planner may hand out; None = the host's core count
     num_cpus: float | None = None

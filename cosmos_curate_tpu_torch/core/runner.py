@@ -6,9 +6,13 @@ Both runners open the reference's spans (``pipeline.run``, and per stage
 publish its live-status snapshots (observability/live_status.py) when
 ``CURATE_LIVE_STATUS_DIR`` is set, as ``run_split`` does on every run.
 
-Not ported: the multi-process runners (the streaming engine's
-``StreamingRunner`` and ``MapRunner``); ``default_runner`` refuses them
-instead of falling back to another runner.
+``default_runner`` selects the reference's runners: the pipelined runner
+(core/pipelined_runner.py) by default, and ``CURATE_RUNNER`` names one of
+``sequential``, ``pipelined``, ``engine`` / ``streaming`` (the streaming
+engine, engine/runner.py) or ``map`` (core/map_runner.py). Not ported: the
+streaming engine's cross-node data plane, which ``CURATE_ENGINE_DRIVER_PORT``
+selects; it raises, naming ROADMAP queue A item 15, and never runs
+single-host instead.
 """
 
 from __future__ import annotations
@@ -31,12 +35,8 @@ logger = get_logger(__name__)
 
 RUNNER_ENV = "CURATE_RUNNER"
 ENGINE_DRIVER_PORT_ENV = "CURATE_ENGINE_DRIVER_PORT"
-# runners of the reference that the port does not have yet -> ROADMAP item
-_NOT_PORTED = {
-    "engine": "the streaming engine's StreamingRunner (ROADMAP queue A item 9b)",
-    "streaming": "the streaming engine's StreamingRunner (ROADMAP queue A item 9b)",
-    "map": "MapRunner (ROADMAP queue A item 9b)",
-}
+REMOTE_PLANE = "the streaming engine's cross-node data plane (ROADMAP queue A item 15)"
+RUNNER_CHOICES = ("auto", "sequential", "pipelined", "engine", "streaming", "map")
 
 
 class RunnerInterface(abc.ABC):
@@ -173,25 +173,32 @@ class SequentialRunner(RunnerInterface):
 def default_runner() -> RunnerInterface:
     """Production runner selection.
 
-    ``CURATE_RUNNER=sequential|pipelined`` forces a backend; unset or
-    ``auto`` picks the ``PipelinedRunner`` (stage-overlapped thread pools
-    on this host). ``engine``, ``streaming`` and ``map``, and ``auto`` with
-    a remote data plane configured (``CURATE_ENGINE_DRIVER_PORT``), name
-    runners the port does not have yet: they raise, never fall back.
+    ``CURATE_RUNNER=sequential|pipelined|engine|streaming|map`` forces a
+    backend; unset or ``auto`` picks the ``PipelinedRunner``
+    (stage-overlapped thread pools on this host). ``auto`` with a remote
+    data plane configured (``CURATE_ENGINE_DRIVER_PORT``) selects the
+    streaming engine, as in the reference, whose run then refuses the
+    cross-node plane (ROADMAP queue A item 15); so does an explicit
+    ``engine`` or ``streaming`` with it set. Nothing falls back.
     """
     choice = os.environ.get(RUNNER_ENV, "").strip().lower()
-    known = ("", "auto", "sequential", "pipelined", *_NOT_PORTED)
+    known = ("", *RUNNER_CHOICES)
     if choice not in known:
         # a typo must not silently land on the multi-threaded default
         raise ValueError(f"unknown {RUNNER_ENV}={choice!r}; expected one of {known[1:]}")
     if choice == "sequential":
         return SequentialRunner()
-    if choice in _NOT_PORTED:
-        raise NotImplementedError(f"{RUNNER_ENV}={choice} selects {_NOT_PORTED[choice]}, not ported yet")
-    if choice in ("", "auto") and os.environ.get(ENGINE_DRIVER_PORT_ENV):
-        raise NotImplementedError(
-            f"{ENGINE_DRIVER_PORT_ENV} is set, which selects {_NOT_PORTED['engine']}, not ported yet"
-        )
+    if choice == "map":
+        from cosmos_curate_tpu_torch.core.map_runner import MapRunner
+
+        return MapRunner()
+    if choice in ("engine", "streaming") or (choice in ("", "auto") and os.environ.get(ENGINE_DRIVER_PORT_ENV)):
+        from cosmos_curate_tpu_torch.engine.runner import StreamingRunner
+
+        if os.environ.get(ENGINE_DRIVER_PORT_ENV):
+            raise NotImplementedError(f"{ENGINE_DRIVER_PORT_ENV} is set, which selects {REMOTE_PLANE}, "
+                                      "not ported yet")
+        return StreamingRunner()
     from cosmos_curate_tpu_torch.core.pipelined_runner import PipelinedRunner
 
     # production semantics: an exhausted batch is dead-lettered and the run

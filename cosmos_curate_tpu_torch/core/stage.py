@@ -10,19 +10,24 @@ the local host where the reference's ``Resources.tpus`` counts TPU chips,
 ``Stage.thread_safe`` and the worker counts of ``StageSpec`` are what the
 pipelined runner's fan-out reads (core/pipelined_runner.py).
 
+``StageSpec.worker_max_lifetime_m`` (worker recycling; the reference's
+defaults through ``fill_default_lifetimes``) and ``batch_timeout_s`` (a hung
+batch's deadline) are what the streaming engine reads (engine/runner.py).
+
 Not ported: ``Stage.mesh_spec`` (a stage's declared device mesh), which
-waits for the port's tensor parallelism (ROADMAP queue A item 7); and the
-knobs only the reference's multi-process and multi-node runners read
-(``StageSpec.num_workers_per_node``, lifetimes and recycling, batch
-timeouts, sampling; ``Resources.memory_gb``; ``Stage.env_name`` and
-``node_affinity``), which come back with those runners (ROADMAP queue A
-item 9b).
+waits for the port's tensor parallelism (ROADMAP queue A item 7); the knobs
+only the reference's multi-node engine and planner read
+(``StageSpec.num_workers_per_node`` and ``over_provision_factor``,
+``Resources.memory_gb``, ``Stage.env_name`` and ``node_affinity``), which
+wait for multi-node runs (ROADMAP queue A item 15); and the two that
+nothing in the reference reads (``worker_restart_interval_m``,
+``stage_save_sample_rate``).
 """
 
 from __future__ import annotations
 
 import abc
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Generic, TypeVar
 
 from cosmos_curate_tpu_torch.core.model import ModelInterface
@@ -140,7 +145,27 @@ class StageSpec(Generic[T, V]):
     min_workers: int = 1
     max_workers: int | None = None
     num_run_attempts: int = 1
+    # wall-clock deadline of ONE batch (dispatch -> result) in seconds; None
+    # disables. The streaming engine kills a process worker past it and
+    # re-runs the batch under its worker-death budget; an in-process device
+    # worker cannot be killed and ignores it
+    batch_timeout_s: float | None = None
+    # None = unset (fill_default_lifetimes applies the defaults); 0 = never
+    # recycle
+    worker_max_lifetime_m: int | None = None
 
     @property
     def name(self) -> str:
         return self.stage.name
+
+
+def fill_default_lifetimes(spec: StageSpec) -> StageSpec:
+    """The reference's worker-lifetime defaults: GPU stages recycle at 120
+    min, CPU stages at 60 min, IO stages (below one CPU, no GPU) never. An
+    explicit ``worker_max_lifetime_m`` (0 = never) is kept; the caller's
+    spec is not changed."""
+    if spec.worker_max_lifetime_m is not None:
+        return spec
+    res = spec.stage.resources
+    lifetime = 120 if res.uses_gpu else (60 if res.cpus >= 1 else 0)
+    return replace(spec, worker_max_lifetime_m=lifetime)

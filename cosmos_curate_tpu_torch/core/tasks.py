@@ -3,8 +3,9 @@
 Tasks carry the reference's accounting: a ``weight`` for balancing load
 across workers, a ``fraction`` for progress when one input fans out into
 many tasks (dynamic chunking), and ``get_major_size()`` for payload size.
-The port's one-host runners read none of them; the multi-worker runners
-that do come with ROADMAP queue A item 9.
+No runner of the port reads them, nor do the reference's single-host
+runners: the streaming engine budgets its object store by the bytes of
+each stored object.
 """
 
 from __future__ import annotations

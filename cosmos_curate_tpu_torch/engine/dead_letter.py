@@ -18,8 +18,12 @@ Directories are created lazily: a clean run writes nothing. ``cloudpickle``
 is imported only when a batch is written or read.
 
 An entry carries the trace id of the span that dropped it (``""`` when
-tracing is off), so an entry leads back to its trace. Not ported: the
-node-loss fields of the streaming engine, and the requeue CLI.
+tracing is off), so an entry leads back to its trace. ``find_entry``
+resolves an entry id (or a unique suffix of one) and
+``DlqEntry.mark_requeued`` stamps it: the ``dlq`` command
+(cli/dlq_cli.py) lists, shows and requeues entries. Not ported: the
+node-loss fields (``lost_node``, ``node_deaths``, ``lineage``), which only
+the multi-node engine writes (ROADMAP queue A item 15).
 """
 
 from __future__ import annotations
@@ -56,11 +60,20 @@ class DlqEntry:
     path: Path  # .../<run_id>/batch-<id>-<stage>
     meta: dict
 
+    @property
+    def entry_id(self) -> str:
+        return f"{self.path.parent.name}/{self.path.name}"
+
     def load_tasks(self) -> list:
         import cloudpickle
 
         with open(self.path / "tasks.pkl", "rb") as f:
             return cloudpickle.loads(f.read())
+
+    def mark_requeued(self) -> None:
+        meta = dict(self.meta)
+        meta["requeued_at"] = time.time()
+        (self.path / "meta.json").write_text(json.dumps(meta, indent=2))
 
 
 class DeadLetterQueue:
@@ -93,9 +106,12 @@ class DeadLetterQueue:
         worker_deaths: int,
         reason: str,
         error: str = "",
+        payload_errors: list[str] | None = None,
     ) -> Path | None:
         """Persist one dead batch; returns its directory (None = disabled
-        or failed; the caller's drop proceeds regardless)."""
+        or failed; the caller's drop proceeds regardless).
+        ``payload_errors`` names the payloads the caller could not read
+        back (the entry is partial, and says so)."""
         if not self.enabled:
             return None
         import cloudpickle
@@ -121,6 +137,8 @@ class DeadLetterQueue:
                 # the runners drop from inside their run span
                 "trace_id": current_trace_id() or "",
             }
+            if payload_errors:
+                meta["payload_errors"] = payload_errors
             schema_stamp.stamp(meta, "dlq-meta")
             (entry / "meta.json").write_text(json.dumps(meta, indent=2))
         except Exception:
@@ -181,3 +199,19 @@ def list_entries(root: str | None = None, *, run_id: str | None = None) -> list[
                 meta = {"stage": "?", "batch_id": -1, "error_tail": "unreadable meta.json"}
             out.append(DlqEntry(path=entry, meta=meta))
     return out
+
+
+def find_entry(entry_id: str, root: str | None = None) -> DlqEntry:
+    """Resolve ``<run_id>/<batch-dir>`` (or a unique suffix of it)."""
+    entries = list_entries(root)
+    exact = [e for e in entries if e.entry_id == entry_id]
+    if not exact:
+        exact = [e for e in entries if e.entry_id.endswith(entry_id)]
+    if not exact:
+        raise FileNotFoundError(f"no DLQ entry matching {entry_id!r}")
+    if len(exact) > 1:
+        raise ValueError(
+            f"{entry_id!r} is ambiguous: "
+            + ", ".join(e.entry_id for e in exact[:5])
+        )
+    return exact[0]

@@ -4,10 +4,10 @@ the series the in-process runners, ``CaptionStage`` and
 observability/stage_timer.py write).
 
 Same names as the reference's (``pipeline_*``, ``caption_*``, ``search_*``
-and ``index_*``), so one dashboard reads both. Left out: the deserialize-time
-series (the in-process runners deserialize nothing) and the series of the
-streaming engine, the node agents and the job service, which are not
-ported. The collectors live in
+and ``index_*``), so one dashboard reads both; the streaming engine adds the
+deserialize-time and object-store series. Left out: the series of the node
+agents, node deaths and reconstruction (ROADMAP queue A item 15) and of the
+job service (item 19). The collectors live in
 a registry of their own (``EngineMetrics.registry``, which a caller serves
 with ``prometheus_client.start_http_server(port, registry=...)``): a
 process that also holds the JAX package's gauges would otherwise register
@@ -45,7 +45,11 @@ class EngineMetrics:
         self.process_time_total = Counter(
             "pipeline_stage_process_time_total", "sum of process seconds", labels, **reg
         )
+        self.deserialize_time_total = Counter(
+            "pipeline_stage_deserialize_time_total", "sum of deserialize seconds", labels, **reg
+        )
         self.tasks_total = Counter("pipeline_tasks_processed_total", "tasks out", labels, **reg)
+        self.store_bytes = Gauge("pipeline_object_store_bytes", "object store usage", [], **reg)
         self.errors_total = Counter("pipeline_task_errors_total", "batch errors", labels, **reg)
         # stage-overlap headline (core/pipelined_runner.py): fraction of
         # summed stage work hidden behind other stages over the LAST run
@@ -182,11 +186,17 @@ class EngineMetrics:
         self._caption_owner_seen: set[str] = set()
         self.enabled = True
 
-    def observe_result(self, stage: str, process_s: float, n_out: int) -> None:
+    def observe_result(self, stage: str, process_s: float, n_out: int, deserialize_s: float = 0.0) -> None:
         if not self.enabled:
             return
         self.process_time_total.labels(stage).inc(process_s)
+        if deserialize_s:
+            self.deserialize_time_total.labels(stage).inc(deserialize_s)
         self.tasks_total.labels(stage).inc(n_out)
+
+    def set_store_bytes(self, used: int) -> None:
+        if self.enabled:
+            self.store_bytes.set(used)
 
     def observe_error(self, stage: str) -> None:
         if self.enabled:

@@ -9,6 +9,9 @@ The file is the JAX package's checkpoint format: a flax parameter tree
 serialized with ``msgpack`` (``registry.save_params`` writes it). The port
 reads it with ``msgpack`` alone, imported only when a file exists, and
 bridges it to its own ``state_dict`` through ``models/convert_jax.py``.
+torch and the converter are imported where a checkpoint is read or a
+module filled, not with this module: the split writer asks only for
+``weights_provenance`` (a file hash), from a process that needs no torch.
 Without a file, ``load_params`` falls back to the seeded init with a
 warning (or raises when the caller requires real weights).
 
@@ -23,13 +26,14 @@ import hashlib
 import os
 import tempfile
 from pathlib import Path
-from typing import Any, Callable
+from typing import TYPE_CHECKING, Any, Callable
 
 import numpy as np
-import torch
 
-from cosmos_curate_tpu_torch.models.convert_jax import flax_to_state_dict
 from cosmos_curate_tpu_torch.utils.logging import get_logger
+
+if TYPE_CHECKING:
+    import torch
 
 logger = get_logger(__name__)
 
@@ -112,6 +116,8 @@ def _ndarray_from_bytes(data: bytes) -> np.ndarray:
 
     shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
     if dtype_name == b"bfloat16":  # numpy has no bfloat16: widen through torch
+        import torch
+
         flat = torch.frombuffer(bytearray(buffer), dtype=torch.bfloat16).float().numpy()
         return flat.reshape(shape)
     return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(shape)
@@ -185,6 +191,8 @@ def load_params(
         logger.info("loading %s weights from %s", model_id, ckpt)
         template = init_fn(seed)
         try:
+            from cosmos_curate_tpu_torch.models.convert_jax import flax_to_state_dict
+
             restored = flax_to_state_dict(read_flax_msgpack(ckpt.read_bytes()))
             _assert_shapes_match(template, restored, model_id)
             return restored
@@ -216,6 +224,7 @@ def load_module(
     with ``load_params(model_id)``: the staged checkpoint, or the module's
     own seeded init (``module.init_weights(generator)``)."""
     if params is None:
+        import torch
 
         def init(s: int) -> dict[str, torch.Tensor]:
             gen = torch.Generator(device=next(module.parameters()).device)

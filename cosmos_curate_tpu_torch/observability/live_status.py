@@ -18,8 +18,8 @@ output root on every run; a runner makes a :class:`LiveStatusPublisher`
 from the environment at ``run()`` and publishes from its own loop, never
 from a worker thread. The publisher also drives the anomaly detector
 (observability/anomaly.py) over each snapshot and embeds its verdicts. The
-reference's renderer (the ``top`` and ``report --follow`` commands) waits
-for ROADMAP queue A item 22.
+``render_status`` is the reference's renderer of one snapshot (the ``top``
+and ``report`` commands, cli/top_cli.py and cli/report_cli.py).
 """
 
 from __future__ import annotations
@@ -40,10 +40,16 @@ LIVE_STATUS_ENABLE_ENV = "CURATE_LIVE_STATUS"  # "0" disables publishing
 LIVE_STATUS_INTERVAL_ENV = "CURATE_LIVE_STATUS_INTERVAL_S"
 DEFAULT_INTERVAL_S = 2.0
 STATUS_FILE = "status.json"
+STATUS_REL = "report/live/status.json"
 
 # at most this many in-flight batches per stage ride a snapshot (oldest
 # first — the stuck ones are what the detector and the operator care about)
 MAX_INFLIGHT_PER_STAGE = 16
+
+
+def status_path(output_path: str) -> str:
+    """Canonical snapshot location for a run output root."""
+    return f"{output_path.rstrip('/')}/{STATUS_REL}"
 
 
 def live_status_dir() -> str | None:
@@ -86,6 +92,11 @@ def read_status(path_or_dir: str) -> dict | None:
         except (OSError, ValueError):
             continue
     return None
+
+
+def snapshot_age_s(snapshot: dict, now: float | None = None) -> float:
+    now = time.time() if now is None else now
+    return max(0.0, now - float(snapshot.get("ts") or now))
 
 
 class LiveStatusPublisher:
@@ -213,3 +224,66 @@ class LiveStatusPublisher:
                     "live status publish to %s failed (%s); further failures "
                     "silent", self.path, e,
                 )
+
+
+def render_status(snapshot: dict, *, now: float | None = None) -> str:
+    """Human view of one snapshot: an htop-for-pipelines per-stage table
+    plus anomaly verdicts and the object-plane/caption one-liners."""
+    now = time.time() if now is None else now
+    lines: list[str] = []
+    age = snapshot_age_s(snapshot, now)
+    state = snapshot.get("state", "?")
+    lines.append(
+        f"run: {state.upper()}  runner={snapshot.get('runner', '?')}  "
+        f"wall {float(snapshot.get('wall_s') or 0.0):.1f}s  "
+        f"snapshot #{snapshot.get('seq', '?')} ({age:.1f}s old)  "
+        f"node={snapshot.get('node', '?')} pid={snapshot.get('pid', '?')}"
+    )
+    if state == "running" and age > 30.0:
+        lines.append(
+            f"  WARNING: snapshot is {age:.0f}s stale — publisher wedged or killed?"
+        )
+    stages = snapshot.get("stages") or {}
+    if stages:
+        lines.append(
+            f"  {'stage':<36} {'wrk':>3} {'queue':>5} {'busy%':>5} "
+            f"{'done':>6} {'err':>4} {'dlq':>4} {'inflight':>8} {'oldest':>7}"
+        )
+        for name, st in stages.items():
+            inflight = st.get("inflight") or []
+            oldest = max((float(b.get("age_s") or 0.0) for b in inflight), default=0.0)
+            lines.append(
+                f"  {name:<36} {st.get('workers', 0):>3} "
+                f"{st.get('queue_depth', 0):>5} "
+                f"{100.0 * float(st.get('busy_frac') or 0.0):>4.0f}% "
+                f"{st.get('completed', 0):>6} {st.get('errored', 0):>4} "
+                f"{st.get('dead_lettered', 0):>4} {len(inflight):>8} "
+                f"{oldest:>6.1f}s"
+            )
+    nodes = snapshot.get("nodes") or {}
+    if nodes:
+        hb = ", ".join(
+            f"{n}={float(i.get('heartbeat_age_s') or 0.0):.1f}s"
+            for n, i in sorted(nodes.items())
+        )
+        lines.append(f"  node heartbeat ages: {hb}")
+    if snapshot.get("store_bytes"):
+        lines.append(
+            f"  object store: {float(snapshot['store_bytes']) / 1e6:.1f} MB in flight"
+        )
+    caption = snapshot.get("caption") or {}
+    for name, agg in caption.items():
+        if agg.get("kv_blocks_total"):
+            lines.append(
+                f"  kv pool [{name}]: {agg.get('kv_blocks_used', 0)}/"
+                f"{agg.get('kv_blocks_total', 0)} blocks"
+            )
+    anomalies = snapshot.get("anomalies") or []
+    if anomalies:
+        lines.append(f"  anomalies ({snapshot.get('anomaly_count', len(anomalies))}):")
+        for ev in anomalies[-8:]:
+            t = time.strftime("%H:%M:%S", time.localtime(float(ev.get("ts") or 0)))
+            lines.append(f"    [{t}] {ev.get('kind')} @ {ev.get('stage')}: {ev.get('detail')}")
+    else:
+        lines.append("  anomalies: none")
+    return "\n".join(lines)

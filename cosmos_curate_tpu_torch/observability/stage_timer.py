@@ -11,21 +11,61 @@ object plane's transfers. Each is an aggregate, never a log; each forwards
 to the port's prometheus series (engine/metrics.py), a no-op without
 ``prometheus_client``.
 
+``StageTimer`` is the reference's per-task wall / idle statistics of one
+stage (``stage_timer.py:30``): ``time_process`` around each call,
+``summary`` for count, total, mean, p50, p90, max and idle seconds. Like the
+reference, ``run_split``'s ``perf_profile`` option only carries the flag:
+nothing reads it.
+
 Host code only: a record is folded from numbers the caller already holds.
-The reference's ``StageTimer`` (``perf_profile``) waits for the second
-slice of ROADMAP queue A item 14, and the node agents' object-plane deltas
-for item 15.
+The node agents' object-plane deltas wait for ROADMAP queue A item 15.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
+
+
+@dataclass
+class StageTimer:
+    stage_name: str
+    samples_s: list[float] = field(default_factory=list)
+    idle_s: float = 0.0
+    _last_end: float | None = None
+
+    @contextlib.contextmanager
+    def time_process(self):
+        start = time.monotonic()
+        if self._last_end is not None:
+            self.idle_s += start - self._last_end
+        try:
+            yield
+        finally:
+            end = time.monotonic()
+            self.samples_s.append(end - start)
+            self._last_end = end
+
+    def summary(self) -> dict:
+        arr = np.asarray(self.samples_s)
+        if arr.size == 0:
+            return {"stage": self.stage_name, "count": 0}
+        return {
+            "stage": self.stage_name,
+            "count": int(arr.size),
+            "total_s": float(arr.sum()),
+            "mean_s": float(arr.mean()),
+            "p50_s": float(np.percentile(arr, 50)),
+            "p90_s": float(np.percentile(arr, 90)),
+            "max_s": float(arr.max()),
+            "idle_s": self.idle_s,
+        }
 
 
 @dataclass(frozen=True)

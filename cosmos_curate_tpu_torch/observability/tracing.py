@@ -322,6 +322,20 @@ def tracing_enabled() -> bool:
     return _enabled
 
 
+TRACING_ENV = "CURATE_TRACING"
+
+
+def setup_tracing_from_env() -> None:
+    """Worker start-up hook: turn tracing on when ``CURATE_TRACING=1`` (the
+    streaming engine stamps it into every worker it spawns while the driver
+    traces), writing to the staging dir the artifact collector sweeps, and
+    adopt the driver-stamped ``CURATE_TRACEPARENT``, so the worker's spans
+    join the driver's trace."""
+    if os.environ.get(TRACING_ENV) == "1":
+        enable_tracing()
+        attach_traceparent(os.environ.get(TRACEPARENT_ENV))
+
+
 # -- W3C trace-context propagation ------------------------------------------
 
 _TRACEPARENT_RE = re.compile(r"^00-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$")

@@ -18,8 +18,14 @@ fails on storage or data is logged and leaves the run's output as it is,
 but a device fault propagates.
 
 ``assemble_stages`` raises ``NotImplementedError``, naming the ROADMAP item,
-for every option whose stage is not ported yet (multicam, the profiling
-options, and super resolution's ``sr_sp_size > 1``).
+for every option whose stage is not ported yet (multicam and super
+resolution's ``sr_sp_size > 1``). ``run_split`` wraps the assembled stages
+in the observability wrappers the options ask for
+(``_apply_observability_wrappers``): ``stage_save_rate`` records sampled
+stage inputs under ``<output>/stage_save/`` (observability/stage_replay.py)
+and ``profile_cpu`` / ``profile_memory`` write cProfile / tracemalloc
+artifacts under ``<output>/profile/`` (observability/profiling.py);
+``perf_profile`` is carried and read by nothing, as in the reference.
 ``run_split`` runs the
 accelerator health gate first when ``CURATE_HEALTH_GATE`` is ``on`` or
 ``strict`` (utils/health.py: both abort on an unhealthy card; the port never
@@ -29,9 +35,8 @@ gate). Every run publishes its live status to
 ``<output>/profile/traces/driver.ndjson``, all rooted on one ``run.split``
 span, and the flight recorder writes ``<output>/report/run_report.json`` at
 the end; a recorder failure is logged and leaves the run's output as it is.
-It leaves out what else the reference wraps around the run: the profiling
-wrappers (item 14, second slice), and multi-node initialisation and work
-stealing (item 15).
+It leaves out what else the reference wraps around the run: multi-node
+initialisation and work stealing (item 15).
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from cosmos_curate_tpu_torch.observability import tracing
 from cosmos_curate_tpu_torch.observability.artifacts import collect_artifacts, finalize_delivery
 from cosmos_curate_tpu_torch.observability.flight_recorder import clear_trace_artifacts, write_run_report
 from cosmos_curate_tpu_torch.observability.live_status import export_live_status_dir
+from cosmos_curate_tpu_torch.observability.profiling import ProfilingConfig, profiling_wrapper
+from cosmos_curate_tpu_torch.observability.stage_replay import StageSaveConfig, stage_save_wrapper
 from cosmos_curate_tpu_torch.ops._build import DEVICE_FAULTS
 from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_split_tasks
 from cosmos_curate_tpu_torch.pipelines.video.stages.aesthetic_filter import AestheticFilterStage
@@ -155,16 +162,11 @@ class SplitPipelineArgs:
     device: str = "cuda"
 
 
-_OBSERVABILITY = "the profiling and stage-replay wrappers (ROADMAP queue A item 14, second slice)"
 # (option as set, whether args set it, what it waits for)
 _NOT_PORTED: tuple[tuple[str, Callable[[SplitPipelineArgs], bool], str], ...] = (
     ("sr_sp_size", lambda a: a.sr and a.sr_sp_size > 1,
      "sequence-parallel super resolution (ROADMAP queue A item 7)"),
     ("multicam", lambda a: a.multicam, "multicam sessions (ROADMAP queue A item 11)"),
-    ("perf_profile", lambda a: a.perf_profile, _OBSERVABILITY),
-    ("profile_cpu", lambda a: a.profile_cpu, _OBSERVABILITY),
-    ("profile_memory", lambda a: a.profile_memory, _OBSERVABILITY),
-    ("stage_save_rate", lambda a: a.stage_save_rate > 0, _OBSERVABILITY),
 )
 
 
@@ -285,7 +287,7 @@ def run_split(
         tracing.attach_traceparent(tracing.format_traceparent(run_root))
     try:
         tasks = discover_split_tasks(args.input_path, args.output_path, limit=args.limit)
-        stages = assemble_stages(args)
+        stages = _apply_observability_wrappers(assemble_stages(args), args)
         out = run_pipeline(tasks, stages, config=config, runner=runner) or []
         if args.corpus_index:
             # before the report, so its index aggregates land in it
@@ -294,8 +296,10 @@ def run_split(
         if args.tracing:
             tracing.end_span(run_root)
             tracing.disable_tracing()  # flushes the buffered spans
+        if args.tracing or args.profile_cpu or args.profile_memory:
             collect_artifacts(args.output_path)
             finalize_delivery(args.output_path)
+        if args.tracing:
             try:
                 write_run_report(args.output_path, runner=runner)
             except Exception:
@@ -306,6 +310,24 @@ def run_split(
     write_summary(f"{args.output_path.rstrip('/')}/summary.json", summary)
     logger.info("split done: %d videos, %d clips, %.1fs", summary["num_videos"], summary["num_clips"], elapsed)
     return summary
+
+
+def _apply_observability_wrappers(stages: list[Stage | StageSpec], args: SplitPipelineArgs) -> list[Stage | StageSpec]:
+    """Stage-save and profiling wrappers, each a subclass made at run time
+    around the stage instance (no stage code changes); stage-save goes on
+    first, so the profiler also times the saving."""
+    out_root = args.output_path.rstrip("/")
+    instances = [s.stage if isinstance(s, StageSpec) else s for s in stages]
+    if args.stage_save_rate > 0:
+        save = StageSaveConfig(output_path=f"{out_root}/stage_save", sample_rate=args.stage_save_rate,
+                               stages=args.stage_save_stages)
+        for stage in instances:
+            stage_save_wrapper(stage, save)
+    if args.profile_cpu or args.profile_memory:
+        prof = ProfilingConfig(cpu=args.profile_cpu, memory=args.profile_memory, output_path=f"{out_root}/profile")
+        for stage in instances:
+            profiling_wrapper(stage, prof)
+    return stages
 
 
 def _consolidate_corpus_index(args: SplitPipelineArgs) -> dict:

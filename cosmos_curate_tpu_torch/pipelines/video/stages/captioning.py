@@ -1,8 +1,9 @@
 """Captioning stages: CPU prep + the GPU engine stage (port of
 ``cosmos_curate_tpu/pipelines/video/stages/captioning.py``).
 
-The prep stage cuts each clip into caption windows (``compute_windows``)
-and samples each window's frames; the caption stage streams every window
+The prep stage (``CaptionPrepStage``, in caption_prep.py, re-exported
+here) cuts each clip into caption windows (``compute_windows``) and
+samples each window's frames; the caption stage streams every window
 of every clip through the process-level shared ``CaptionEngine``
 (models/vlm/shared_engine.py) with continuous batching, optionally with a
 second refinement pass per window.
@@ -28,12 +29,11 @@ from __future__ import annotations
 import itertools
 import time
 
-import numpy as np
 import torch
 
 from cosmos_curate_tpu_torch.core.model import ModelInterface, model_device
 from cosmos_curate_tpu_torch.core.stage import Resources, Stage
-from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature, SplitPipeTask, Window
+from cosmos_curate_tpu_torch.data.model import SplitPipeTask, Window
 from cosmos_curate_tpu_torch.engine.metrics import get_metrics
 from cosmos_curate_tpu_torch.models import registry
 from cosmos_curate_tpu_torch.models.prompts import REFINEMENT_PROMPT, get_caption_prompt
@@ -44,59 +44,10 @@ from cosmos_curate_tpu_torch.models.vlm.model import VLM_BASE, VLMConfig, vlm_fl
 from cosmos_curate_tpu_torch.observability import stage_timer
 from cosmos_curate_tpu_torch.observability.tracing import traced_span
 from cosmos_curate_tpu_torch.models.vlm.shared_engine import SharedCaptionEngine
+from cosmos_curate_tpu_torch.pipelines.video.stages.caption_prep import CaptionPrepStage  # noqa: F401  (re-export)
 from cosmos_curate_tpu_torch.utils.logging import get_logger
-from cosmos_curate_tpu_torch.video.windowing import compute_windows
 
 logger = get_logger(__name__)
-
-
-class CaptionPrepStage(Stage[SplitPipeTask, SplitPipeTask]):
-    """CPU prep: cut clips into caption windows and attach window frames."""
-
-    def __init__(
-        self,
-        *,
-        window_len: int = 256,
-        remainder_threshold: int = 128,
-        frames_per_window: int = 8,
-        extraction: FrameExtractionSignature = FrameExtractionSignature("fps", 2.0),
-    ) -> None:
-        self.window_len = window_len
-        self.remainder_threshold = remainder_threshold
-        self.frames_per_window = frames_per_window
-        self.extraction = extraction
-
-    @property
-    def resources(self) -> Resources:
-        return Resources(cpus=3.0)
-
-    def process_data(self, tasks: list[SplitPipeTask]) -> list[SplitPipeTask]:
-        key = self.extraction.key()
-        for task in tasks:
-            for clip in task.video.clips:
-                frames = clip.extracted_frames.get(key)
-                if frames is None or frames.shape[0] == 0:
-                    continue
-                # windows are defined over source frames; map them to
-                # extracted frame indices proportionally
-                src_frames = max(1, int(clip.duration_s * task.video.metadata.fps))
-                spans = compute_windows(
-                    src_frames, window_len=self.window_len, remainder_threshold=self.remainder_threshold
-                )
-                n_ext = frames.shape[0]
-                clip.windows = []
-                for a, b in spans:
-                    ea = int(a / src_frames * n_ext)
-                    eb = max(ea + 1, int(b / src_frames * n_ext))
-                    idx = np.linspace(ea, min(eb, n_ext) - 1, self.frames_per_window)
-                    win = Window(start_frame=a, end_frame=b)
-                    win.frames = frames[idx.round().astype(int)]
-                    # effective sampling rate of the window's frames in
-                    # source time (temporal m-rope scaling)
-                    span_s = (b - a) / max(task.video.metadata.fps, 1e-6)
-                    win.frame_fps = self.frames_per_window / max(span_s, 1e-6)
-                    clip.windows.append(win)
-        return tasks
 
 
 # Each stage instance is one engine OWNER: requests carry the stage's

@@ -102,6 +102,18 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
         # one IndexStore for the run (built on the first fragment)
         self._index_store: IndexStore | None = None
 
+    def __getstate__(self) -> dict:
+        # the streaming engine ships the stage to its worker processes: the
+        # lock and the run's index store are made anew there
+        state = dict(self.__dict__)
+        state.pop("_memo_lock")
+        state["_index_store"] = None
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._memo_lock = threading.Lock()
+
     @property
     def resources(self) -> Resources:
         return Resources(cpus=0.5)

@@ -46,8 +46,9 @@ zeroed just before it and read just after. One JSON line per phase:
   ``index build``, ``query`` and ``stats`` on it, each exiting 0 with the
   same counts as ``run_split``, ``run_dedup``, ``run_shard`` and
   ``incremental_dedup`` called directly; ``local split --runner
-  streaming`` and ``index serve`` raise ``NotImplementedError`` naming
-  their ROADMAP item.
+  streaming`` with ``CURATE_ENGINE_DRIVER_PORT`` set (the engine's
+  cross-node plane) and ``index serve`` raise ``NotImplementedError``
+  naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -91,7 +92,9 @@ SAMPLE = 16  # I1 images held against the CPU path
 # (tests/test_torch_clip.py STAGE_TOL)
 EMBED_BOUND = 3e-3
 SCORE_BOUND = 2e-2
-CAPTION_IMAGES = 32
+# I2 and I3's stills: 16 since the engine phase joined the call (32 before;
+# the full call's time, PERF.md §5)
+CAPTION_IMAGES = 16
 EMBED_DIM = 512  # CLIP ViT-B/16's projection
 CLASSIFIER_LABELS = ("photo", "illustration", "screenshot", "document")
 API_PROMPT = "Describe this image in one detailed sentence."  # ImageApiCaptionStage's default
@@ -588,11 +591,15 @@ def drive_cli(cs, dev, root: Path, corpus: list[Path]) -> dict:
     for name, run in runs.items():
         assert run["rc"] == 0, (name, run["printed"])
 
-    refused = {"local split --runner streaming": refusal(["local", "split", "--input-path", str(videos),
-                                                          "--output-path", str(root / "refused"), "--runner",
-                                                          "streaming"]),
+    os.environ["CURATE_ENGINE_DRIVER_PORT"] = "7070"
+    try:
+        streaming = refusal(["local", "split", "--input-path", str(videos), "--output-path", str(root / "refused"),
+                             "--runner", "streaming"])
+    finally:
+        os.environ.pop("CURATE_ENGINE_DRIVER_PORT")
+    refused = {"local split --runner streaming (remote plane)": streaming,
                "index serve": refusal(["index", "serve", "--index-path", f"{split_out}/index"])}
-    assert "item 9b" in refused["local split --runner streaming"] and "item 19" in refused["index serve"], refused
+    assert "item 15" in streaming and "item 19" in refused["index serve"], refused
     return dict(
         subprocess={"info_rc": info.returncode, "info": info.stdout.strip().splitlines(),
                     "hello_rc": hello.returncode, "hello_device_cuda_lines": hello.stdout.count("device=cuda"),

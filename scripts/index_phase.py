@@ -58,12 +58,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# 2^17 rows: the parquet IO of the reference's list<double> shards bounds
-# every step of the phase (build, cold dedup, server warm-up, compaction),
-# and at 2^18 the phase took ~120 s of the full call's 1200 s limit
-INDEX_N = 1 << 17
+# 2^16 rows: the parquet IO of the reference's list<double> shards bounds
+# every step of the phase (build, cold dedup, server warm-up, compaction);
+# at 2^18 the phase took ~120 s of the full call's 1200 s limit, and 2^17
+# (~67 s) became too much once the engine phase joined the call
+INDEX_N = 1 << 16
 INDEX_DIM = 512  # clip-text-b-tpu's projection and the `clip` embedding's width
-INDEX_K = 512  # 256 rows a cluster
+INDEX_K = 512  # 128 rows a cluster
 INDEX_NPROBE = 8
 INDEX_TOP_K = 8
 INDEX_QUERIES = 1024  # half near-copies of indexed rows, half fresh rows
@@ -466,7 +467,7 @@ def drive_index(cs, dev, timer) -> dict:
             out.update(
                 config={"n": INDEX_N, "dim": INDEX_DIM, "k": INDEX_K, "nprobe": INDEX_NPROBE, "top_k": INDEX_TOP_K,
                         "queries": INDEX_QUERIES, "eps": DEDUP_EPS, "cache_bytes": CACHE_BYTES,
-                        "cut": "N = 2^17, an eighth of the k-means phase's 2^20: the reference's list<double> "
+                        "cut": "N = 2^16, a sixteenth of the k-means phase's 2^20: the reference's list<double> "
                                "shards bound every step's IO, and 2^20 x 512 are 4 GB on disk",
                         "allow_random": "set by the phase"},
                 rows_made_s=rows_s, build={"wall_s": build_s, "kmeans_s": build_times["kmeans_fit"][0],

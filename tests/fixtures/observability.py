@@ -34,6 +34,7 @@ ENV_NAMES = (
     "CURATE_OTLP_ENDPOINT",
     "OTEL_EXPORTER_OTLP_ENDPOINT",
     "CURATE_TRACE_DIR",
+    "CURATE_STORE_OWNER",
 )
 # stage_timer's aggregates (dicts and one set), in both packages
 _AGGREGATES = ("_DISPATCH", "_FOLDED", "_FLOW", "_CAPTION", "_INDEX", "_SEARCH", "_ANOMALY_COUNTS", "_OP",

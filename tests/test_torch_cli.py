@@ -3,11 +3,12 @@
 
 - ``load_pipeline_config``: the same results (list -> tuple coercion) and
   the same errors as the reference's, JSON and YAML.
-- The parser walk: the ``local`` and ``index`` groups of both parsers,
-  subcommand by subcommand and action by action (option strings, dest,
-  default, choices, required, nargs, type, const, action class); the only
-  difference allowed is the port's ``--device``; ``info``, ``local`` and
-  ``index`` are the port's only groups.
+- The parser walk: the ``local``, ``index`` and ``dlq`` groups of both
+  parsers, subcommand by subcommand, and the ``report`` and ``top``
+  commands, action by action (option strings, dest, default, choices,
+  required, nargs, type, const, action class); the only difference allowed
+  is the port's ``--device``; ``info``, ``local``, ``dlq``, ``report``,
+  ``top`` and ``index`` are the port's only groups.
 - ``main``'s exit codes (2 with no command or on ``FileNotFoundError``, 130
   on an interrupt) in both packages; every refusal raises
   ``NotImplementedError`` naming its ROADMAP item.
@@ -18,7 +19,10 @@
   stride), ``local shard`` of that split, ``local dedup``, and ``index
   build`` and ``query``; the printed summaries without what the clock or
   the output path decides (nor the port's ``ops`` and ``cache`` counters
-  in the index's stats), and the output files. Split, dedup and every
+  in the index's stats), and the output files; ``report``, ``top --once``
+  (a run directory, and a fake job service on a local port) and ``dlq
+  list|show|requeue`` through both command lines on the same run
+  directory and dead-letter queue. Split, dedup and every
   ``index`` action are also held against the port's own entry points
   called directly. Where bytes differ for a reason outside the port, the
   test says which: a split clip's mp4 is x264's, which differs between two
@@ -131,10 +135,13 @@ def _actions(parser: argparse.ArgumentParser) -> dict[str, tuple]:
 
 def test_parser_walk_matches_jax():
     jtop, ttop = _subcommands(jmain.build_parser()), _subcommands(tmain.build_parser())
-    assert sorted(ttop) == ["index", "info", "local"] and set(ttop) <= set(jtop)
+    assert sorted(ttop) == ["dlq", "index", "info", "local", "report", "top"] and set(ttop) <= set(jtop)
     assert _actions(tmain.build_parser()).keys() == _actions(jmain.build_parser()).keys() - {"<sub>"} | {"<sub>"}
     walked = 0
-    for group in ("local", "index"):
+    for command in ("report", "top"):
+        assert _actions(ttop[command]) == _actions(jtop[command]), command
+        walked += len(_actions(ttop[command]))
+    for group in ("local", "index", "dlq"):
         jsub, tsub = _subcommands(jtop[group]), _subcommands(ttop[group])
         assert list(tsub) == list(jsub), group
         for name, jparser in jsub.items():
@@ -185,15 +192,17 @@ def test_main_exit_codes(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["local", "split", "--runner", "streaming"], "item 9b"),
-    (["local", "split", "--runner", "map"], "item 9b"),
+    (["local", "split", "--runner", "streaming"], "item 15"),
     (["local", "av", "ingest"], "item 19"),
     (["local", "merge-summaries"], "item 15"),
     (["index", "serve", "--index-path", "x"], "item 19"),
     (["local", "split", "--multicam", "--device", "cpu"], "item 11"),
     (["local", "split", "--sr", "--sr-sp-size", "2", "--device", "cpu"], "item 7"),
-], ids=["streaming", "map", "av", "merge-summaries", "index-serve", "multicam", "sr-sp"])
-def test_refusals_name_their_roadmap_item(argv, item, tmp_path):
+], ids=["streaming", "av", "merge-summaries", "index-serve", "multicam", "sr-sp"])
+def test_refusals_name_their_roadmap_item(argv, item, tmp_path, monkeypatch):
+    if "streaming" in argv:
+        # the streaming engine runs; its cross-node data plane is refused
+        monkeypatch.setenv("CURATE_ENGINE_DRIVER_PORT", "7070")
     if argv[:2] in (["local", "split"], ["local", "av"]):
         argv = [*argv, "--input-path", str(tmp_path), "--output-path", str(tmp_path / "out")]
     if argv[:2] == ["local", "merge-summaries"]:
@@ -424,3 +433,200 @@ def test_index_actions_match_their_entry_points(split_out, tmp_path, capsys):
     assert _printed(capsys)["index_path"] == index
     assert tmain.main(["index", "compact", "--index-path", index, "--device", "cpu", "--force"]) == 0
     assert _printed(capsys)["published"] is True
+
+
+# -- report, top and dlq -----------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def traced_run(tmp_path_factory):
+    """A traced port split (``SequentialRunner``) that both command lines
+    read: its run report, its final live status."""
+    from tests.fixtures.observability import preserved_observability_state
+
+    root = tmp_path_factory.mktemp("traced_cli")
+    videos = root / "videos"
+    videos.mkdir()
+    make_scene_video(videos / "v0.mp4", scene_len_frames=24, num_scenes=2)
+    with preserved_observability_state():
+        tsplit.run_split(tsplit.SplitPipelineArgs(input_path=str(videos), output_path=str(root / "out"), tracing=True,
+                                                  fixed_stride_len_s=1.0, min_clip_len_s=0.5, device="cpu"),
+                         runner=SequentialRunner())
+    return root / "out"
+
+
+def _both(argv, capsys) -> tuple[tuple[int, str], tuple[int, str]]:
+    """(exit code, stdout) of the port's and the JAX command line."""
+    rc = tmain.main(argv)
+    out = capsys.readouterr().out
+    j_rc = jmain.main(argv)
+    return (rc, out), (j_rc, capsys.readouterr().out)
+
+
+def _phase_keys():
+    sys.path.insert(0, str(REPO / "scripts"))
+    import engine_phase
+
+    return engine_phase
+
+
+def test_report_matches_the_jax_cli(traced_run, capsys):
+    """``report`` on a traced run, as JSON and rendered, and on the
+    report's own path, through both command lines."""
+    (rc, out), (j_rc, j_out) = _both(["report", str(traced_run), "--json"], capsys)
+    assert rc == j_rc == 0 and json.loads(out) == json.loads(j_out)
+    assert _phase_keys().REPORT_KEYS <= set(json.loads(j_out))  # what the engine phase asks of the card's run
+    for argv in (["report", str(traced_run)], ["report", str(traced_run / "report" / "run_report.json")]):
+        (rc, out), (j_rc, j_out) = _both(argv, capsys)
+        assert rc == j_rc == 0 and out == j_out and "CONNECTED" in out
+    (rc, out), (j_rc, j_out) = _both(["report", str(traced_run), "--rebuild", "--json"], capsys)
+    rebuilt, j_rebuilt = json.loads(out), json.loads(j_out)
+    assert rc == j_rc == 0 and set(rebuilt) == set(j_rebuilt)
+    for key in ("span_count", "trace_ids", "connected", "critical_path", "spans_by_name", "stage_times"):
+        assert rebuilt[key] == j_rebuilt[key], key
+
+
+def test_report_of_a_run_without_a_report(tmp_path, capsys):
+    """A running snapshot renders under RUN IN PROGRESS (exit 0); a finished
+    one without spans is an error (2); nothing at all is an error too."""
+    live = tmp_path / "report" / "live"
+    live.mkdir(parents=True)
+    for state, code in (("running", 0), ("finished", 2)):
+        (live / "status.json").write_text(json.dumps({"version": 1, "ts": 0, "seq": 1, "state": state,
+                                                      "runner": "streaming", "stages": {"S": {"workers": 1}},
+                                                      "anomalies": []}))
+        (rc, out), (j_rc, j_out) = _both(["report", str(tmp_path)], capsys)
+        assert rc == j_rc == code and out == j_out
+        if state == "running":
+            assert "RUN IN PROGRESS" in out and "S" in out
+    (rc, _), (j_rc, _) = _both(["report", str(tmp_path / "missing")], capsys)
+    assert rc == j_rc == 2
+
+
+def _mask_age(text: str) -> str:
+    import re
+
+    return re.sub(r"\(\d+\.\d+s old\)", "(age)", text)
+
+
+def test_top_matches_the_jax_cli(traced_run, tmp_path, capsys):
+    (rc, out), (j_rc, j_out) = _both(["top", str(traced_run), "--once", "--json"], capsys)
+    snap = json.loads(out)
+    assert rc == j_rc == 0 and snap == json.loads(j_out) and snap["state"] == "finished"
+    assert _phase_keys().TOP_KEYS <= set(json.loads(j_out))
+    (rc, out), (j_rc, j_out) = _both(["top", str(traced_run), "--once"], capsys)
+    assert rc == j_rc == 0 and _mask_age(out) == _mask_age(j_out) and "FINISHED" in out
+    (rc, out), (j_rc, j_out) = _both(["top", str(tmp_path), "--once"], capsys)
+    assert rc == j_rc == 2 and out == j_out and "no live snapshot" in out
+
+
+@pytest.fixture
+def job_service():
+    """A fake job service on a free local port: ``/health``, ``/v1/slo``
+    and one job's ``/v1/jobs/<id>/status``."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    snapshot = {"version": 1, "ts": 0, "seq": 3, "state": "running", "runner": "pipelined", "wall_s": 2.5,
+                "stages": {"Embed": {"queue_depth": 2, "busy_frac": 0.5, "workers": 1, "completed": 4,
+                                     "errored": 0, "dead_lettered": 0, "inflight": [{"batch_id": 9, "age_s": 1.0}]}},
+                "anomalies": [], "anomaly_count": 0}
+    docs = {
+        "/health": {"status": "ok", "ready": True, "dispatcher_running": True, "journal_writable": True,
+                    "queued": {"interactive": 1, "batch": 2}, "max_concurrent": 2, "states": {"running": 1},
+                    "running_jobs": ["j1"]},
+        "/v1/slo": {"tenants": {"t": {"queue_wait": {"mean_s": 1.0, "max_s": 2.0},
+                                      "run_duration": {"mean_s": 3.0, "max_s": 4.0},
+                                      "success_rate": {"rate": 0.5}, "breaches_total": 1}}},
+        "/v1/jobs/j1/status": {"job_id": "j1", "state": "running", "tenant": "t", "attempts": 1,
+                               "snapshot": snapshot},
+    }
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def do_GET(self):  # noqa: N802
+            body = json.dumps(docs.get(self.path, {"detail": "missing"})).encode()
+            self.send_response(200 if self.path in docs else 404)
+            self.send_header("content-length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+@pytest.mark.parametrize("view", ["service", "job", "job_url"])
+@pytest.mark.parametrize("as_json", [False, True], ids=["text", "json"])
+def test_top_of_a_job_service_matches_the_jax_cli(job_service, view, as_json, capsys):
+    argv = {"service": ["top", job_service], "job": ["top", job_service, "--job", "j1"],
+            "job_url": ["top", f"{job_service}/v1/jobs/j1/status"]}[view] + ["--once"] + (["--json"] if as_json else [])
+    (rc, out), (j_rc, j_out) = _both(argv, capsys)
+    assert rc == j_rc == 0
+    if as_json:
+        assert json.loads(out) == json.loads(j_out)
+    else:
+        assert _mask_age(out) == _mask_age(j_out)
+        assert ("queues: interactive=1  batch=2" in out) if view == "service" else ("Embed" in out)
+
+
+@pytest.fixture
+def dead_letters(tmp_path, monkeypatch):
+    """A dead-letter queue with one batch the port's runner dropped."""
+    from cosmos_curate_tpu_torch.core.pipeline import run_pipeline
+    from tests.fixtures.engine_stages_torch import FailOn13Stage, Item
+
+    root = tmp_path / "dlq"
+    monkeypatch.setenv("CURATE_DLQ_DIR", str(root))
+    runner = SequentialRunner(raise_on_error=False)
+    run_pipeline([Item(value=v) for v in (1, 13)], [FailOn13Stage()], runner=runner)
+    assert runner.dead_lettered == 1
+    return root
+
+
+def test_dlq_list_and_show_match_the_jax_cli(dead_letters, capsys):
+    (rc, out), (j_rc, j_out) = _both(["dlq", "list", "--json", "--dlq-dir", str(dead_letters)], capsys)
+    entries = json.loads(out)
+    assert rc == j_rc == 0 and entries == json.loads(j_out) and len(entries) == 1
+    assert _phase_keys().DLQ_KEYS <= set(entries[0])
+    entry = entries[0]["entry"]
+    assert entries[0]["stage"] == "FailOn13Stage" and "boom on 13" in entries[0]["error_tail"]
+    for argv in (["dlq", "list", "--dlq-dir", str(dead_letters)], ["dlq", "show", entry, "--dlq-dir", str(dead_letters)],
+                 ["dlq", "show", entry.split("/")[1], "--dlq-dir", str(dead_letters)]):
+        (rc, out), (j_rc, j_out) = _both(argv, capsys)
+        assert rc == j_rc == 0 and out == j_out
+    assert "[0] Item:" in out
+    (rc, out), (j_rc, j_out) = _both(["dlq", "show", "nothing-like-it", "--dlq-dir", str(dead_letters)], capsys)
+    assert rc == j_rc == 2
+
+
+def test_dlq_requeue_matches_the_jax_cli(dead_letters, tmp_path, capsys):
+    import shutil
+
+    import cloudpickle
+
+    j_root = tmp_path / "jdlq"
+    shutil.copytree(dead_letters, j_root)
+    requeued = {}
+    for name, main, root in (("port", tmain.main, dead_letters), ("jax", jmain.main, j_root)):
+        entry = json.loads(_run_json(main, ["dlq", "list", "--json", "--dlq-dir", str(root)], capsys))[0]["entry"]
+        out = tmp_path / f"{name}.pkl"
+        assert main(["dlq", "requeue", entry, "--dlq-dir", str(root), "--out", str(out)]) == 0
+        printed = capsys.readouterr().out
+        assert printed == f"1 task(s) from {entry} -> {out}\n"
+        listed = json.loads(_run_json(main, ["dlq", "list", "--json", "--dlq-dir", str(root)], capsys))
+        requeued[name] = ([t.value for t in cloudpickle.loads(out.read_bytes())], listed[0]["requeued_at"] > 0)
+    assert requeued["port"] == requeued["jax"] == ([13], True)
+
+
+def _run_json(main, argv, capsys) -> str:
+    assert main(argv) == 0
+    return capsys.readouterr().out

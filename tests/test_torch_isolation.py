@@ -39,7 +39,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
     assert out.returncode == 0, out.stdout + out.stderr
     lines = out.stdout.splitlines()
     n_modules = int(lines[0].split()[0])
-    assert n_modules >= 117
+    assert n_modules >= 129
     names = set(lines[1].split())
     for module in ("models.clip", "models.internvideo2", "models.transnetv2", "pipelines.video.stages.aesthetic_filter",
                    "pipelines.video.stages.shot_detection", "models.vlm.vision_qwen", "models.vlm.chat",
@@ -57,7 +57,11 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "pipelines.image.api_caption", "pipelines.examples.hello_world",
                    "pipelines.examples.chunking_demo", "cli.main", "cli.local_cli", "cli.index_cli",
                    "observability.tracing", "observability.stage_timer", "observability.anomaly",
-                   "observability.live_status", "observability.artifacts", "observability.flight_recorder"):
+                   "observability.live_status", "observability.artifacts", "observability.flight_recorder",
+                   "observability.profiling", "observability.stage_replay", "observability.stage_compare",
+                   "engine.object_store", "engine.worker", "engine.pool", "engine.runner", "core.map_runner",
+                   "data.lazy", "cli.report_cli", "cli.top_cli", "cli.dlq_cli",
+                   "pipelines.video.stages.caption_prep"):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -79,7 +83,7 @@ def test_observability_layer_imports_neither_torch_nor_jax():
     )
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) == 6
+    assert int(out.stdout.split()[0]) == 9  # profiling, stage_replay and stage_compare joined the six
 
 
 def test_engine_defaults_to_the_gpu():
@@ -530,3 +534,58 @@ def test_run_split_with_the_legs_defaults_to_the_gpu(option, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         split.run_split(args, runner=SequentialRunner())
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/engine_phase.py", "scripts/observe_phase.py"])
+def test_chip_scripts_import_neither_jax_nor_the_reference(script):
+    """The card's scripts run the port alone: no import of jax, flax or the
+    JAX package anywhere in them (the card's machine has no jax)."""
+    import ast
+
+    tree = ast.parse((REPO / script).read_text())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import) for a in node.names]
+    names += [node.module for node in ast.walk(tree) if isinstance(node, ast.ImportFrom) and node.module]
+    bad = [n for n in names if n.split(".")[0] in ("jax", "flax", "cosmos_curate_tpu")]
+    assert not bad, bad
+    assert any(n.startswith("cosmos_curate_tpu_torch") for n in names) or script == "scripts/observe_phase.py"
+
+
+def test_engine_workers_import_no_jax_and_claim_no_card():
+    """What a spawned CPU worker of the streaming engine loads: the worker
+    module, the split's host stages (no torch, so a worker starts in about
+    a second) and its environment, which hides the cards."""
+    script = textwrap.dedent(
+        """
+        import sys
+        from cosmos_curate_tpu_torch.engine import pool, worker
+        import cosmos_curate_tpu_torch.core.map_runner
+        # the split's host stages: their workers start without torch
+        from cosmos_curate_tpu_torch.pipelines.video.stages import (caption_prep, clip_extraction, download,
+                                                                    frame_extraction, writer)
+        env = pool._base_worker_env()
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "cosmos_curate_tpu", "torch"))
+        print(env["CUDA_VISIBLE_DEVICES"] == "", bad)
+        sys.exit(1 if bad or env["CUDA_VISIBLE_DEVICES"] != "" else 0)
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("runner", ["streaming", "map"])
+def test_run_split_through_the_engine_runners_defaults_to_the_gpu(runner, tmp_path, monkeypatch):
+    """``CURATE_RUNNER=streaming|map`` with a model stage and no ``device``:
+    the stages are built for the card, so without one the run refuses
+    before any worker starts."""
+    import torch
+
+    from cosmos_curate_tpu_torch.pipelines.video import split
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    monkeypatch.setenv("CURATE_RUNNER", runner)
+    (tmp_path / "in").mkdir()
+    args = split.SplitPipelineArgs(input_path=str(tmp_path / "in"), output_path=str(tmp_path / "out"),
+                                   embedding_model="video")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        split.run_split(args)

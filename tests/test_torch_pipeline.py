@@ -486,16 +486,24 @@ def test_default_runner_selection(monkeypatch):
         assert runner.raise_on_error is False
     monkeypatch.setenv("CURATE_RUNNER", "sequential")
     assert isinstance(default_runner(), SequentialRunner)
-    # the reference's multi-process runners are not ported: they raise and
-    # name their ROADMAP item, never fall back to another runner
-    for choice in ("engine", "streaming", "map"):
+    # the reference's multi-process runners, as it selects them
+    from cosmos_curate_tpu_torch.core.map_runner import MapRunner
+    from cosmos_curate_tpu_torch.engine.runner import StreamingRunner
+
+    for choice in ("engine", "streaming"):
         monkeypatch.setenv("CURATE_RUNNER", choice)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            default_runner()
-    monkeypatch.setenv("CURATE_RUNNER", "auto")
+        assert isinstance(default_runner(), StreamingRunner)
+    monkeypatch.setenv("CURATE_RUNNER", "map")
+    assert isinstance(default_runner(), MapRunner)
+    # a remote data plane selects the streaming engine's cross-node part,
+    # not ported: it raises and names its ROADMAP item, never falls back
     monkeypatch.setenv("CURATE_ENGINE_DRIVER_PORT", "7070")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        default_runner()
+    for choice in ("auto", "engine", "streaming"):
+        monkeypatch.setenv("CURATE_RUNNER", choice)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 15"):
+            default_runner()
+    monkeypatch.setenv("CURATE_RUNNER", "map")
+    assert isinstance(default_runner(), MapRunner)
     # a typo fails loudly, never silently lands on the threaded default
     monkeypatch.setenv("CURATE_RUNNER", "sequental")
     with pytest.raises(ValueError, match="unknown CURATE_RUNNER"):

@@ -777,10 +777,6 @@ REFUSED_OPTIONS = {
     "sr_sp_size": dict(sr=True, sr_sp_size=2),
     "multicam": dict(multicam=True),
     "qwen_captions": dict(captioning=True, caption_model="qwen3vl-moe-a3b", device="cpu"),
-    "perf_profile": dict(perf_profile=True),
-    "profile_cpu": dict(profile_cpu=True),
-    "profile_memory": dict(profile_memory=True),
-    "stage_save_rate": dict(stage_save_rate=0.5),
 }
 
 
@@ -828,6 +824,52 @@ SERVED_OPTIONS = {
     "tracking_annotated": (dict(tracking_annotated=True), None),
     "per_event_captions": (dict(per_event_captions=True, caption_model="tiny-test"), "PerEventCaptionStage"),
 }
+
+
+# the options the observability wrappers serve, and the files only they write
+OBSERVED_OPTIONS = {
+    "perf_profile": (dict(perf_profile=True), ()),
+    "profile_cpu": (dict(profile_cpu=True), ("profile/cpu/",)),
+    "profile_memory": (dict(profile_memory=True), ("profile/memory/",)),
+    "stage_save_rate": (dict(stage_save_rate=0.5), ("stage_save/stage_inputs/",)),
+}
+
+
+def _observed_files(out: Path) -> tuple[set, set]:
+    """(the run's files but the observability wrappers', those files with
+    pids and timestamps masked)."""
+    import re
+
+    files = _files(out)
+    extra = {f for f in files if f.startswith(("profile/", "stage_save/"))}
+    return files - extra, {re.sub(r"\d+", "N", f) for f in extra}
+
+
+@pytest.mark.parametrize("option", list(OBSERVED_OPTIONS))
+def test_observability_options_match_jax(option, videos, jax_split, tmp_path):
+    """Each option runs in both packages and leaves the run's output as it
+    is: the profiles (named ``<stage>-<pid>``), saved batches
+    (``batch-<ns>.pkl``) and delivery index are the reference's.
+    ``perf_profile`` is carried and read by nothing, in both."""
+    kw, prefixes = OBSERVED_OPTIONS[option]
+    j_out, j_plain = tmp_path / "jout", jax_split[0]
+    out = tmp_path / "out"
+    with preserved_observability_state():
+        j_summary = jsplit.run_split(jsplit.SplitPipelineArgs(input_path=str(videos), output_path=str(j_out),
+                                                              **SPLIT, **kw), runner=JSequentialRunner())
+    summary = tsplit.run_split(tsplit.SplitPipelineArgs(input_path=str(videos), output_path=str(out), **SPLIT, **kw),
+                               runner=SequentialRunner())
+    assert _counts(summary) == _counts(j_summary)
+    files, extra = _observed_files(out)
+    j_files, j_extra = _observed_files(j_out)
+    assert files == j_files == _files(j_plain)
+    assert _metas(out) == _metas(j_out)
+    # which batches a rate of 0.5 records is the seeded draw: the same
+    assert extra == j_extra
+    # every extra file is the option's own (or the delivery index of the
+    # profile tree the run collected)
+    assert all(f.startswith((*prefixes, "profile/collected/")) for f in extra)
+    assert bool(extra) == bool(prefixes)
 
 
 def _preview_tasks(data, frames_by_clip):
