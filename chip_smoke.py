@@ -9,8 +9,9 @@ and prints one JSON line per phase:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA,
    which optional modules import (``cv2``, ``msgpack``, ``cloudpickle``,
-   ``prometheus_client``, ``pyarrow``, ``regex``), and which FFmpeg
-   libraries and headers are installed;
+   ``prometheus_client``, ``pyarrow``, ``regex``, ``boto3``,
+   ``google.cloud.storage``, ``yaml``), and which FFmpeg libraries and
+   headers are installed;
 2. build: seconds to compile every kernel (one ``nvcc`` per source, in
    parallel), and the HGMMA / UTMALDG / FFMA counts of the tensor-core
    kernels' SASS (flash, prefill, paged: each must hold wgmma and TMA loads);
@@ -109,7 +110,7 @@ and prints one JSON line per phase:
    codec the clips were written with and the native H.264 writer's status,
    flash launches, the device's peak memory and the host's peak RSS; it
    asserts 256 clips cut, transcoded, embedded and written (256 metas, 256
-   parquet rows of finite unit-norm embeddings). Run B captions the first 4
+   parquet rows of finite unit-norm embeddings). Run B captions the first 2
    videos (``captioning=True``, ``caption_model="base"``): every window of
    every meta captioned, and paged decode, paged prefill, prefill and
    flash launched. Then the first 2 videos through ``SequentialRunner`` and
@@ -130,7 +131,7 @@ and prints one JSON line per phase:
    collector; a toy pipeline whose hung batch must show as a
    ``stuck_batch`` anomaly in the live status while it hangs.
    engine (``scripts/engine_phase.py``, right after observe, on the split
-   phase's corpus): run B's settings on its first 2 videos through the
+   phase's corpus): run B's settings on its first video through the
    default runner plain and then with stage save, cProfile and tracemalloc
    on (the same uuids and files, embeddings within ``EMBED_BOUND``, every
    window captioned, a profile and saved batches for every stage, no saved
@@ -147,7 +148,7 @@ and prints one JSON line per phase:
    subprocesses of the port's command line.
 
 11. canonical: run C, the reference's canonical split through ``run_split``
-   on the first ``CANONICAL_VIDEOS`` (32) videos of the split phase's
+   on the first ``CANONICAL_VIDEOS`` (16) videos of the split phase's
    corpus, clipped as run A clips it (1 s clips, none
    under 0.5 s): TransNetV2 shot detection (``transnetv2_threshold`` above
    1: the seeded detector has no signal, so no frame is a cut and each
@@ -226,7 +227,7 @@ and prints one JSON line per phase:
    32 corpus clips; ms and launches a frame, idle share); sr (one 16-frame
    1280x720 window through the diffusion model, its final conv drawn
    non-zero, and SRNet, bf16 against fp32 on the card; frames/s, chunk
-   group, peak memory); legs_split (run F: 4 corpus videos through
+   group, peak memory); legs_split (run F: 2 corpus videos through
    ``run_split`` with the motion filter, annotated tracking, per-event
    captions and captions at ``VLM_BASE``, every tracked clip with its event
    captions and annotated clip, no clip errors, kernels 1, 2, 3 and 5
@@ -238,7 +239,7 @@ and prints one JSON line per phase:
    line, ``local image-annotate``: run I1 (CLIP ViT-B/16 and the aesthetic
    filter over all of them: images/s, stage busy shares, peak, a sample held
    against the CPU path, the embed stage's idle share), run I2 (the first
-   16 with the semantic filter, the classifier and captions at
+   8 with the semantic filter, the classifier and captions at
    ``VLM_BASE``: three owners of one engine; kernels 1, 2 and 5 launched),
    run I3 (captions from a local fake OpenAI-compatible server that answers
    one 503 first; byte-exact bodies), run I4 (I1 resumed: only the broken
@@ -248,6 +249,21 @@ and prints one JSON line per phase:
    ``query`` and ``stats`` against the entry points called directly, and
    the refusals of ``--runner streaming`` with ``CURATE_ENGINE_DRIVER_PORT``
    set (the engine's cross-node plane) and ``index serve``.
+    remote (``scripts/remote_phase.py``, after image and cli): the
+   repository's fake S3, GCS and Azure servers on 127.0.0.1 in this
+   process (every SigV4 and Shared Key signature verified), the first 2
+   corpus videos uploaded to ``s3://`` and a seeded ``VIDEO_EMBED_BASE``
+   checkpoint (~397 MB, multipart) with its sha256 under an ``s3://``
+   ``CURATE_WEIGHTS_URI``; run A's settings from ``s3://`` to ``az://``
+   through the default runner with an empty staging directory (the
+   checkpoint pulled once by ranged reads and verified, flash launched,
+   every embedding within ``EMBED_BOUND`` of a local run on the same
+   checkpoint, the same files by video and span), a resumed run that
+   discovers nothing, a traced run through two HTTP 503s (the retries read
+   from its ``storage.read`` spans), ``run_dedup`` and ``run_shard`` to
+   ``gs://`` equal to the same calls on a local copy, and ``local split``
+   as a subprocess from ``s3://`` to ``gs://``; walls beside the local
+   run's, requests and bytes a backend, the pull's MB/s.
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -395,14 +411,15 @@ EFFICIENCY_TASKS = 4  # 16 windows: through the engine alone, then CaptionStage
 # settings (bench.py:217-227), built by this script's own copy of its
 # generator: 64 videos of 2 scenes x 48 frames at 24 fps, 1280x720, mp4v,
 # seeded per video with 1000 + i; 1 s fixed-stride clips, 8 fps frames at
-# 224^2, embedding_model="video". Run B captions the first 4 videos at
-# VLM_BASE; the runner agreement takes the first 2
+# 224^2, embedding_model="video". Run B captions the first 2 videos at
+# VLM_BASE (4 before the remote phase joined the call: the full call's
+# time, PERF.md §5); the runner agreement takes the first 2
 SPLIT_VIDEOS = 64
 SPLIT_SCENE_FRAMES = 48
 SPLIT_NUM_SCENES = 2
 SPLIT_FRAME_W, SPLIT_FRAME_H = 1280, 720
 SPLIT_CLIPS = SPLIT_VIDEOS * SPLIT_NUM_SCENES * SPLIT_SCENE_FRAMES // 24
-SPLIT_CAPTION_VIDEOS = 4
+SPLIT_CAPTION_VIDEOS = 2
 SPLIT_AGREEMENT_VIDEOS = 2
 SPLIT_RSS_SAMPLE_S = 0.05
 # canonical phase (run C): the split corpus's 64 videos, clipped as run A
@@ -416,9 +433,10 @@ SPLIT_RSS_SAMPLE_S = 0.05
 # a threshold of 0 keeps about half the clips and drops the rest
 CANONICAL_CLIP_LEN_S = 1.0
 CANONICAL_SHOT_THRESHOLD = 1.5
-# run C's videos: the corpus's first half since the engine phase joined the
-# call (the full call's time, PERF.md §5)
-CANONICAL_VIDEOS = 32
+# run C's videos: the corpus's first quarter since the remote phase joined
+# the call (32 before, 64 before the engine phase; the full call's time,
+# PERF.md §5)
+CANONICAL_VIDEOS = 16
 AESTHETIC_THRESHOLD = 0.0
 CANONICAL_L14_CLIPS = 4  # kept clips whose frames make the L/14 check's batch
 # bf16 detector probabilities vs the fp32 module on the card (a CPU reading
@@ -450,7 +468,8 @@ OCR_TIMED_CLIPS = 32
 # splits with regex; previews are WebP through PIL; a staged T5
 # tokenizer.json loads through tokenizers); the device phase reports which
 # are here
-OPTIONAL_MODULES = ("cv2", "msgpack", "cloudpickle", "prometheus_client", "pyarrow", "regex", "PIL", "tokenizers")
+OPTIONAL_MODULES = ("cv2", "msgpack", "cloudpickle", "prometheus_client", "pyarrow", "regex", "PIL", "tokenizers",
+                    "boto3", "google.cloud.storage", "yaml")
 FFMPEG_LIBRARIES = ("avcodec", "avformat", "avutil", "swscale", "x264")
 # embed phase: stage calls timed, clips per task (4 one-second clips of
 # bench.py's videos), so each call is one 32-clip dispatch
@@ -3297,6 +3316,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     import engine_phase
     import legs_phase
     import observe_phase
+    import remote_phase
 
     started = time.monotonic()
     dev = torch.device("cuda", 0)
@@ -3392,6 +3412,9 @@ def _main(stack: contextlib.ExitStack) -> int:
     # image (runs I1-I4 and the video embedder on stills), cli
     image = image_phase.run(sys.modules[__name__], dev, timer, root, corpus)
     checks["flash"]["cases"].update(image["image"]["flash_checked_here"])
+    # remote storage: s3:// -> az:// with the checkpoint pulled from s3://, dedup and shard to gs://
+    remote = remote_phase.run(sys.modules[__name__], dev, timer, root, corpus)
+    checks["flash"]["cases"].update(remote["flash_checked_here"])
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3440,6 +3463,7 @@ def _main(stack: contextlib.ExitStack) -> int:
             image_launches={run: image["image"][run]["launches"][name] for run in ("i1", "i2", "i3", "i4")}
             | {"video_on_stills": image["image"]["video_on_stills"]["launches"][name]},
             cli_launches=sum(c["launches"][name] for c in image["cli"]["commands"].values()),
+            remote_launches=remote["launches"][name],
             cases=c.get("cases"),
         ))
     emit({"phase": "timing", "script_s": time.monotonic() - started})

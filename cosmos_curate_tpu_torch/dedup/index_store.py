@@ -31,9 +31,11 @@ first, then the small ``MANIFEST.json`` pointer (an atomic rename), so a
 reader sees the old or the new generation, never half of one. Compaction
 (dedup/compaction.py) is the only writer of manifests.
 
-Only the parquet backend is ported: an index whose ``meta.json`` pins
-``lance``, lance fragments at a root, or ``backend="lance"`` raise
-``NotImplementedError`` (ROADMAP queue A item 21).
+Only the parquet backend is ported: at a local root, an index whose
+``meta.json`` pins ``lance``, lance fragments, or ``backend="lance"`` raise
+``NotImplementedError`` (ROADMAP queue A item 21). A remote root (``s3://``,
+``gs://``, ``az://``) is parquet in both packages: lance falls back to it
+with a warning, as in the reference.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from pathlib import Path
 
 import numpy as np
 
-from cosmos_curate_tpu_torch.storage.client import get_storage_client, read_bytes, write_bytes
+from cosmos_curate_tpu_torch.storage.client import get_storage_client, is_remote_path, read_bytes, write_bytes
 from cosmos_curate_tpu_torch.storage.writers import write_json, write_npy
 from cosmos_curate_tpu_torch.utils import schema_stamp
 from cosmos_curate_tpu_torch.utils.logging import get_logger
@@ -103,7 +105,13 @@ class IndexStore:
         backend = backend or meta.get("backend") or "parquet"
         if backend not in ("lance", "parquet"):
             raise ValueError(f"unknown index backend {backend!r}")
-        if backend == "lance" or _has_lance_fragments(self.root):
+        if is_remote_path(self.root):
+            # lance writes local roots only, in the reference too: a remote
+            # index is parquet, and its root is never globbed as a local path
+            if backend == "lance":
+                logger.warning("lance backend unavailable for %s; falling back to parquet", self.root)
+                backend = "parquet"
+        elif backend == "lance" or _has_lance_fragments(self.root):
             raise NotImplementedError(f"{self.root}: {LANCE_NOT_PORTED}")
         self.backend = backend
 

@@ -32,6 +32,9 @@ from cosmos_curate_tpu_torch.models import registry
 from cosmos_curate_tpu_torch.models.batching import next_pow2
 from cosmos_curate_tpu_torch.models.device_pipeline import DevicePipeline
 from cosmos_curate_tpu_torch.models.layers import LayerNorm, Linear, TransformerBlock
+from cosmos_curate_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 
 @dataclass(frozen=True)
@@ -277,7 +280,13 @@ class FallbackClipTokenizer:
 def clip_text_tokenizer(variant: str, cfg: CLIPTextConfig):
     """The query tokenizer of ``variant``: the checkpoint's staged CLIP BPE
     when both files are present, else the fallback sized to the config's
-    vocabulary."""
+    vocabulary. The BPE files are pulled from ``CURATE_WEIGHTS_URI`` where
+    they are there and not staged; an unreachable store leaves the
+    fallback."""
+    try:
+        registry.maybe_pull_tokenizer_files(variant)
+    except (OSError, RuntimeError) as e:  # storage errors are RuntimeErrors; the fallback below serves
+        logger.warning("tokenizer files of %s not pulled: %s", variant, e)
     vocab = registry.find_model_file(variant, "vocab.json")
     merges = registry.find_model_file(variant, "merges.txt")
     if vocab is not None and merges is not None:

@@ -7,11 +7,12 @@ L2-normalised vector. On the GPU every attention layer of both (12 in the
 ViT-B/16, 4 in the base pooler) runs the flash kernel
 (``ops/flash_attention.py``).
 
-Weights: :meth:`VideoEmbedder.setup` initialises from a seed with flax's
-initialisers, or loads a ``state_dict`` given as ``params`` (for example
-the JAX model's parameters through ``models/convert_jax.py``); unlike the
-canonical path's models, it does not read a staged checkpoint through
-``models/registry.py`` yet (no such checkpoint is in the repository).
+Weights: :meth:`VideoEmbedder.setup` loads a ``state_dict`` given as
+``params`` (for example the JAX model's parameters through
+``models/convert_jax.py``), else ``model_id``'s checkpoint through
+``models/registry.py`` (staged, committed, or pulled from
+``CURATE_WEIGHTS_URI``), else initialises from a seed with flax's
+initialisers.
 """
 
 from __future__ import annotations

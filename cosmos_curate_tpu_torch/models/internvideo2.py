@@ -303,7 +303,7 @@ class IV2Embedder(ModelInterface):
 
     def setup(self) -> None:
         # refuse before building the tower: 1B parameters for nothing
-        if self.params is None and self.require_weights and registry.find_checkpoint(self.model_id) is None:
+        if self.params is None and self.require_weights and registry.resolve_checkpoint(self.model_id) is None:
             raise RuntimeError(
                 f"{self.model_id} requires trained weights: pass params= or stage "
                 f"{registry.local_dir_for(self.model_id) / 'params.msgpack'}"

@@ -12,12 +12,17 @@ bridges it to its own ``state_dict`` through ``models/convert_jax.py``.
 torch and the converter are imported where a checkpoint is read or a
 module filled, not with this module: the split writer asks only for
 ``weights_provenance`` (a file hash), from a process that needs no torch.
-Without a file, ``load_params`` falls back to the seeded init with a
-warning (or raises when the caller requires real weights).
-
-Not ported: pulling checkpoints or tokenizer files from remote storage
-(``CURATE_WEIGHTS_URI``). Only local files are read; the caption BPE is
-``weights/caption-tokenizer``.
+Where ``CURATE_WEIGHTS_URI`` names a prefix (``s3://``, ``gs://``,
+``az://`` or a local path), a model without a local checkpoint pulls
+``{uri}/{model-id}/params.msgpack`` into its staging directory first
+(``maybe_pull_remote_weights``): under a file lock, by ranged reads through
+a sha256 check against the ``.sha256`` sidecar where one exists, into a
+temporary file renamed into place, so that the worker processes of one host
+pull once and no reader sees a partial file. A checkpoint that fails its
+check raises ``WeightsIntegrityError``; it never falls back to the seeded
+init. Without a file, local or pulled, ``load_params`` falls back to the
+seeded init with a warning (or raises when the caller requires real
+weights).
 """
 
 from __future__ import annotations
@@ -38,9 +43,16 @@ if TYPE_CHECKING:
 logger = get_logger(__name__)
 
 WEIGHTS_DIR_ENV = "CURATE_MODEL_WEIGHTS_DIR"
+# the remote prefix checkpoints are pulled from on demand
+WEIGHTS_URI_ENV = "CURATE_WEIGHTS_URI"
 # weights committed with the repository, searched after the staging dir so
 # a staged checkpoint always wins
 REPO_WEIGHTS_DIR = Path(__file__).resolve().parent.parent.parent / "weights"
+
+
+class WeightsIntegrityError(RuntimeError):
+    """A pulled checkpoint failed its sha256 check: the run aborts, and never
+    falls back to the seeded init."""
 
 
 # model id -> description, filled by the model modules that register an id
@@ -75,6 +87,131 @@ def find_model_file(model_id: str, filename: str) -> Path | None:
 
 def find_checkpoint(model_id: str) -> Path | None:
     return find_model_file(model_id, "params.msgpack")
+
+
+# files beside a converted checkpoint that its tokenizer needs: the
+# GPT-2-format pair of the Qwen flavors and the CLIP towers, T5's
+# tokenizer.json
+TOKENIZER_AUX_FILES = ("vocab.json", "merges.txt", "tokenizer.json")
+# bytes a ranged read of a pulled checkpoint asks for
+PULL_CHUNK = 32 * 1024 * 1024
+
+
+def stage_weights_on_node(model_ids: list[str]) -> None:
+    """A host's staging step: each model's directory made, and its
+    checkpoint pulled where ``CURATE_WEIGHTS_URI`` names a prefix."""
+    for mid in model_ids:
+        local_dir_for(mid).mkdir(parents=True, exist_ok=True)
+        maybe_pull_remote_weights(mid)
+
+
+def maybe_pull_remote_weights(model_id: str) -> Path | None:
+    """Pull ``{CURATE_WEIGHTS_URI}/{model_id}/params.msgpack`` into the
+    staging directory unless it is there; its local path, or None without a
+    prefix or where the backend reads the object as missing. (On S3 and
+    Azure the size probe answers a missing object with the backend's
+    HTTP 404 error, which raises, as in the reference.)
+
+    Concurrent processes of one host take a file lock, and the bytes land in
+    a temporary file renamed into place, so the host pulls once whatever its
+    worker count. The object streams by ranged reads (where the backend has
+    ``read_range`` and ``size``) through a sha256 that must equal the
+    ``params.msgpack.sha256`` sidecar where one exists, so a multi-GB
+    checkpoint never sits whole in memory and a torn pull is never staged.
+    """
+    uri = os.environ.get(WEIGHTS_URI_ENV, "").rstrip("/")
+    if not uri:
+        return None
+    dest = local_dir_for(model_id) / "params.msgpack"
+    if dest.exists():
+        return dest
+    from cosmos_curate_tpu_torch.storage.client import get_storage_client
+    from cosmos_curate_tpu_torch.utils.file_lock import file_lock
+
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    with file_lock(dest.parent / ".staging.lock"):
+        if dest.exists():  # another process pulled it while this one waited
+            return dest
+        remote = f"{uri}/{model_id}/params.msgpack"
+        client = get_storage_client(remote)
+        try:
+            want = client.read_bytes(f"{remote}.sha256").decode().split()[0]
+        except FileNotFoundError:
+            want = ""
+        ranged = hasattr(client, "read_range") and hasattr(client, "size")
+        tmp = dest.with_suffix(".msgpack.tmp")
+        digest = hashlib.sha256()
+        size = 0
+        try:
+            with tmp.open("wb") as fh:
+                if ranged:
+                    total = client.size(remote)
+                    for start in range(0, total, PULL_CHUNK):
+                        part = client.read_range(remote, start, min(start + PULL_CHUNK, total) - 1)
+                        digest.update(part)
+                        fh.write(part)
+                        size += len(part)
+                else:
+                    data = client.read_bytes(remote)
+                    digest.update(data)
+                    fh.write(data)
+                    size = len(data)
+        except FileNotFoundError:
+            tmp.unlink(missing_ok=True)
+            logger.info("no remote weights at %s", remote)
+            return None
+        except BaseException:
+            tmp.unlink(missing_ok=True)
+            raise
+        if want and digest.hexdigest() != want:
+            tmp.unlink(missing_ok=True)
+            raise WeightsIntegrityError(
+                f"weights integrity check failed for {remote}: sha256 {digest.hexdigest()} != manifest {want}")
+        tmp.rename(dest)  # atomic: no reader sees a partial file
+        logger.info("staged %s from %s (%d bytes)", model_id, remote, size)
+        return dest
+
+
+def maybe_pull_tokenizer_files(model_id: str) -> None:
+    """Pull the tokenizer files of ``TOKENIZER_AUX_FILES`` that the remote
+    prefix holds for ``model_id`` and the staging directory lacks. Called
+    only where a converted checkpoint is in play, so other models pay no
+    request that must fail."""
+    uri = os.environ.get(WEIGHTS_URI_ENV, "").rstrip("/")
+    if not uri:
+        return
+    from cosmos_curate_tpu_torch.storage.client import get_storage_client
+
+    for name in TOKENIZER_AUX_FILES:
+        dest = local_dir_for(model_id) / name
+        if dest.exists():
+            continue
+        remote = f"{uri}/{model_id}/{name}"
+        try:
+            data = get_storage_client(remote).read_bytes(remote)
+        except FileNotFoundError:
+            continue
+        dest.parent.mkdir(parents=True, exist_ok=True)
+        tmp = dest.with_name(dest.name + ".tmp")
+        tmp.write_bytes(data)
+        tmp.rename(dest)
+        logger.info("staged %s for %s", name, model_id)
+
+
+def resolve_checkpoint(model_id: str) -> Path | None:
+    """The checkpoint ``load_params`` would read: a staged or committed one,
+    else one pulled from ``CURATE_WEIGHTS_URI``. A failed pull is logged and
+    reads as none, but a checksum mismatch raises."""
+    ckpt = find_checkpoint(model_id)
+    if ckpt is not None:
+        return ckpt
+    try:
+        return maybe_pull_remote_weights(model_id)
+    except WeightsIntegrityError:
+        raise  # a corrupt pull aborts; it never falls back to the seeded init
+    except Exception:  # an unreachable store reads as "no checkpoint", as in the reference
+        logger.exception("remote weight staging failed for %s", model_id)
+        return None
 
 
 _PROVENANCE_CACHE: dict[tuple[str, int], str] = {}
@@ -178,15 +315,15 @@ def load_params(
     require: bool = False,
 ) -> dict[str, Any]:
     """The staged weights of ``model_id`` as a ``state_dict`` when a
-    checkpoint is present, else ``init_fn(seed)`` (the seeded init) with a
-    warning.
+    checkpoint is present or pulled (``resolve_checkpoint``), else
+    ``init_fn(seed)`` (the seeded init) with a warning.
 
     ``init_fn`` returns the model's own ``state_dict``, the template every
     checkpoint parameter's name and shape is checked against. A checkpoint
     that does not match raises when ``require`` is set and otherwise falls
     back to the seeded init with an error logged; ``require=True`` also
     raises when no checkpoint exists."""
-    ckpt = find_checkpoint(model_id)
+    ckpt = resolve_checkpoint(model_id)
     if ckpt is not None:
         logger.info("loading %s weights from %s", model_id, ckpt)
         template = init_fn(seed)

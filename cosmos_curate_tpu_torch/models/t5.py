@@ -252,6 +252,11 @@ class T5EncoderTPU(ModelInterface):
         tokenizer with more ids than the config embeds."""
         from cosmos_curate_tpu_torch.models.tokenizer import ByteTokenizer, t5_tokenizer
 
+        # the remote checkpoint first, so the guard below sees what
+        # load_params will load; its tokenizer.json only where a checkpoint
+        # is in play
+        if registry.resolve_checkpoint(self.MODEL_ID) is not None:
+            registry.maybe_pull_tokenizer_files(self.MODEL_ID)
         tok = t5_tokenizer(self.MODEL_ID)
         if isinstance(tok, ByteTokenizer) and registry.find_checkpoint(self.MODEL_ID):
             raise FileNotFoundError(

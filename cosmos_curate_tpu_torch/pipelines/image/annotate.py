@@ -368,12 +368,15 @@ class ImagePipelineArgs:
 
 def discover_image_tasks(input_path: str, output_path: str | None = None, *, limit: int = 0) -> list[ImageTask]:
     """Every image under ``input_path`` without a resume record under
-    ``<output_path>/processed_images``, up to ``limit``."""
+    ``<output_path>/processed_images``, up to ``limit``. The records are
+    listed through the output's own backend: the reference lists them
+    through the input's, so a run whose input and output sit on different
+    backends rediscovers every image."""
     client = get_storage_client(input_path)
     done: set[str] = set()
     if output_path:
         prefix = f"{output_path.rstrip('/')}/processed_images"
-        for info in client.list_files(prefix, suffixes=(".json",)):
+        for info in get_storage_client(prefix).list_files(prefix, suffixes=(".json",)):
             try:
                 done.add(json.loads(read_bytes(info.path))["path"])
             except Exception:

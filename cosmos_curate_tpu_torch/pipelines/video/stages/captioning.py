@@ -101,6 +101,7 @@ class _CaptionVLM(ModelInterface):
         the repository's caption tokenizer (trained BPE, else bytes)."""
         if self._tokenizer is None:
             if self.hf_chat:
+                registry.maybe_pull_tokenizer_files(self.model_id)
                 vocab = registry.find_model_file(self.model_id, "vocab.json")
                 merges = registry.find_model_file(self.model_id, "merges.txt")
                 if vocab is None or merges is None:
@@ -134,7 +135,7 @@ class _CaptionVLM(ModelInterface):
         # setup, not the first inference; so do missing weights a flavor
         # requires, before a full-size model is built
         tokenizer = self.tokenizer
-        if self.require_weights and registry.find_checkpoint(self.model_id) is None:
+        if self.require_weights and registry.resolve_checkpoint(self.model_id) is None:
             raise RuntimeError(
                 f"no staged weights for {self.model_id} under {registry.local_dir_for(self.model_id) / 'params.msgpack'}"
             )

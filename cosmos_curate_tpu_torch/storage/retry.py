@@ -1,9 +1,12 @@
 """Shared HTTP retry policy (port of ``cosmos_curate_tpu/storage/retry.py``).
 
 The backoff schedule and the retryable-status set for every HTTP client of
-the port: today the image API caption stage
-(``pipelines/image/api_caption.py``); the remote storage backends that the
-reference built it for come with ROADMAP queue A item 10.
+the port: the S3, Azure and GCS REST backends (``s3_rest.py``,
+``azure_rest.py``, ``gcs_rest.py``), the zip transport
+(``zip_transport.py``) and the image API caption stage
+(``pipelines/image/api_caption.py``). The three backends share one attempt
+loop, :func:`urlopen_with_retries`, which calls :func:`chaos_storage_fault`
+before every attempt and :func:`sleep_backoff` after every retried failure.
 
 Backoff is exponential with **full jitter**: ``sleep ~ U(0, min(cap, base *
 2**attempt))``, so a fleet of workers that all saw the same outage does not
@@ -18,6 +21,8 @@ from __future__ import annotations
 
 import random
 import time
+import urllib.error
+import urllib.request
 
 from cosmos_curate_tpu_torch import chaos
 from cosmos_curate_tpu_torch.observability.tracing import current_span
@@ -74,3 +79,40 @@ def chaos_storage_fault() -> None:
     ``ConnectionError``), which the callers' attempt loops treat like a real
     network failure: retried with backoff, surfaced after the budget."""
     chaos.fire(chaos.SITE_STORAGE_REQUEST)
+
+
+def urlopen_with_retries(
+    url: str,
+    *,
+    method: str,
+    data: bytes | None,
+    headers: dict[str, str],
+    retries: int,
+    retryable: bool = True,
+    label: str,
+) -> tuple[int, bytes, dict[str, str]]:
+    """(status, body, headers) of one HTTP request, retried with backoff on
+    the retryable statuses and on connection failures while ``retryable``
+    and attempts remain. Any other HTTP status is returned, not raised: the
+    backends map 404 to ``FileNotFoundError`` and the rest to their own
+    error. A connection failure on the last attempt raises."""
+    last: Exception | None = None
+    for attempt in range(retries):
+        req = urllib.request.Request(url, data=data, method=method)
+        for k, v in headers.items():
+            req.add_header(k, v)
+        try:
+            chaos_storage_fault()
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.status, resp.read(), dict(resp.headers)
+        except urllib.error.HTTPError as e:
+            body = e.read()
+            if not (is_retryable_status(e.code) and retryable and attempt + 1 < retries):
+                return e.code, body, dict(e.headers or {})
+            last = e
+        except (urllib.error.URLError, ConnectionError, TimeoutError) as e:
+            if not retryable or attempt + 1 == retries:
+                raise
+            last = e
+        sleep_backoff(attempt)
+    raise RuntimeError(f"{label} exhausted retries: {last}")

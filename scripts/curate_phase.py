@@ -25,7 +25,7 @@ line per phase:
   features within ``CLIP_TEXT_BOUND`` of the same forward with flash's
   plain version (fp32 logits, as the kernel), 12 flash launches a forward
   call, and every flash shape it ran checked and timed;
-- ``split_extras`` (run D): run B's 4 videos through ``run_split`` with
+- ``split_extras`` (run D): run B's 2 videos through ``run_split`` with
   ``base`` captions, ``t5_embeddings`` (``T5_BASE``) and ``previews``: one
   ``t5_embeddings/<uuid>.npz`` per captioned clip with one [tokens, 512]
   array per window, one WebP per clip of at most 8 frames no wider than

@@ -79,9 +79,11 @@ import numpy as np
 if __name__ != "__mp_main__":
     import torch
 
-ENGINE_VIDEOS = 2
+# the corpus's first video since the remote phase joined the call (2 before;
+# the full call's time, PERF.md §5)
+ENGINE_VIDEOS = 1
 # BATCH mode hands each stage the whole CPU budget: at the host's 8 it
-# spawns 74 workers for 2 videos (32 of them downloads; 36.79 s on the
+# spawned 74 workers for 2 videos (32 of them downloads; 36.79 s on the
 # H100 host, PERF.md); the phase runs it on a budget of one CPU
 BATCH_CPUS = 1.0
 WATCH_INTERVAL_S = 0.25

@@ -92,9 +92,9 @@ SAMPLE = 16  # I1 images held against the CPU path
 # (tests/test_torch_clip.py STAGE_TOL)
 EMBED_BOUND = 3e-3
 SCORE_BOUND = 2e-2
-# I2 and I3's stills: 16 since the engine phase joined the call (32 before;
-# the full call's time, PERF.md §5)
-CAPTION_IMAGES = 16
+# I2 and I3's stills: 8 since the remote phase joined the call (16 before,
+# 32 before the engine phase; the full call's time, PERF.md §5)
+CAPTION_IMAGES = 8
 EMBED_DIM = 512  # CLIP ViT-B/16's projection
 CLASSIFIER_LABELS = ("photo", "illustration", "screenshot", "document")
 API_PROMPT = "Describe this image in one detailed sentence."  # ImageApiCaptionStage's default

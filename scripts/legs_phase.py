@@ -82,9 +82,9 @@ SR_FRAMES = 16
 # on the card, 0.0092 of the residual on the CPU)
 SR_DIFF_BOUND = 5e-2
 SR_NET_BOUND = 2e-2
-# run F's videos: 4 since the engine phase joined the call (8 before; the
-# full call's time, PERF.md §5)
-LEGS_VIDEOS = 4
+# run F's videos: 2 since the remote phase joined the call (4 before, 8
+# before the engine phase; the full call's time, PERF.md §5)
+LEGS_VIDEOS = 2
 # run F's super-resolution split: the first half second of corpus video 0
 # (one 12-frame clip, one window of 3 chunks: 24 UNet evaluations at
 # 2560x1440; a whole 4-s video took 145 s)

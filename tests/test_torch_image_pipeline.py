@@ -53,6 +53,7 @@ from cosmos_curate_tpu_torch.models import embedder as temb
 from cosmos_curate_tpu_torch.models import vit as tvit
 from cosmos_curate_tpu_torch.models.convert_jax import flax_to_state_dict
 from cosmos_curate_tpu_torch.pipelines.image import annotate as tann
+from tests.fixtures.object_stores import object_stores  # noqa: F401  (fixture)
 
 ATOL, RTOL = 1e-4, 1e-3
 RESIZE_ATOL, RESIZE_RTOL = 2e-5, 1e-4
@@ -462,3 +463,37 @@ def test_run_image_annotate_defaults_to_the_gpu(corpus, tmp_path):
                                         "ImageSemanticFilterStage", "ImageClassifierStage", "ImageCaptionStage",
                                         "ImageWriterStage"]
     assert all(s.model.device.type == "cpu" and not s.resources.uses_gpu for s in stages if s.model is not None)
+
+
+def test_run_image_annotate_on_object_stores_matches_jax(object_stores, tiny_path, fp32, corpus, tmp_path):  # noqa: F811
+    """The stills on ``s3://`` and the outputs on ``az://`` in both
+    packages (the fakes verify every signature): the outputs of the local
+    runs, file for file, and the same resume."""
+    from cosmos_curate_tpu_torch.storage import client as storage_client
+
+    for p in sorted(corpus.iterdir()):
+        storage_client.write_bytes(f"s3://stills/in/{p.name}", p.read_bytes())
+    src = "s3://stills/in"
+    j_sum = jann.run_image_annotate(jann.ImagePipelineArgs(input_path=src, output_path="az://curated/jax"),
+                                    runner=JSequentialRunner())
+    t_sum = tann.run_image_annotate(tann.ImagePipelineArgs(input_path=src, output_path="az://curated/port",
+                                                           device="cpu"), runner=SequentialRunner())
+    j_sum.pop("pipeline_run_time_s"), t_sum.pop("pipeline_run_time_s")
+    assert t_sum == j_sum and t_sum["num_embedded"] == 9 and t_sum["num_errors"] == 2
+
+    def remote_output(root: str) -> dict:
+        client = storage_client.get_storage_client(root)
+        local = tmp_path / root.rsplit("/", 1)[1]
+        for rel in client.list_relative(root):
+            (local / rel).parent.mkdir(parents=True, exist_ok=True)
+            (local / rel).write_bytes(client.read_bytes(f"{root}/{rel}"))
+        return read_output(local)
+
+    j_out, t_out = remote_output("az://curated/jax"), remote_output("az://curated/port")
+    assert t_out["files"] == j_out["files"] and len(t_out["rows"]) == 9
+    for iid, emb in t_out["rows"].items():
+        np.testing.assert_allclose(emb, j_out["rows"][iid], atol=ATOL, rtol=RTOL)
+    # resume: the records on az:// are listed through az://'s client (the
+    # reference lists them through the input's and rediscovers every image)
+    assert sorted(Path(t.path).name for t in tann.discover_image_tasks(src, "az://curated/port")) == sorted(BROKEN)
+    assert len(jann.discover_image_tasks(src, "az://curated/jax")) == 11

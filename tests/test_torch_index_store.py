@@ -22,6 +22,7 @@ from cosmos_curate_tpu.utils import schema_stamp as jstamp
 from cosmos_curate_tpu_torch.dedup import index_store as tstore
 from cosmos_curate_tpu_torch.dedup.corpus_index import CorpusIndex as TCorpusIndex
 from cosmos_curate_tpu_torch.utils import schema_stamp as tstamp
+from tests.fixtures.object_stores import object_stores  # noqa: F401  (fixture)
 from tests.test_torch_dedup import jax_first  # noqa: F401  (fixture)
 
 DIM = 16
@@ -249,3 +250,52 @@ def test_delete_fragments_counts_like_the_reference(tmp_path, jax_first):
     assert t.delete_fragments(rels) == j.delete_fragments(rels) == 2
     assert t.cluster_fragment_counts() == j.cluster_fragment_counts()
     assert 0 not in t.cluster_fragment_counts()
+
+
+# -- remote roots ----------------------------------------------------------------
+
+
+def _remote_fragments(root: str) -> dict[str, bytes]:
+    from cosmos_curate_tpu_torch.storage.client import get_storage_client
+
+    client = get_storage_client(root)
+    return {rel: client.read_bytes(f"{root}/{rel}") for rel in client.list_relative(root, suffixes=(".parquet",))}
+
+
+def test_a_gs_root_builds_consolidates_and_queries_like_a_local_root(object_stores, tmp_path, jax_first):  # noqa: F811
+    """The same fragments built, consolidated and queried at a ``gs://``
+    root and at a local one: the same meta, fragment bytes and answers; the
+    JAX package opens the remote index and answers the same."""
+    from cosmos_curate_tpu_torch.dedup import corpus_index as tci
+
+    ids, x = corpus(21)
+    roots = {"local": str(tmp_path / "idx"), "remote": "gs://indexes/corpus"}
+    answers, metas, frags = {}, {}, {}
+    for name, root in roots.items():
+        index = TCorpusIndex.build(root, ids[:80], x[:80], model="m", k=4, device="cpu")
+        store = tstore.IndexStore(root)
+        store.write_pending_fragment("chunk-00000", ids[80:], x[80:], model="m", provenance="checkpoint:abc")
+        assert tci.consolidate_index(root, device="cpu")["consolidated"] == len(ids) - 80
+        index = TCorpusIndex.open(root, device="cpu")
+        answers[name] = index.query(x[::7], top_k=5, nprobe=2)
+        metas[name] = store.load_meta()
+        frags[name] = fragments(tmp_path / "idx") if name == "local" else _remote_fragments(root)
+    assert metas["remote"] == metas["local"] and metas["remote"]["num_vectors"] == len(ids)
+    assert frags["remote"] == frags["local"]
+    assert answers["remote"] == answers["local"]
+    j_answers = JCorpusIndex.open(roots["remote"]).query(x[::7], top_k=5, nprobe=2)
+    assert [[h for h, _ in row] for row in j_answers] == [[h for h, _ in row] for row in answers["remote"]]
+
+
+def test_a_remote_root_is_never_globbed_as_a_local_path(object_stores, tmp_path, monkeypatch):  # noqa: F811
+    """Lance stays unported at local roots, but a remote root is parquet, as
+    in the reference: a local directory named like the URL, holding lance
+    fragments, changes nothing, and ``backend="lance"`` falls back with a
+    warning."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "gs:" / "indexes" / "corpus" / "pending" / "chunk.lance").mkdir(parents=True)
+    for kw in ({}, {"backend": "lance"}):
+        store = tstore.IndexStore("gs://indexes/corpus", **kw)
+        assert store.backend == jstore.IndexStore("gs://indexes/corpus", **kw).backend == "parquet"
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 21"):
+        tstore.IndexStore("gs:/indexes/corpus")  # the local twin

@@ -13,6 +13,12 @@ import pytest
 from tests.fixtures.observability import observability_state  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
+# the remote storage layer and the host utilities it uses (host code: the
+# streaming engine's CPU workers, which import no torch, read and write
+# object stores through it)
+STORAGE_MODULES = ("storage.client", "storage.retry", "storage.writers", "storage.sigv4", "storage.s3_rest",
+                   "storage.s3", "storage.azure_shared_key", "storage.azure_rest", "storage.gcs_rest", "storage.gcs",
+                   "storage.zip_transport", "utils.user_config", "utils.retry", "utils.file_lock")
 
 
 def test_port_imports_no_jax_flax_or_reference_package():
@@ -39,7 +45,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
     assert out.returncode == 0, out.stdout + out.stderr
     lines = out.stdout.splitlines()
     n_modules = int(lines[0].split()[0])
-    assert n_modules >= 129
+    assert n_modules >= 148
     names = set(lines[1].split())
     for module in ("models.clip", "models.internvideo2", "models.transnetv2", "pipelines.video.stages.aesthetic_filter",
                    "pipelines.video.stages.shot_detection", "models.vlm.vision_qwen", "models.vlm.chat",
@@ -61,7 +67,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "observability.profiling", "observability.stage_replay", "observability.stage_compare",
                    "engine.object_store", "engine.worker", "engine.pool", "engine.runner", "core.map_runner",
                    "data.lazy", "cli.report_cli", "cli.top_cli", "cli.dlq_cli",
-                   "pipelines.video.stages.caption_prep"):
+                   "pipelines.video.stages.caption_prep", *STORAGE_MODULES):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -84,6 +90,28 @@ def test_observability_layer_imports_neither_torch_nor_jax():
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) == 9  # profiling, stage_replay and stage_compare joined the six
+
+
+def test_storage_layer_imports_neither_torch_nor_jax():
+    """Every module of the storage package and the host utilities it uses
+    (user config, retry, file lock) import no torch, no JAX and nothing of
+    the JAX package."""
+    script = textwrap.dedent(
+        f"""
+        import importlib, pkgutil, sys
+        import cosmos_curate_tpu_torch.storage as storage
+        names = [m.name for m in pkgutil.walk_packages(storage.__path__, storage.__name__ + ".")]
+        names += ["cosmos_curate_tpu_torch." + m for m in {STORAGE_MODULES!r}]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "flax", "cosmos_curate_tpu"))
+        print(len(set(names)), bad)
+        sys.exit(1 if bad else 0)
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) == len(STORAGE_MODULES)
 
 
 def test_engine_defaults_to_the_gpu():

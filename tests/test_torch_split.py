@@ -780,20 +780,21 @@ REFUSED_OPTIONS = {
 }
 
 
-@pytest.mark.parametrize("case", [*REFUSED_OPTIONS, "remote_input", "remote_output"])
-def test_unported_options_raise(case, videos, tmp_path, monkeypatch):
+REMOTE_CASES = {"remote_input": ("s3://bucket/videos", "s3://"), "remote_output": ("az://bucket/out", "az://")}
+
+
+@pytest.mark.parametrize("case", [*REFUSED_OPTIONS, *REMOTE_CASES])
+def test_unported_options_raise(case, videos, jax_split, tmp_path, monkeypatch):
     kw = dict(input_path=str(videos), output_path=str(tmp_path / "out"), **SPLIT)
-    if case in REFUSED_OPTIONS:
-        kw.update(REFUSED_OPTIONS[case])
-    elif case == "remote_input":
-        kw["input_path"] = "s3://bucket/videos"
-    else:
-        kw["output_path"] = "gs://bucket/out"
+    monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(tmp_path / "weights"))
+    if case in REMOTE_CASES:
+        _remote_paths_are_gated_then_served(case, kw, jax_split, tmp_path, monkeypatch)
+        return
+    kw.update(REFUSED_OPTIONS[case])
     # the Qwen3 flavor is ported: it refuses, as qwen2vl-2b does, for want
     # of its staged tokenizer files (and then weights)
     err, match = (FileNotFoundError, "vocab.json") if case == "qwen_captions" else (
         NotImplementedError, "ROADMAP queue A item")
-    monkeypatch.setenv(jregistry.WEIGHTS_DIR_ENV, str(tmp_path / "weights"))
     with pytest.raises(err, match=match):
         tsplit.run_split(tsplit.SplitPipelineArgs(**kw), runner=SequentialRunner())
     if case == "qwen_captions":
@@ -802,6 +803,46 @@ def test_unported_options_raise(case, videos, tmp_path, monkeypatch):
         assert _files(tmp_path / "out") == {"report/live/status.json"}
     else:
         assert not (tmp_path / "out").exists()
+
+
+def _remote_paths_are_gated_then_served(case, kw, jax_split, tmp_path, monkeypatch):
+    """A remote input or output, once refused as unported, is served: with
+    no credentials its backend raises ``RuntimeError`` naming what is
+    missing (never reading a local file of the same name), and against the
+    fake object stores (``tests/fixtures/object_stores.py``) the split
+    writes what the JAX package's local run writes."""
+    from tests.fixtures.object_stores import running_object_stores
+    from cosmos_curate_tpu_torch.storage import client as storage_client
+
+    remote, scheme = REMOTE_CASES[case]
+    field = "input_path" if case == "remote_input" else "output_path"
+    local = Path(kw[field])
+    kw[field] = remote
+    for var in ("AWS_ACCESS_KEY_ID", "AWS_SECRET_ACCESS_KEY", "AWS_ENDPOINT_URL", "AZURE_STORAGE_ACCOUNT",
+                "AZURE_STORAGE_KEY", "AZURE_STORAGE_ENDPOINT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match=f"{scheme} storage unavailable"):
+        tsplit.run_split(tsplit.SplitPipelineArgs(**kw), runner=SequentialRunner())
+    with running_object_stores() as stores:
+        for k, v in stores.env.items():
+            monkeypatch.setenv(k, v)
+        if case == "remote_input":
+            for p in sorted(local.iterdir()):
+                storage_client.write_bytes(f"{remote}/{p.name}", p.read_bytes())
+        summary = tsplit.run_split(tsplit.SplitPipelineArgs(**kw), runner=SequentialRunner())
+        j_out, j_summary = jax_split
+        assert _counts(summary) == _counts(j_summary) and summary["num_clips"] == 7
+        if case == "remote_output":
+            client = storage_client.get_storage_client(remote)
+            assert set(client.list_relative(remote)) == _files(j_out) - {"report/live/status.json"}
+            for uuid, meta in _metas(j_out).items():
+                assert json.loads(client.read_bytes(f"{remote}/metas/v0/{uuid}.json")) == meta
+        else:  # clip uuids derive from the video's path: the same files of each kind
+            def kinds(files):
+                return sorted(f.split("/", 1)[0] for f in files)
+
+            assert kinds(_files(tmp_path / "out")) == kinds(_files(j_out))
+        assert not stores.auth_failures(), stores.auth_failures()
 
 
 # options earlier slices refused, now served: each assembles its stage where
