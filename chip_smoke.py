@@ -99,7 +99,7 @@ and prints one JSON line per phase:
    captions reported).
 
 10. split: the whole main path through the port's own ``run_split``, from
-   raw mp4 files to the output layout: bench.py's corpus (64 videos of 4 s
+   raw mp4 files to the output layout: bench.py's corpus (32 of its 64 videos of 4 s
    at 1280x720, mp4v, made by this script's copy of bench.py's generator
    on the host's other cores while the kernels build and the kernel phases
    run; its build is timed and kept out of the wall). Run A is bench.py's
@@ -109,7 +109,7 @@ and prints one JSON line per phase:
    each stage's busy seconds and batches (``process_data`` wrapped), the
    codec the clips were written with and the native H.264 writer's status,
    flash launches, the device's peak memory and the host's peak RSS; it
-   asserts 256 clips cut, transcoded, embedded and written (256 metas, 256
+   asserts 128 clips cut, transcoded, embedded and written (128 metas, 128
    parquet rows of finite unit-norm embeddings). Run B captions the first 2
    videos (``captioning=True``, ``caption_model="base"``): every window of
    every meta captioned, and paged decode, paged prefill, prefill and
@@ -248,7 +248,8 @@ and prints one JSON line per phase:
    corpus videos, ``local dedup``, ``local shard``, ``index build``,
    ``query`` and ``stats`` against the entry points called directly, and
    the refusals of ``--runner streaming`` with ``CURATE_ENGINE_DRIVER_PORT``
-   set (the engine's cross-node plane) and ``index serve``.
+   set and no ``CURATE_ENGINE_TOKEN`` (the cross-node plane runs only with
+   its cluster secret) and of ``index serve``.
     remote (``scripts/remote_phase.py``, after image and cli): the
    repository's fake S3, GCS and Azure servers on 127.0.0.1 in this
    process (every SigV4 and Shared Key signature verified), the first 2
@@ -264,6 +265,19 @@ and prints one JSON line per phase:
    ``gs://`` equal to the same calls on a local copy, and ``local split``
    as a subprocess from ``s3://`` to ``gs://``; walls beside the local
    run's, requests and bytes a backend, the pull's MB/s.
+    multinode (``scripts/multinode_phase.py``, after remote): run A's
+   settings on the first 2 corpus videos in this process (the one-node
+   reference), then in two node processes under ``CURATE_NUM_NODES=2``
+   (partition, merged by ``local merge-summaries``; then work stealing),
+   each printing its own launch counts (flash launched in both); the
+   cross-node plane (this process the driver, ``CURATE_RUNNER=engine``,
+   one loopback agent through the ``agent`` command: the CPU stages on the
+   agent, the embed stage and flash on the card, one connected trace); and
+   node loss (two agents, chaos ``agent.kill`` on one right after its
+   first result: the run completes, objects reconstructed, nothing
+   dead-lettered). Every run's clips are the one-node run's (embeddings
+   within ``EMBED_BOUND``); walls beside the one-node run's, workers by
+   node, spawn-to-ready seconds, object-channel bytes and prefetch overlap.
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -409,12 +423,13 @@ PIPELINE_NEW_TOKENS = 64
 EFFICIENCY_TASKS = 4  # 16 windows: through the engine alone, then CaptionStage
 # split phase: bench.py's corpus (bench.py:41-47, :84-103) and headline
 # settings (bench.py:217-227), built by this script's own copy of its
-# generator: 64 videos of 2 scenes x 48 frames at 24 fps, 1280x720, mp4v,
+# generator: 32 videos (64 before the multinode phase joined the call: the
+# full call's time, PERF.md §5) of 2 scenes x 48 frames at 24 fps, 1280x720, mp4v,
 # seeded per video with 1000 + i; 1 s fixed-stride clips, 8 fps frames at
 # 224^2, embedding_model="video". Run B captions the first 2 videos at
 # VLM_BASE (4 before the remote phase joined the call: the full call's
 # time, PERF.md §5); the runner agreement takes the first 2
-SPLIT_VIDEOS = 64
+SPLIT_VIDEOS = 32
 SPLIT_SCENE_FRAMES = 48
 SPLIT_NUM_SCENES = 2
 SPLIT_FRAME_W, SPLIT_FRAME_H = 1280, 720
@@ -422,7 +437,7 @@ SPLIT_CLIPS = SPLIT_VIDEOS * SPLIT_NUM_SCENES * SPLIT_SCENE_FRAMES // 24
 SPLIT_CAPTION_VIDEOS = 2
 SPLIT_AGREEMENT_VIDEOS = 2
 SPLIT_RSS_SAMPLE_S = 0.05
-# canonical phase (run C): the split corpus's 64 videos, clipped as run A
+# canonical phase (run C): the split corpus's first videos, clipped as run A
 # clips them (1 s clips, none under 0.5 s): a shot threshold above every
 # probability, since the seeded detector has no signal (at 0.4 a quarter
 # of the frames cut and almost every scene falls under min_clip_len_s), so
@@ -538,7 +553,12 @@ FLASH_CASES = (
 )
 
 
+EMITTED_AT: list = []  # [phase, time.monotonic()] of every phase line, for the timing line
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        EMITTED_AT.append([obj["phase"], time.monotonic()])
     print(json.dumps(obj), flush=True)
 
 
@@ -2035,6 +2055,25 @@ def corpus_in_background(n: int = SPLIT_VIDEOS):
         shutil.rmtree(root, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def patched_environ(values: dict[str, str | None]):
+    """``os.environ`` with ``values`` set (None: removed), restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def subset(root: Path, corpus: list[Path], name: str, n: int) -> Path:
     """A directory of links to the corpus's first ``n`` videos."""
     d = root / name
@@ -2069,9 +2108,10 @@ def split_args(videos: Path, out: Path, **kw):
         extract_fps=(8.0,), extract_resize_hw=(224, 224), embedding_model="video", **kw)
 
 
-def split_run(dev, a, runner, stage_classes) -> dict:
-    """One run_split with every launch counter zeroed just before it:
-    summary, wall, launches, stage spans, flash shapes, peaks."""
+def split_run(dev, a, runner, stage_classes, config=None) -> dict:
+    """One run_split (with ``config``, where given) with every launch
+    counter zeroed just before it: summary, wall, launches, stage spans,
+    flash shapes, peaks."""
     from cosmos_curate_tpu_torch.ops import kernels
     from cosmos_curate_tpu_torch.pipelines.video import split
 
@@ -2086,7 +2126,7 @@ def split_run(dev, a, runner, stage_classes) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     with timed_stages(stage_classes, spans), peak_rss(rss), recorded_flash_shapes(shapes):
         t0 = time.monotonic()
-        summary = split.run_split(a, runner=runner)
+        summary = split.run_split(a, runner=runner, config=config)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     return dict(summary=summary, wall=wall, launches={name: k.launches for name, k in ks.items()},
@@ -3315,6 +3355,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     import index_phase
     import engine_phase
     import legs_phase
+    import multinode_phase
     import observe_phase
     import remote_phase
 
@@ -3415,6 +3456,10 @@ def _main(stack: contextlib.ExitStack) -> int:
     # remote storage: s3:// -> az:// with the checkpoint pulled from s3://, dedup and shard to gs://
     remote = remote_phase.run(sys.modules[__name__], dev, timer, root, corpus)
     checks["flash"]["cases"].update(remote["flash_checked_here"])
+    # multi-node runs: the partition and work stealing in two node processes,
+    # the cross-node plane with a loopback agent, node loss
+    multinode = multinode_phase.run(sys.modules[__name__], dev, timer, root, corpus)
+    checks["flash"]["cases"].update(multinode["flash_checked_here"])
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3464,9 +3509,12 @@ def _main(stack: contextlib.ExitStack) -> int:
             | {"video_on_stills": image["image"]["video_on_stills"]["launches"][name]},
             cli_launches=sum(c["launches"][name] for c in image["cli"]["commands"].values()),
             remote_launches=remote["launches"][name],
+            multinode_launches=multinode["launches"][name],
             cases=c.get("cases"),
         ))
-    emit({"phase": "timing", "script_s": time.monotonic() - started})
+    # each phase line's seconds from the start: where the call's time went
+    emit({"phase": "timing", "script_s": time.monotonic() - started,
+          "lines_at_s": [[phase, t - started] for phase, t in EMITTED_AT]})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

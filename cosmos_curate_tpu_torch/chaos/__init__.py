@@ -1,6 +1,6 @@
-"""Chaos fault injection for the runners and the retry policy (port of
-``cosmos_curate_tpu/chaos``, the sites the in-process runners and
-``storage/retry.py`` fire).
+"""Chaos fault injection for the runners, the retry policy and the
+cross-node plane (port of ``cosmos_curate_tpu/chaos``, all but the job
+service's sites).
 
 Every failure mode the runners must survive has a *named injection site*,
 one ``fire()`` call in production code, and a :class:`FaultPlan` arms a
@@ -10,6 +10,13 @@ default and costs one falsy module-attribute check per site.
 
 from cosmos_curate_tpu_torch.chaos.harness import (
     ALL_SITES,
+    CHAOS_ENV,
+    SITE_AGENT_KILL,
+    SITE_AGENT_PARTITION,
+    SITE_OBJECT_CHANNEL_FETCH,
+    SITE_OBJECT_CHANNEL_SERVE,
+    SITE_REMOTE_PLANE_RECV,
+    SITE_REMOTE_PLANE_SEND,
     SITE_STORAGE_REQUEST,
     SITE_WORKER_CRASH,
     SITE_WORKER_HANG,
@@ -20,11 +27,19 @@ from cosmos_curate_tpu_torch.chaos.harness import (
     fire,
     fire_count,
     install,
+    install_from_env,
     uninstall,
 )
 
 __all__ = [
     "ALL_SITES",
+    "CHAOS_ENV",
+    "SITE_AGENT_KILL",
+    "SITE_AGENT_PARTITION",
+    "SITE_OBJECT_CHANNEL_FETCH",
+    "SITE_OBJECT_CHANNEL_SERVE",
+    "SITE_REMOTE_PLANE_RECV",
+    "SITE_REMOTE_PLANE_SEND",
     "SITE_STORAGE_REQUEST",
     "SITE_WORKER_CRASH",
     "SITE_WORKER_HANG",
@@ -35,5 +50,6 @@ __all__ = [
     "fire",
     "fire_count",
     "install",
+    "install_from_env",
     "uninstall",
 ]

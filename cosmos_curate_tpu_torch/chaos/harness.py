@@ -1,13 +1,19 @@
 """Fault-plan model and the per-process injection runtime (port of
-``cosmos_curate_tpu/chaos/harness.py``: the worker-batch sites that
-``SequentialRunner`` and ``PipelinedRunner`` fire, and the
-``storage.request`` site of ``storage/retry.py``).
+``cosmos_curate_tpu/chaos/harness.py``: the worker-batch sites the runners
+fire, the ``storage.request`` site of ``storage/retry.py``, and the sites
+of the cross-node plane: the object channel, the control link and the node
+agents).
 
 - **No-op when disabled.** ``fire(site)`` is the only call on the hot path;
   while no plan is installed it is a single falsy check on a module global.
 - **Deterministic.** Each armed rule owns a ``random.Random`` seeded from
   ``(plan.seed, site)``, so a plan gives the same fire/skip sequence on
   every run.
+- **Cross-process.** Plans serialize to JSON and ride the ``CURATE_CHAOS``
+  environment variable into spawned workers (engine/pool.py forwards it)
+  and node agents; each process arms its own counters, so ``count`` bounds
+  firings *per process*, and ``worker_re`` limits a rule to the processes
+  whose ``CURATE_WORKER_ID`` it matches.
 
 Fault kinds:
 
@@ -16,25 +22,50 @@ Fault kinds:
 - ``error``: raise :class:`InjectedFault` (a ``ConnectionError``);
 - ``delay``: ``time.sleep(delay_s)`` then continue.
 
-Not ported: the sites of the streaming engine, the object and remote
-planes, the job service and node agents, the ``CURATE_CHAOS``
-environment hand-off to worker processes and the per-worker filter
-(``worker_re``); the port has none of those layers yet.
+Not ported: the job service's sites (``service.job.crash``,
+``service.journal.write``), which wait for the service (ROADMAP queue A
+item 19).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import random
+import re
 import threading
 import time
 from dataclasses import dataclass
 
+CHAOS_ENV = "CURATE_CHAOS"
+
 SITE_WORKER_CRASH = "worker.batch.crash"
 SITE_WORKER_HANG = "worker.batch.hang"
+SITE_OBJECT_CHANNEL_FETCH = "object_channel.fetch"
+SITE_OBJECT_CHANNEL_SERVE = "object_channel.serve"
+SITE_REMOTE_PLANE_SEND = "remote_plane.send"
+SITE_REMOTE_PLANE_RECV = "remote_plane.recv"
 SITE_STORAGE_REQUEST = "storage.request"
+# node loss (engine/remote_agent.py): agent.kill fires in the agent right
+# after it relays a result (kind=crash: the node dies holding outputs the
+# driver already references); agent.partition fires on every frame in both
+# directions (kind=hang stalls frames until the driver declares the node
+# dead). Pin a rule to one agent of a fleet with ``worker_re`` against the
+# CURATE_WORKER_ID in that agent's environment.
+SITE_AGENT_KILL = "agent.kill"
+SITE_AGENT_PARTITION = "agent.partition"
 
-ALL_SITES = (SITE_WORKER_CRASH, SITE_WORKER_HANG, SITE_STORAGE_REQUEST)
+ALL_SITES = (
+    SITE_WORKER_CRASH,
+    SITE_WORKER_HANG,
+    SITE_OBJECT_CHANNEL_FETCH,
+    SITE_OBJECT_CHANNEL_SERVE,
+    SITE_REMOTE_PLANE_SEND,
+    SITE_REMOTE_PLANE_RECV,
+    SITE_STORAGE_REQUEST,
+    SITE_AGENT_KILL,
+    SITE_AGENT_PARTITION,
+)
 
 _KINDS = ("crash", "hang", "error", "delay")
 
@@ -57,6 +88,8 @@ class FaultRule:
     count: int | None = None  # max firings in this process; None = unlimited
     delay_s: float = 0.0  # hang/delay duration
     exit_code: int = 17  # crash exit code (distinguishable from real deaths)
+    # only fire in processes whose CURATE_WORKER_ID matches ('' = all)
+    worker_re: str = ""
 
     def __post_init__(self) -> None:
         if self.kind not in _KINDS:
@@ -74,6 +107,16 @@ class FaultPlan:
     rules: tuple[FaultRule, ...] = ()
     seed: int = 0
 
+    def to_json(self) -> str:
+        rules = [{"site": r.site, "kind": r.kind, "probability": r.probability, "count": r.count,
+                  "delay_s": r.delay_s, "exit_code": r.exit_code, "worker_re": r.worker_re} for r in self.rules]
+        return json.dumps({"seed": self.seed, "rules": rules})
+
+    @classmethod
+    def from_json(cls, text: str) -> FaultPlan:
+        doc = json.loads(text)
+        return cls(seed=int(doc.get("seed", 0)), rules=tuple(FaultRule(**r) for r in doc.get("rules", ())))
+
 
 class _ArmedRule:
     """Per-process mutable state for one rule (RNG + remaining budget)."""
@@ -84,8 +127,11 @@ class _ArmedRule:
         self.remaining = rule.count  # None = unlimited
         self.fired = 0
         self.lock = threading.Lock()
+        self.worker_pat = re.compile(rule.worker_re) if rule.worker_re else None
 
     def should_fire(self) -> bool:
+        if self.worker_pat is not None and not self.worker_pat.search(os.environ.get("CURATE_WORKER_ID", "")):
+            return False
         with self.lock:
             if self.remaining is not None and self.remaining <= 0:
                 return False
@@ -141,8 +187,9 @@ def fire_count(site: str) -> int:
     return armed.fired if armed is not None else 0
 
 
-def install(plan: FaultPlan) -> None:
-    """Arm ``plan`` in this process."""
+def install(plan: FaultPlan, *, export_env: bool = False) -> None:
+    """Arm ``plan`` in this process. ``export_env=True`` also writes it to
+    ``CURATE_CHAOS``, so processes spawned after this call arm it too."""
     global _active
     unknown = [r.site for r in plan.rules if r.site not in ALL_SITES]
     if unknown:
@@ -154,9 +201,22 @@ def install(plan: FaultPlan) -> None:
         # would make a chaos test exercise less than it claims
         raise ValueError(f"duplicate rule(s) for site(s): {dupes}")
     _active = _ActivePlan(plan)
+    if export_env:
+        os.environ[CHAOS_ENV] = plan.to_json()
 
 
 def uninstall() -> None:
-    """Disarm."""
+    """Disarm; also clears ``CURATE_CHAOS`` from this environment."""
     global _active
     _active = None
+    os.environ.pop(CHAOS_ENV, None)
+
+
+def install_from_env() -> bool:
+    """Arm from ``CURATE_CHAOS`` if present; True when a plan was armed.
+    Called once at process bring-up (``worker_main``, the agent's main)."""
+    text = os.environ.get(CHAOS_ENV, "")
+    if not text:
+        return False
+    install(FaultPlan.from_json(text))
+    return True

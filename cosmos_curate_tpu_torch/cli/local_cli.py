@@ -8,11 +8,12 @@ unless given ``cpu``) on ``hello``, ``split``, ``image-annotate`` and
 a YAML / JSON config (``--config``), as the reference's does.
 
 ``split --runner streaming|map`` runs the streaming engine
-(engine/runner.py) or the map runner (core/map_runner.py). Refused, naming
-what they wait for: ``split --runner streaming`` with
-``CURATE_ENGINE_DRIVER_PORT`` set (the cross-node data plane, ROADMAP queue
-A item 15), ``av`` (item 19) and ``merge-summaries`` (item 15). A split option that ``run_split`` refuses passes through and raises
-there; ``split --tracing`` runs.
+(engine/runner.py; with ``CURATE_ENGINE_DRIVER_PORT`` set, its cross-node
+plane) or the map runner (core/map_runner.py). ``merge-summaries`` folds a
+multi-node run's per-node summaries, runs artifact delivery's driver phase
+and writes the merged run report. Refused, naming what it waits for: ``av``
+(ROADMAP queue A item 19). A split option that ``run_split`` refuses passes
+through and raises there; ``split --tracing`` runs.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ CAPTION_MODEL_CHOICES = (
 )
 
 _AV = "the multi-camera AV pipelines (ROADMAP queue A item 19)"
-_MERGE = "multi-node summaries and their merged run report (ROADMAP queue A item 15)"
 
 
 def _device_flag(p: argparse.ArgumentParser, default: str | None = "cuda") -> None:
@@ -202,7 +202,7 @@ def register(sub: argparse._SubParsersAction) -> None:
 
     merge = lsub.add_parser(
         "merge-summaries",
-        help="combine per-node summary-node*.json into one summary-merged.json (not ported yet)",
+        help="combine per-node summary-node*.json into one summary-merged.json",
     )
     merge.add_argument("--output-path", required=True, help="pipeline output root")
     merge.set_defaults(func=_cmd_merge_summaries)
@@ -211,7 +211,57 @@ def register(sub: argparse._SubParsersAction) -> None:
 
 
 def _cmd_merge_summaries(args: argparse.Namespace) -> int:
-    raise NotImplementedError(f"local merge-summaries needs {_MERGE}, not ported yet")
+    import json
+
+    from cosmos_curate_tpu_torch.utils.summary import merge_node_summaries
+
+    merged = merge_node_summaries(args.output_path)
+    if merged is None:
+        print(f"no summaries found under {args.output_path}")
+        return 1
+    # this runs once per multi-node run, after all nodes finished — also the
+    # right moment for artifact delivery's driver phase (manifest merge,
+    # chunk verify/reassembly)
+    from cosmos_curate_tpu_torch.observability.artifacts import finalize_delivery
+
+    report = finalize_delivery(args.output_path)
+    if report.files or report.errors:
+        print(
+            f"artifacts: {report.files} files from nodes {report.nodes}"
+            + (f"; ERRORS: {report.errors}" if report.errors else "")
+        )
+    # multi-node flight recorder: every node's spans are collected now, so
+    # the merged run report (one trace across hosts) is built here.
+    # require_spans: an untraced run must not gain an empty report; the
+    # guard matches run_split's — a recorder failure never fails the merge.
+    try:
+        from cosmos_curate_tpu_torch.observability.flight_recorder import (
+            load_node_stats,
+            load_report,
+            report_path,
+            write_run_report,
+        )
+
+        # runner-sourced sections (dead-letter counts, stage times,
+        # dispatch/flow aggregates) live in the ORIGINAL drivers' memory,
+        # not this process: source them from the per-node sidecars every
+        # multi-node run_split finalize writes, falling back to a
+        # previously-written report (single-node re-merge) — never
+        # overwrite them with empties
+        prior = load_node_stats(args.output_path) or load_report(
+            report_path(args.output_path)
+        )
+        run_report = write_run_report(args.output_path, prior=prior, require_spans=True)
+        if run_report["span_count"]:
+            print(
+                f"run report: {run_report['span_count']} spans, "
+                f"{len(run_report['trace_ids'])} trace(s) -> "
+                f"{run_report['report_path']}"
+            )
+    except Exception as e:  # noqa: BLE001 - report is best-effort here
+        print(f"flight recorder failed (merge unaffected): {e}", file=sys.stderr)
+    print(json.dumps(merged, indent=2))
+    return 0
 
 
 def _cmd_av(args: argparse.Namespace) -> int:
@@ -288,13 +338,8 @@ def _cmd_shard(args: argparse.Namespace) -> int:
 
 def _split_runner(choice: str):
     """The runner ``--runner`` names (None: run_split's default)."""
-    import os
+    from cosmos_curate_tpu_torch.core.runner import SequentialRunner
 
-    from cosmos_curate_tpu_torch.core.runner import ENGINE_DRIVER_PORT_ENV, REMOTE_PLANE, SequentialRunner
-
-    if choice == "streaming" and os.environ.get(ENGINE_DRIVER_PORT_ENV):
-        raise NotImplementedError(f"--runner streaming with {ENGINE_DRIVER_PORT_ENV} set selects {REMOTE_PLANE}, "
-                                  "not ported yet")
     if choice == "sequential":
         return SequentialRunner()
     if choice == "pipelined":

@@ -5,11 +5,12 @@ The same argparse tree as the reference's, with the groups the port has:
 ``info``, ``local`` (run the pipelines, ``cli/local_cli.py``), ``dlq``
 (dead-lettered batches, ``cli/dlq_cli.py``), ``report`` (a run's flight
 recorder report, ``cli/report_cli.py``), ``top`` (live status,
-``cli/top_cli.py``) and ``index`` (the corpus index, ``cli/index_cli.py``),
-registered in the reference's order. The other groups of the reference
-(``export-lance``, ``agent``, ``serve``, ``view``, ``slurm``, ``models``,
-``lint``, ``postgres``, ``image``) wait for the layers they drive (ROADMAP
-queue A item 22).
+``cli/top_cli.py``), ``index`` (the corpus index, ``cli/index_cli.py``) and
+``agent`` (join a driver's cross-node engine plane as a worker node,
+engine/remote_agent.py), registered in the reference's order. The other
+groups of the reference (``export-lance``, ``serve``, ``view``, ``slurm``,
+``models``, ``lint``, ``postgres``, ``image``) wait for the layers they drive
+(ROADMAP queue A item 22).
 
 Run it as ``python -m cosmos_curate_tpu_torch.cli.main`` or through the
 ``cosmos-curate-tpu-torch`` console script. Every command that runs a model
@@ -40,7 +41,25 @@ def build_parser() -> argparse.ArgumentParser:
     report_cli.register(sub)
     top_cli.register(sub)
     index_cli.register(sub)
+
+    agent = sub.add_parser("agent", help="join a driver's cross-node engine plane as a worker node")
+    agent.add_argument("--driver", required=True, help="driver HOST:PORT")
+    agent.add_argument("--node-id", default=None)
+    agent.add_argument("--num-cpus", type=float, default=None)
+    agent.set_defaults(func=_cmd_agent)
     return parser
+
+
+def _cmd_agent(args: argparse.Namespace) -> int:
+    from cosmos_curate_tpu_torch import chaos
+    from cosmos_curate_tpu_torch.engine.remote_agent import NodeAgent
+    from cosmos_curate_tpu_torch.observability.tracing import setup_tracing_from_env
+
+    # as the agent's own entry point does: a fault plan and tracing ride
+    # the environment
+    chaos.install_from_env()
+    setup_tracing_from_env()
+    return NodeAgent(args.driver, node_id=args.node_id, num_cpus=args.num_cpus).run()
 
 
 def _cmd_info(args: argparse.Namespace) -> int:

@@ -9,10 +9,9 @@ publish its live-status snapshots (observability/live_status.py) when
 ``default_runner`` selects the reference's runners: the pipelined runner
 (core/pipelined_runner.py) by default, and ``CURATE_RUNNER`` names one of
 ``sequential``, ``pipelined``, ``engine`` / ``streaming`` (the streaming
-engine, engine/runner.py) or ``map`` (core/map_runner.py). Not ported: the
-streaming engine's cross-node data plane, which ``CURATE_ENGINE_DRIVER_PORT``
-selects; it raises, naming ROADMAP queue A item 15, and never runs
-single-host instead.
+engine, engine/runner.py) or ``map`` (core/map_runner.py); with
+``CURATE_ENGINE_DRIVER_PORT`` set, the default is the streaming engine with
+its cross-node plane (engine/remote_plane.py).
 """
 
 from __future__ import annotations
@@ -35,7 +34,6 @@ logger = get_logger(__name__)
 
 RUNNER_ENV = "CURATE_RUNNER"
 ENGINE_DRIVER_PORT_ENV = "CURATE_ENGINE_DRIVER_PORT"
-REMOTE_PLANE = "the streaming engine's cross-node data plane (ROADMAP queue A item 15)"
 RUNNER_CHOICES = ("auto", "sequential", "pipelined", "engine", "streaming", "map")
 
 
@@ -177,9 +175,8 @@ def default_runner() -> RunnerInterface:
     backend; unset or ``auto`` picks the ``PipelinedRunner``
     (stage-overlapped thread pools on this host). ``auto`` with a remote
     data plane configured (``CURATE_ENGINE_DRIVER_PORT``) selects the
-    streaming engine, as in the reference, whose run then refuses the
-    cross-node plane (ROADMAP queue A item 15); so does an explicit
-    ``engine`` or ``streaming`` with it set. Nothing falls back.
+    streaming engine, as in the reference, whose run then serves the
+    cross-node plane (engine/remote_plane.py).
     """
     choice = os.environ.get(RUNNER_ENV, "").strip().lower()
     known = ("", *RUNNER_CHOICES)
@@ -195,9 +192,6 @@ def default_runner() -> RunnerInterface:
     if choice in ("engine", "streaming") or (choice in ("", "auto") and os.environ.get(ENGINE_DRIVER_PORT_ENV)):
         from cosmos_curate_tpu_torch.engine.runner import StreamingRunner
 
-        if os.environ.get(ENGINE_DRIVER_PORT_ENV):
-            raise NotImplementedError(f"{ENGINE_DRIVER_PORT_ENV} is set, which selects {REMOTE_PLANE}, "
-                                      "not ported yet")
         return StreamingRunner()
     from cosmos_curate_tpu_torch.core.pipelined_runner import PipelinedRunner
 

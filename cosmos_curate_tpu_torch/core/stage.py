@@ -14,14 +14,14 @@ pipelined runner's fan-out reads (core/pipelined_runner.py).
 defaults through ``fill_default_lifetimes``) and ``batch_timeout_s`` (a hung
 batch's deadline) are what the streaming engine reads (engine/runner.py).
 
+``Resources.memory_gb`` and ``Stage.node_affinity`` are what the per-node
+planner reads (engine/autoscaler.py ``plan_node_allocation``).
+
 Not ported: ``Stage.mesh_spec`` (a stage's declared device mesh), which
 waits for the port's tensor parallelism (ROADMAP queue A item 7); the knobs
-only the reference's multi-node engine and planner read
-(``StageSpec.num_workers_per_node`` and ``over_provision_factor``,
-``Resources.memory_gb``, ``Stage.env_name`` and ``node_affinity``), which
-wait for multi-node runs (ROADMAP queue A item 15); and the two that
-nothing in the reference reads (``worker_restart_interval_m``,
-``stage_save_sample_rate``).
+nothing in the reference's engine reads (``StageSpec.num_workers_per_node``,
+``over_provision_factor``, ``worker_restart_interval_m``,
+``stage_save_sample_rate`` and ``Stage.env_name``).
 """
 
 from __future__ import annotations
@@ -49,9 +49,11 @@ class Resources:
     cpus: float = 1.0
     gpus: float = 0.0
     entire_gpu_host: bool = False
+    # per-worker host memory the per-node planner fits against (0 = unknown)
+    memory_gb: float = 0.0
 
     def __post_init__(self) -> None:
-        if self.cpus < 0 or self.gpus < 0:
+        if self.cpus < 0 or self.gpus < 0 or self.memory_gb < 0:
             raise ValueError(f"negative resource request: {self}")
 
     @property
@@ -105,6 +107,15 @@ class Stage(Generic[T, V], abc.ABC):
     def batch_size(self) -> int:
         """How many tasks ``process_data`` receives per call."""
         return 1
+
+    @property
+    def node_affinity(self) -> str | None:
+        """Cross-host placement hint for the per-node planner. ``None`` lets
+        it fan workers across any node with CPU budget; ``"driver"`` pins
+        every worker to the driver node (a stage whose side effects must
+        land there). GPU stages are driver-pinned anyway (the cards belong
+        to the engine process) and need no hint."""
+        return None
 
     @property
     def thread_safe(self) -> bool:

@@ -1,6 +1,6 @@
 """Throughput-based worker planner (port of
-``cosmos_curate_tpu/engine/autoscaler.py``: ``StageScaleState``, ``Budget``
-and ``plan_allocation``).
+``cosmos_curate_tpu/engine/autoscaler.py``: ``plan_allocation`` and the
+per-node ``plan_node_allocation``).
 
 Measure per-worker throughput per stage, then solve for the worker
 allocation that maximises *balanced* pipeline throughput under the CPU/GPU
@@ -22,15 +22,21 @@ included; so once the GPU stages' first grants overrun the card count, no
 other grant fits the GPU budget, not even a CPU stage's zero GPU cost, and
 no stage fans out.
 
-Not ported: the per-node placement (``plan_node_allocation``,
-``NodeBudget``, ``StageScaleState.node_rates``), which waits for multi-node
-runs (ROADMAP queue A item 15), and ``StageScaleState.current_workers``,
-which the planner does not read.
+Cross-host: ``plan_node_allocation`` lifts the same water-fill to
+**per-node budgets** (one ``NodeBudget`` per connected agent plus the
+driver). The per-stage totals come from the flat solver over the aggregate
+budget, so a one-node plan is ``plan_allocation``'s exactly; a placement
+pass then pins device stages to GPU-bearing nodes, honours
+``Stage.node_affinity``, and fans CPU workers across nodes weighted by each
+node's measured per-worker rate for that stage, with a bias toward the
+previous stage's node so inter-stage bytes stay on one node.
+
+Not ported: ``StageScaleState.current_workers``, which no planner reads.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from cosmos_curate_tpu_torch.core.stage import StageSpec
 
@@ -40,12 +46,39 @@ class StageScaleState:
     spec: StageSpec
     throughput_per_worker: float | None  # batches/s; None = unknown yet
     queued: int
+    # node id -> measured per-worker batches/s ON that node; empty on a
+    # single-node run or before per-node samples land
+    node_rates: dict[str, float] = field(default_factory=dict)
 
 
 @dataclass(frozen=True)
 class Budget:
     cpus: float
     gpus: float
+
+
+@dataclass(frozen=True)
+class NodeBudget:
+    """One schedulable host: the driver (``node_id=""``, the runner's
+    worker-node convention) or a connected agent (engine/remote_agent.py)."""
+
+    node_id: str
+    cpus: float
+    gpus: int = 0
+    memory_gb: float = 0.0
+
+
+@dataclass
+class NodeAllocation:
+    """``plan_node_allocation``'s output. ``targets[i]`` is stage i's total
+    worker count (``plan_allocation``'s over the aggregate budget);
+    ``per_node[i]`` splits it across nodes; ``preferred_node[i]`` is the node
+    holding the plurality of stage i's workers, the router's affinity key
+    (stage k's outputs should land where stage k+1's workers live)."""
+
+    targets: list[int]
+    per_node: list[dict[str, int]]
+    preferred_node: list[str]
 
 
 def plan_allocation(stages: list[StageScaleState], budget: Budget) -> list[int]:
@@ -123,3 +156,79 @@ def plan_allocation(stages: list[StageScaleState], budget: Budget) -> list[int]:
             break
         grant(best)
     return alloc
+
+
+def plan_node_allocation(stages: list[StageScaleState], nodes: list[NodeBudget]) -> NodeAllocation:
+    """Per-node x per-stage worker allocation. Totals come from
+    ``plan_allocation`` over the aggregate budget; placement then assigns
+    each worker to a node:
+
+    - GPU stages go to GPU-bearing nodes only (in this engine, the driver:
+      the cards belong to the engine process, engine/pool.py);
+    - ``Stage.node_affinity == "driver"`` pins a stage to the driver;
+    - CPU stages water-fill across nodes: each grant goes to the fitting
+      node with the best (measured stage rate, co-location with the
+      previous stage's node, free CPUs) score.
+    """
+    if not nodes:
+        nodes = [NodeBudget("", cpus=1.0)]
+    budget = Budget(cpus=sum(n.cpus for n in nodes), gpus=float(sum(n.gpus for n in nodes)))
+    targets = plan_allocation(stages, budget)
+    cpu_left = {n.node_id: n.cpus for n in nodes}
+    gpus_left = {n.node_id: float(n.gpus) for n in nodes}
+    # memory joins the CPU fit only where BOTH the node declares capacity
+    # and the stage declares demand (0 = unknown: fit on CPUs alone)
+    mem_left = {n.node_id: n.memory_gb for n in nodes}
+    driver_id = nodes[0].node_id  # the runner's convention: nodes[0] is the driver
+    per_node: list[dict[str, int]] = []
+    preferred: list[str] = []
+    prev_pref = driver_id
+    order = {n.node_id: j for j, n in enumerate(nodes)}
+    for st, want in zip(stages, targets):
+        res = st.spec.stage.resources
+        affinity = getattr(st.spec.stage, "node_affinity", None)
+        counts: dict[str, int] = {}
+        for _ in range(want):
+            if affinity == "driver":
+                chosen = driver_id
+            elif res.uses_gpu:
+                # with no GPU-bearing node visible the driver hosts the
+                # in-process worker, as the flat path does
+                cands = [n.node_id for n in nodes if n.gpus > 0] or [driver_id]
+                chosen = max(cands, key=lambda nid: gpus_left[nid])
+                gpus_left[chosen] -= res.gpus if not res.entire_gpu_host else gpus_left[chosen]
+            else:
+                ccost = res.cpus if res.cpus > 0 else 0.25
+                chosen = _best_cpu_node(st, nodes, cpu_left, ccost, prev_pref, mem_left=mem_left,
+                                        mem_cost=res.memory_gb)
+            counts[chosen] = counts.get(chosen, 0) + 1
+            cpu_left[chosen] -= res.cpus if res.cpus > 0 else 0.25
+            mem_left[chosen] -= res.memory_gb
+        per_node.append(counts)
+        # plurality node; ties break by node order, so the router's key is
+        # stable across replans with equal splits
+        pref = max(counts, key=lambda nid: (counts[nid], -order.get(nid, 0))) if counts else prev_pref
+        preferred.append(pref)
+        prev_pref = pref
+    return NodeAllocation(targets=targets, per_node=per_node, preferred_node=preferred)
+
+
+def _best_cpu_node(st: StageScaleState, nodes: list[NodeBudget], cpu_left: dict[str, float], ccost: float,
+                   prev_pref: str, *, mem_left: dict[str, float] | None = None, mem_cost: float = 0.0) -> str:
+    """One CPU-worker grant: fitting nodes first, then the measured
+    per-worker rate on that node, then co-location with the upstream
+    stage's node, then free CPUs. A node without samples ranks at the mean
+    measured rate (neutral exploration). Nothing fits: the least
+    oversubscribed node, mirroring the flat planner's unconditional first
+    grant."""
+    measured = [r for r in st.node_rates.values() if r > 0]
+    neutral = sum(measured) / len(measured) if measured else 1.0
+
+    def key(n: NodeBudget):
+        fits = cpu_left[n.node_id] + 1e-9 >= ccost
+        if fits and mem_cost > 0 and n.memory_gb > 0 and mem_left is not None:
+            fits = mem_left[n.node_id] + 1e-9 >= mem_cost
+        rate = st.node_rates.get(n.node_id)
+        return (fits, rate if rate is not None else neutral, 1 if n.node_id == prev_pref else 0, cpu_left[n.node_id])
+
+    return max(nodes, key=key).node_id

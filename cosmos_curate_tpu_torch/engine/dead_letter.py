@@ -21,9 +21,10 @@ An entry carries the trace id of the span that dropped it (``""`` when
 tracing is off), so an entry leads back to its trace. ``find_entry``
 resolves an entry id (or a unique suffix of one) and
 ``DlqEntry.mark_requeued`` stamps it: the ``dlq`` command
-(cli/dlq_cli.py) lists, shows and requeues entries. Not ported: the
-node-loss fields (``lost_node``, ``node_deaths``, ``lineage``), which only
-the multi-node engine writes (ROADMAP queue A item 15).
+(cli/dlq_cli.py) lists, shows and requeues entries. A drop caused by a
+lost node carries ``lost_node``, ``node_deaths`` and the ``lineage`` chain
+reconstruction walked before giving up (the cross-node engine writes
+them), so ``dlq list`` tells node churn from a poison batch.
 """
 
 from __future__ import annotations
@@ -107,11 +108,16 @@ class DeadLetterQueue:
         reason: str,
         error: str = "",
         payload_errors: list[str] | None = None,
+        lost_node: str = "",
+        node_deaths: int = 0,
+        lineage: list | None = None,
     ) -> Path | None:
         """Persist one dead batch; returns its directory (None = disabled
         or failed; the caller's drop proceeds regardless).
         ``payload_errors`` names the payloads the caller could not read
-        back (the entry is partial, and says so)."""
+        back (the entry is partial, and says so). ``lost_node`` and
+        ``lineage`` stamp an owner-loss drop: the node whose death orphaned
+        the batch's inputs and the producer chain reconstruction walked."""
         if not self.enabled:
             return None
         import cloudpickle
@@ -139,6 +145,12 @@ class DeadLetterQueue:
             }
             if payload_errors:
                 meta["payload_errors"] = payload_errors
+            if lost_node:
+                meta["lost_node"] = lost_node
+            if node_deaths:
+                meta["node_deaths"] = node_deaths
+            if lineage:
+                meta["lineage"] = lineage
             schema_stamp.stamp(meta, "dlq-meta")
             (entry / "meta.json").write_text(json.dumps(meta, indent=2))
         except Exception:

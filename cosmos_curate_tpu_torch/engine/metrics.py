@@ -5,9 +5,9 @@ observability/stage_timer.py write).
 
 Same names as the reference's (``pipeline_*``, ``caption_*``, ``search_*``
 and ``index_*``), so one dashboard reads both; the streaming engine adds the
-deserialize-time and object-store series. Left out: the series of the node
-agents, node deaths and reconstruction (ROADMAP queue A item 15) and of the
-job service (item 19). The collectors live in
+deserialize-time and object-store series, and its cross-node plane the
+per-node workers and CPUs, node deaths and lineage reconstruction. Left out:
+the series of the job service (ROADMAP queue A item 19). The collectors live in
 a registry of their own (``EngineMetrics.registry``, which a caller serves
 with ``prometheus_client.start_http_server(port, registry=...)``): a
 process that also holds the JAX package's gauges would otherwise register
@@ -178,6 +178,23 @@ class EngineMetrics:
         self.anomalies_total = Counter(
             "pipeline_anomalies_total", "stall/anomaly detector verdicts", labels + ["kind"], **reg
         )
+        # per node (the cross-node runner's metrics tick): workers placed on
+        # and CPU units used per node, the driver included
+        self.node_workers = Gauge("pipeline_node_workers", "stage workers placed per node", node_labels, **reg)
+        self.node_cpus_used = Gauge("pipeline_node_cpus_used", "CPU units in use per node", node_labels, **reg)
+        # node loss: declared deaths, objects re-materialized through
+        # lineage, and the seconds those re-runs took. Healthy churn reads
+        # deaths > 0, reconstructed > 0 and no dead-lettered batch
+        self.node_deaths = Counter(
+            "pipeline_node_deaths_total", "agents declared dead (heartbeat deadline or link loss)", node_labels, **reg
+        )
+        self.objects_reconstructed = Counter(
+            "pipeline_objects_reconstructed_total", "lost objects re-materialized via lineage re-execution", labels,
+            **reg
+        )
+        self.reconstruction_seconds = Counter(
+            "pipeline_reconstruction_seconds_total", "wall seconds spent re-executing producer batches", [], **reg
+        )
         # per-owner queue gauges of the SHARED caption engine: which stage
         # is occupying or starving the continuous batch
         self.caption_owner_queue = Gauge(
@@ -333,3 +350,18 @@ class EngineMetrics:
         self.object_plane_wait.labels(node, "prefetch_hit").inc(max(0.0, float(deltas.get("prefetch_hit_wait_s", 0.0))))
         self.object_plane_prefetch_hits.labels(node).inc(max(0.0, float(deltas.get("prefetch_hits", 0))))
         self.object_plane_prefetch_misses.labels(node).inc(max(0.0, float(deltas.get("prefetch_misses", 0))))
+
+    def set_node_state(self, node: str, workers: int, cpus_used: float) -> None:
+        if self.enabled:
+            self.node_workers.labels(node).set(workers)
+            self.node_cpus_used.labels(node).set(cpus_used)
+
+    def observe_node_death(self, node: str) -> None:
+        if self.enabled:
+            self.node_deaths.labels(node).inc()
+
+    def observe_reconstruction(self, stage: str, objects: int, seconds: float) -> None:
+        if not self.enabled:
+            return
+        self.objects_reconstructed.labels(stage).inc(max(0, int(objects)))
+        self.reconstruction_seconds.inc(max(0.0, float(seconds)))

@@ -23,12 +23,11 @@ Ownership: segments are named ``cur<owner pid>-<hex>`` after the
 coordinator (``CURATE_STORE_OWNER``), so a recycled worker leaves live data
 behind for downstream stages and ``cleanup_stale_segments`` reclaims the
 segments of dead coordinators. ``StoreBudget`` accounts the bytes in flight
-and gates new inputs when the budget is full.
-
-Not ported: the cross-node channel's helpers (``put_raw_chunks``,
-``segment_path``, ``valid_segment_name``), ``StoreBudget``'s location-aware
-``deleter`` and ``tracks``, which wait for multi-node runs (ROADMAP queue A
-item 15).
+and gates new inputs when the budget is full; its ``deleter`` is where the
+cross-node runner puts the location-aware delete (agent-owned segments are
+released at their owner) and the lineage tracker in front of it.
+``put_raw_chunks``, ``segment_path`` and ``valid_segment_name`` serve the
+cross-node object channel (engine/object_channel.py).
 """
 
 from __future__ import annotations
@@ -200,6 +199,48 @@ def delete(ref: ObjectRef) -> None:
         pass
 
 
+def segment_path(name: str) -> str:
+    return os.path.join(_SHM_DIR, name)
+
+
+def valid_segment_name(name: str) -> bool:
+    """Only store-shaped names may cross the object channel (a hostile GET
+    must not read arbitrary /dev/shm files, nor carry path separators)."""
+    return _SEGMENT_RE.fullmatch(name) is not None
+
+
+def put_raw_chunks(chunks, total_size: int, num_buffers: int, *, prefix: str | None = None) -> ObjectRef:
+    """Write raw segment bytes (the store's format, e.g. streamed from
+    another node's store) into a LOCAL segment under the local owner's name:
+    the source's name is not reused, since the stale-segment janitor
+    reclaims segments whose embedded pid is dead on THIS host. Constant
+    memory: ``chunks`` is an iterable of byte chunks. A failed or short
+    transfer never becomes a visible segment (write to ``.tmp``, then
+    rename)."""
+    if prefix is None:
+        prefix = f"cur{os.environ.get('CURATE_STORE_OWNER', os.getpid())}"
+    name = f"{prefix}-{uuid.uuid4().hex[:16]}"
+    tmp = segment_path(name) + ".tmp"
+    written = 0
+    try:
+        with open(tmp, "wb") as f:
+            for chunk in chunks:
+                f.write(chunk)
+                written += len(chunk)
+        if written != total_size:
+            raise ConnectionError(f"object transfer truncated: got {written} of {total_size} bytes")
+    except BaseException:
+        # a .tmp left behind would pin /dev/shm: the janitor's pattern never
+        # matches it
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    os.replace(tmp, segment_path(name))
+    return ObjectRef(shm_name=name, total_size=total_size, num_buffers=num_buffers)
+
+
 def cleanup_stale_segments(shm_dir: str = _SHM_DIR) -> int:
     """Unlink ``cur<pid>-*`` segments whose coordinator is gone (a crashed
     or killed run must not leak shared memory). Returns how many were
@@ -236,13 +277,15 @@ class StoreBudget:
 
     ``account`` always records (stage outputs exist already, so ``used``
     may pass the capacity); ``has_headroom`` then gates new inputs until
-    consumers ``release``, which unlinks the segment."""
+    consumers ``release``, which frees the segment through ``deleter``
+    (default: unlink the local segment)."""
 
-    def __init__(self, capacity_bytes: int) -> None:
+    def __init__(self, capacity_bytes: int, *, deleter=None) -> None:
         self.capacity = capacity_bytes
         self._used = 0
         self._live: dict[str, int] = {}
         self._cv = threading.Condition()
+        self._deleter = deleter or delete
 
     @property
     def used(self) -> int:
@@ -257,9 +300,15 @@ class StoreBudget:
         with self._cv:
             return self._used < self.capacity or not self._live
 
+    def tracks(self, ref: ObjectRef) -> bool:
+        """Whether ``ref`` is in the ledger (accounted, not yet released):
+        reconstruction releases exactly the refs it accounted at adoption."""
+        with self._cv:
+            return ref.shm_name in self._live
+
     def release(self, ref: ObjectRef) -> None:
         with self._cv:
             size = self._live.pop(ref.shm_name, 0)
             self._used -= size
             self._cv.notify_all()
-        delete(ref)
+        self._deleter(ref)

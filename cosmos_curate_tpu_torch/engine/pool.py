@@ -19,9 +19,13 @@ context, which would take device memory from the device stages. A device
 stage's thread sets no current device: the stage places its tensors on its
 own device and the kernel wrappers enter ``torch.cuda.device`` themselves.
 
-Not ported: placement on remote node agents (``remote_mgr``, the per-node
-counts and rates the per-node planner reads), which waits for multi-node
-runs (ROADMAP queue A item 15).
+With the cross-node plane (engine/remote_plane.py) a ``ProcessPool`` may
+place a worker on a connected node agent (``remote_mgr``): the handle's
+``proc`` is then the plane's stand-in, which carries the agent (``_agent``),
+and ``worker_node`` names that agent's node ('' for the driver).
+``start_worker(node_id=...)`` takes the per-node planner's placement, and
+``node_throughputs`` gives the planner each node's measured rate. The
+driver's ``CURATE_CHAOS`` plan rides every worker's environment.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import cloudpickle
+
+from cosmos_curate_tpu_torch import chaos
 
 from cosmos_curate_tpu_torch.core.stage import NodeInfo, StageSpec, WorkerMetadata
 from cosmos_curate_tpu_torch.engine import object_store
@@ -89,8 +95,9 @@ class BasePool:
         # parent onto ('' = tracing off)
         self.trace_context: str = ""
         self._next_id = 0
-        # recent (finish time, process seconds) samples for the autoscaler
-        self.samples: list[tuple[float, float]] = []
+        # recent (finish time, process seconds, node id) samples for the
+        # autoscaler; node '' = a worker placed on the driver
+        self.samples: list[tuple[float, float, str]] = []
         # workers told to shut down, awaiting reap (never blocks the loop)
         self.draining: list[tuple[WorkerHandle, float]] = []
         # workers that died before they were ever ready
@@ -111,9 +118,22 @@ class BasePool:
         """Every worker this pool has started, replacements included."""
         return self._next_id
 
-    def record_sample(self, process_time_s: float) -> None:
+    @staticmethod
+    def worker_node(w: WorkerHandle) -> str:
+        """'' for a worker placed on the driver, else its agent's node id."""
+        agent = getattr(w.proc, "_agent", None)
+        return agent.node_id if agent is not None else ""
+
+    def workers_by_node(self) -> dict[str, int]:
+        counts: dict[str, int] = {}
+        for w in self.workers.values():
+            node = self.worker_node(w)
+            counts[node] = counts.get(node, 0) + 1
+        return counts
+
+    def record_sample(self, process_time_s: float, node_id: str = "") -> None:
         now = time.monotonic()
-        self.samples.append((now, process_time_s))
+        self.samples.append((now, process_time_s, node_id))
         cutoff = now - 600.0
         while self.samples and self.samples[0][0] < cutoff:
             self.samples.pop(0)
@@ -121,21 +141,44 @@ class BasePool:
     def throughput_per_worker(self, window_s: float) -> float | None:
         """Batches a second one worker achieves, from recent samples."""
         now = time.monotonic()
-        recent = [p for (t, p) in self.samples if t >= now - window_s]
+        recent = [p for (t, p, _n) in self.samples if t >= now - window_s]
         if not recent:
             return None
         mean_t = sum(recent) / len(recent)
         return 1.0 / mean_t if mean_t > 0 else None
 
+    def node_throughputs(self, window_s: float) -> dict[str, float]:
+        """Per-node batches a second one worker achieves: the per-node
+        planner biases CPU fan-out toward nodes that measurably process
+        this stage faster."""
+        now = time.monotonic()
+        by_node: dict[str, list[float]] = {}
+        for t, p, node in self.samples:
+            if t >= now - window_s:
+                by_node.setdefault(node, []).append(p)
+        out: dict[str, float] = {}
+        for node, ps in by_node.items():
+            mean_t = sum(ps) / len(ps)
+            if mean_t > 0:
+                out[node] = 1.0 / mean_t
+        return out
+
     def lifetime_expired(self, w: WorkerHandle) -> bool:
         lim = self.spec.worker_max_lifetime_m or 0
         return lim > 0 and (time.monotonic() - w.started_at) > lim * 60
 
-    def start_worker(self) -> WorkerHandle:  # pragma: no cover - abstract
+    # ``node_id`` is the per-node planner's placement: None = least-loaded
+    # placement, '' = the driver, else that agent (falling back when it died
+    # since the plan)
+    def start_worker(self, node_id: str | None = None) -> WorkerHandle:  # pragma: no cover - abstract
         raise NotImplementedError
 
     def stop_worker(self, w: WorkerHandle) -> None:  # pragma: no cover - abstract
         raise NotImplementedError
+
+    def note_worker_gone(self, w: WorkerHandle) -> None:
+        """The runner reaped a DEAD worker (``stop_worker`` never ran):
+        release its placement accounting."""
 
     def submit(self, w: WorkerHandle, batch_id: int, refs: list) -> None:
         w.busy_batch = batch_id
@@ -188,6 +231,9 @@ def _base_worker_env() -> dict[str, str]:
         tp = format_traceparent() or os.environ.get(TRACEPARENT_ENV, "")
         if tp:
             env[TRACEPARENT_ENV] = tp
+    if os.environ.get(chaos.CHAOS_ENV):
+        # fault plans follow workers: the worker-batch sites fire there
+        env[chaos.CHAOS_ENV] = os.environ[chaos.CHAOS_ENV]
     return env
 
 
@@ -263,18 +309,41 @@ class PrewarmPool:
 
 class ProcessPool(BasePool):
     def __init__(self, spec: StageSpec, node: NodeInfo, results_q, pool_id: int = 0,
-                 prewarm: PrewarmPool | None = None) -> None:
+                 prewarm: PrewarmPool | None = None, remote_mgr=None) -> None:
         super().__init__(spec, node, pool_id)
         self.results_q = results_q  # mp queue shared by every pool's processes
         self.prewarm = prewarm
         self._stage_pickle = cloudpickle.dumps(spec.stage)
         # every worker process this pool started or adopted, by worker id
+        # (local processes only: a remote worker's pid is its agent's)
         self.pids: dict[str, int] = {}
+        # the cross-node plane: when set, start_worker may place a worker on
+        # a connected node agent once the driver's CPUs fill
+        self.remote_mgr = remote_mgr
 
-    def start_worker(self) -> WorkerHandle:
+    @property
+    def _cpu_cost(self) -> float:
+        return self.stage.resources.cpus
+
+    def start_worker(self, node_id: str | None = None) -> WorkerHandle:
         wid = f"s{self.pool_id}-{self.name}-p{self._next_id}"
         self._next_id += 1
         env = dict(_base_worker_env(), CURATE_WORKER_ID=wid)
+        if self.remote_mgr is None:
+            agent = None
+        elif node_id is None:
+            agent = self.remote_mgr.place(self._cpu_cost)
+        else:
+            agent = self.remote_mgr.place_for(node_id, self._cpu_cost)
+        if agent is not None:
+            meta = WorkerMetadata(worker_id=wid, stage_name=self.name,
+                                  node=NodeInfo(node_id=agent.node_id, num_cpus=agent.num_cpus, num_gpus=0),
+                                  allocation=self.stage.resources)
+            in_q, proc = self.remote_mgr.start_remote_worker(agent, wid, self._stage_pickle, cloudpickle.dumps(meta),
+                                                             env, cpu_cost=self._cpu_cost)
+            handle = WorkerHandle(worker_id=wid, in_q=in_q, proc=proc)
+            self.workers[wid] = handle
+            return handle
         adopted = self.prewarm.take() if self.prewarm is not None else None
         if adopted is not None:
             in_q, proc = adopted
@@ -289,6 +358,8 @@ class ProcessPool(BasePool):
         handle = WorkerHandle(worker_id=wid, in_q=in_q, proc=proc)
         self.workers[wid] = handle
         self.pids[wid] = proc.pid
+        if self.remote_mgr is not None:
+            self.remote_mgr.note_local_start(self._cpu_cost)
         return handle
 
     def stop_worker(self, w: WorkerHandle) -> None:
@@ -299,8 +370,20 @@ class ProcessPool(BasePool):
         except Exception:
             pass
         self.workers.pop(w.worker_id, None)
+        if self.remote_mgr is not None and not hasattr(w.proc, "_agent"):
+            # a driver-placed worker (a remote one's cost is released on the
+            # manager's StopWorker path)
+            self.remote_mgr.note_local_stop(self._cpu_cost)
         if w.proc is not None:
             self.draining.append((w, time.monotonic()))
+
+    def note_worker_gone(self, w: WorkerHandle) -> None:
+        if self.remote_mgr is None:
+            return
+        if hasattr(w.proc, "_agent"):
+            self.remote_mgr.note_remote_gone(w.proc)
+        else:
+            self.remote_mgr.note_local_stop(self._cpu_cost)
 
 
 class InProcessPool(BasePool):
@@ -315,7 +398,7 @@ class InProcessPool(BasePool):
         self._lock = threading.Lock()  # a device stage runs one batch at a time
         self._threads: list[threading.Thread] = []
 
-    def start_worker(self) -> WorkerHandle:
+    def start_worker(self, node_id: str | None = None) -> WorkerHandle:  # noqa: ARG002 - always the driver
         if self.workers:
             # threads would share the one stage instance (double setup,
             # destroy while in use)
@@ -391,7 +474,9 @@ class InProcessPool(BasePool):
 
 
 def make_pool(spec: StageSpec, node: NodeInfo, mp_results_q, thread_results_q, pool_id: int = 0,
-              prewarm: PrewarmPool | None = None) -> BasePool:
+              prewarm: PrewarmPool | None = None, remote_mgr=None) -> BasePool:
     if spec.stage.resources.uses_gpu:
+        # a GPU stage never places remotely: each host's cards belong to
+        # that host's engine process
         return InProcessPool(spec, node, thread_results_q, pool_id)
-    return ProcessPool(spec, node, mp_results_q, pool_id, prewarm=prewarm)
+    return ProcessPool(spec, node, mp_results_q, pool_id, prewarm=prewarm, remote_mgr=remote_mgr)

@@ -10,10 +10,11 @@ a CPU worker runs with ``CUDA_VISIBLE_DEVICES=""`` (engine/pool.py): it never
 creates a CUDA context, which would take device memory from the driver's
 device stages. No module a worker imports touches ``torch.cuda`` on import.
 
-Not ported: the remote plane's ``ResultMsg.input_loss`` and the chaos plan's
-hand-off to spawned workers (``CURATE_CHAOS``), which wait for multi-node
-runs (ROADMAP queue A item 15); a spawned worker fires the worker-batch
-chaos sites of a plan installed in its own process only.
+A worker arms the chaos plan of ``CURATE_CHAOS`` at bring-up (and again
+when a prewarmed spare is adopted: the adopter's environment may arm what
+the spare was spawned without). The same worker runs under a node agent
+(engine/remote_agent.py), whose relay sets ``ResultMsg.input_loss`` for a
+batch whose inputs could not be fetched from their owner.
 """
 
 from __future__ import annotations
@@ -69,6 +70,11 @@ class ResultMsg:
     process_time_s: float = 0.0
     deserialize_time_s: float = 0.0
     worker_id: str = ""
+    # the error is a lost input (an object-channel fetch from a dead or
+    # unreachable owner), not user code failing: the runner routes it to
+    # lineage reconstruction instead of the num_run_attempts budget. Only
+    # the remote plane's relay (remote_plane.AgentResult) sets it.
+    input_loss: bool = False
 
 
 @dataclass
@@ -100,6 +106,8 @@ def worker_main(in_q, out_q, env: dict[str, str]) -> None:
     """Entry point of a spawned worker process."""
     os.environ.update(env)
     setup_tracing_from_env()
+    # armed once at bring-up; while disarmed a site costs one falsy check
+    chaos.install_from_env()
     stage = None
     worker_id = env.get("CURATE_WORKER_ID", "worker-?")
     # prefetch pipeline: control messages -> deserialized batches
@@ -145,6 +153,7 @@ def worker_main(in_q, out_q, env: dict[str, str]) -> None:
                         os.environ.update(msg.env)
                         worker_id = msg.env.get("CURATE_WORKER_ID", worker_id)
                         setup_tracing_from_env()
+                        chaos.install_from_env()
                     stage = cloudpickle.loads(msg.stage_pickle)
                     meta = cloudpickle.loads(msg.worker_meta_pickle)
                     stage.setup_on_node(meta.node, meta)

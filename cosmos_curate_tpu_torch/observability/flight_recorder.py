@@ -18,9 +18,11 @@ At the end of a traced run it merges into ``<output>/report/run_report.json``:
 The report has the reference's sections and schema version.
 ``load_report`` reads one back and ``render_report`` prints it (the
 ``report`` command, cli/report_cli.py); ``prior`` carries the sections only
-the original driver could source into a rebuilt report. Not ported yet:
-the per-node sidecars and their merge, and the node-plan and node-loss
-sections (ROADMAP queue A item 15).
+the original driver could source into a rebuilt report. A multi-node run's
+nodes each write a sidecar (``write_node_stats``: ``report/node-stats-<rank>
+.json``), which ``local merge-summaries`` folds (``load_node_stats``) into
+the merged report; the cross-node engine adds its per-node plan
+(``node_plan``) and its node-loss receipts (``node_events``).
 """
 
 from __future__ import annotations
@@ -45,26 +47,70 @@ def report_path(output_path: str) -> str:
 # -- span collection ---------------------------------------------------------
 
 
-def clear_trace_artifacts(output_path: str) -> int:
-    """Delete the span files (``*.ndjson``) and node-stats sidecars
-    (``report/node-stats-*.json``) a PRIOR run left under the output root. A
-    traced re-run into the same root overwrites only the base driver file:
-    stale rotation parts and collected files would keep the old run's trace
-    ids and hand the new run a false DISCONNECTED verdict (and a critical
-    path rooted in dead spans). Returns the number of files removed."""
+def clear_trace_artifacts(output_path: str, *, rank: int | None = None) -> int:
+    """Delete span files (``*.ndjson``) a PRIOR traced run left under
+    ``<output>/profile``. A traced re-run into the same root overwrites
+    only the base driver file — stale rotation parts and collected worker
+    files would keep the old run's trace ids and hand the new run a false
+    DISCONNECTED verdict (and a critical path rooted in dead spans).
+
+    ``rank=None`` (single node) clears everything, including stale
+    ``report/node-stats-*.json`` sidecars. With ``rank`` set (multi-node)
+    the clear is scoped to files only THIS rank ever writes — its
+    ``driver-n<rank>`` NDJSON (base + rotation parts), its
+    ``collected/node<rank>/`` worker spans, and its node-stats sidecar —
+    so peers already writing to the shared root are never touched (rank 0
+    additionally owns a prior single-node run's plain ``driver.ndjson``
+    files, so growing a root from one node to N starts clean too). A
+    re-run with FEWER nodes than the prior run leaves the dead ranks'
+    files behind (no rank owns them at startup); use a fresh output root
+    when shrinking the topology. Returns the number of files removed."""
+    root = f"{output_path.rstrip('/')}/profile"
+    client = get_storage_client(root)
     removed = 0
-    for sub, keep in (("profile", lambda name: name.endswith(".ndjson")),
-                      ("report", lambda name: name.startswith("node-stats-") and name.endswith(".json"))):
-        root = f"{output_path.rstrip('/')}/{sub}"
-        client = get_storage_client(root)
-        for info in list(client.list_files(root)):
-            if not keep(info.path.rsplit("/", 1)[-1]):
+    try:
+        files = list(client.list_files(root, suffixes=(".ndjson",)))
+    except Exception:
+        files = []
+    for info in files:
+        if rank is not None:
+            name = info.path.rsplit("/", 1)[-1]
+            own = name.startswith(f"driver-n{rank}.") or (
+                f"/collected/node{rank}/" in info.path
+            )
+            # rank 0 exists in every topology, so it also owns the files a
+            # prior SINGLE-node run left behind (plain driver.ndjson +
+            # parts) — without this, growing a root from 1 node to N mixes
+            # the old trace into the merge
+            if rank == 0 and name.startswith("driver."):
+                own = True
+            if not own:
                 continue
-            try:
-                client.delete(info.path)
-                removed += 1
-            except OSError:
-                logger.warning("could not remove stale trace artifact %s", info.path)
+        try:
+            client.delete(info.path)
+            removed += 1
+        except Exception:
+            logger.warning("could not remove stale span file %s", info.path)
+    # stale sidecars feed load_node_stats at merge time: a dead run's ranks
+    # would add their drops/busy-seconds to the merged report
+    report_root = f"{output_path.rstrip('/')}/report"
+    report_client = get_storage_client(report_root)
+    try:
+        sidecars = [
+            info
+            for info in report_client.list_files(report_root, suffixes=(".json",))
+            if info.path.rsplit("/", 1)[-1].startswith("node-stats-")
+        ]
+    except Exception:
+        sidecars = []
+    for info in sidecars:
+        if rank is not None and info.path.rsplit("/", 1)[-1] != f"node-stats-{rank}.json":
+            continue
+        try:
+            report_client.delete(info.path)
+            removed += 1
+        except Exception:
+            logger.warning("could not remove stale node stats %s", info.path)
     if removed:
         logger.info("flight recorder: cleared %d stale trace artifact(s)", removed)
     return removed
@@ -212,6 +258,19 @@ def runner_stats(runner: Any) -> dict:
         "anomalies": anomaly_summaries(),
         "stage_times": dict(getattr(runner, "stage_times", None) or {}),
     }
+    node_plan = getattr(runner, "node_plan", None)
+    if node_plan:
+        stats["node_plan"] = node_plan
+    # node-loss receipts: declared deaths and what lineage reconstruction
+    # recomputed (engine/runner.py)
+    node_events = getattr(runner, "node_events", None)
+    reconstructed = int(getattr(runner, "objects_reconstructed", 0) or 0)
+    if node_events or reconstructed:
+        stats["node_events"] = {
+            "deaths": list(node_events or []),
+            "objects_reconstructed": reconstructed,
+            "reconstruction_seconds": round(float(getattr(runner, "reconstruction_seconds", 0.0) or 0.0), 4),
+        }
     wall = getattr(runner, "pipeline_wall_s", 0.0)
     if wall:
         stats["wall_s"] = round(float(wall), 4)
@@ -227,6 +286,130 @@ def runner_stats(runner: Any) -> dict:
     if dlq is not None and getattr(dlq, "recorded", 0):
         stats["dlq_run_dir"] = str(dlq.run_dir)
     return stats
+
+
+def write_node_stats(
+    output_path: str, rank: int, runner: Any = None, *, extra: dict | None = None
+) -> str:
+    """Persist this node's runner-sourced sections as a per-node sidecar.
+
+    Multi-node runs build the merged report at merge-summaries time, in a
+    process where every node runner's memory is gone — without the sidecar
+    the merged report would claim ``dead_lettered: 0`` and empty
+    dispatch/flow sections no matter what the run actually did.
+
+    ``extra`` overrides runner-sourced keys: work-stealing nodes run the
+    pipeline once per stolen batch on one runner, and every ``run()`` resets
+    its DLQ accounting, so the caller passes drop totals accumulated across
+    batches in place of the last batch's."""
+    from cosmos_curate_tpu_torch.observability.tracing import suppress_tracing
+
+    stats = runner_stats(runner)
+    if extra:
+        stats.update(extra)
+    stats["node_rank"] = rank
+    schema_stamp.stamp(stats, "node-stats")
+    path = f"{output_path.rstrip('/')}/report/node-stats-{rank}.json"
+    with suppress_tracing():
+        write_bytes(path, json.dumps(stats, indent=1).encode())
+    return path
+
+
+def load_node_stats(output_path: str) -> dict | None:
+    """Merge all ``report/node-stats-*.json`` sidecars into one
+    prior-shaped dict (None when there are none): ``stage_times``,
+    ``stage_counts`` and ``dead_lettered`` sum across nodes; dispatch/flow
+    aggregates are namespaced per node (``n<rank>/<name>``) — their derived
+    fractions must not be averaged blind. ``wall_s`` is the max across
+    nodes (data-parallel nodes run concurrently, so the run lasts as long
+    as its slowest node); ``pipeline_overlap_frac`` is the mean over the
+    nodes that reported one."""
+    root = f"{output_path.rstrip('/')}/report"
+    client = get_storage_client(root)
+    try:
+        files = list(client.list_files(root, suffixes=(".json",)))
+    except Exception:
+        return None
+    merged: dict[str, Any] = {
+        "dispatch": {}, "stage_flow": {}, "caption_phases": {}, "index_ops": {},
+        "search": {},
+        "object_plane": {}, "stage_times": {}, "stage_counts": {},
+        "dead_lettered": 0,
+    }
+    dlq_dirs: list[str] = []
+    overlaps: list[float] = []
+    found = False
+    for info in files:
+        if not info.path.rsplit("/", 1)[-1].startswith("node-stats-"):
+            continue
+        try:
+            stats = json.loads(client.read_bytes(info.path))
+        except (OSError, ValueError):
+            continue
+        found = True
+        rank = stats.get("node_rank", "?")
+        for key in ("dispatch", "stage_flow", "caption_phases", "index_ops", "search"):
+            for name, agg in (stats.get(key) or {}).items():
+                merged[key][f"n{rank}/{name}"] = agg
+        # object-plane aggregates are already keyed per node: sum numeric
+        # fields when two sidecars report the same node (driver rank saw
+        # agent deltas AND the agent rank dumped its own totals)
+        for node, agg in (stats.get("object_plane") or {}).items():
+            into = merged["object_plane"].setdefault(node, {})
+            for k, v in agg.items():
+                if isinstance(v, (int, float)):
+                    into[k] = round(into.get(k, 0) + v, 4)
+        for name, s in (stats.get("stage_times") or {}).items():
+            merged["stage_times"][name] = round(
+                merged["stage_times"].get(name, 0.0) + float(s), 4
+            )
+        for name, counts in (stats.get("stage_counts") or {}).items():
+            into = merged["stage_counts"].setdefault(name, {})
+            for k, v in counts.items():
+                if isinstance(v, (int, float)):
+                    into[k] = into.get(k, 0) + v
+        merged["dead_lettered"] += int(stats.get("dead_lettered", 0) or 0)
+        # anomaly verdicts: counts sum across nodes, the recent tail
+        # concatenates (bounded — it was bounded per node already)
+        anom = stats.get("anomalies")
+        if anom:
+            into = merged.setdefault(
+                "anomalies", {"total": 0, "counts": {}, "recent": []}
+            )
+            into["total"] += int(anom.get("total", 0) or 0)
+            for k, v in (anom.get("counts") or {}).items():
+                into["counts"][k] = into["counts"].get(k, 0) + int(v)
+            into["recent"] = (into["recent"] + list(anom.get("recent") or []))[-64:]
+        # node-loss receipts concatenate (deaths) / sum (reconstruction):
+        # every rank's driver sees only the agents IT lost
+        ne = stats.get("node_events")
+        if ne:
+            into = merged.setdefault(
+                "node_events",
+                {"deaths": [], "objects_reconstructed": 0, "reconstruction_seconds": 0.0},
+            )
+            into["deaths"].extend(ne.get("deaths") or [])
+            into["objects_reconstructed"] += int(ne.get("objects_reconstructed", 0) or 0)
+            into["reconstruction_seconds"] = round(
+                into["reconstruction_seconds"]
+                + float(ne.get("reconstruction_seconds", 0.0) or 0.0),
+                4,
+            )
+        if stats.get("dlq_run_dir"):
+            dlq_dirs.append(stats["dlq_run_dir"])
+        if stats.get("wall_s"):
+            merged["wall_s"] = max(
+                merged.get("wall_s", 0.0), float(stats["wall_s"])
+            )
+        if stats.get("pipeline_overlap_frac") is not None:
+            overlaps.append(float(stats["pipeline_overlap_frac"]))
+    if not found:
+        return None
+    if dlq_dirs:
+        merged["dlq_run_dir"] = ",".join(dlq_dirs)
+    if overlaps:
+        merged["pipeline_overlap_frac"] = round(sum(overlaps) / len(overlaps), 4)
+    return merged
 
 
 def build_run_report(
@@ -268,8 +451,12 @@ def build_run_report(
     report["search"] = stats.get("search") or {}
     report["object_plane"] = stats["object_plane"]
     report["anomalies"] = stats.get("anomalies") or {}
+    if stats.get("node_plan"):
+        report["node_plan"] = stats["node_plan"]
+    if stats.get("node_events"):
+        report["node_events"] = stats["node_events"]
     # precedence: live runner accounting (it includes setup time that spans
-    # do not book to the stage) > span-derived
+    # do not book to the stage) > prior or sidecar accounting > span-derived
     report["stage_times"] = (
         stats["stage_times"] or (prior or {}).get("stage_times") or _stage_times_from_spans(spans)
     )
@@ -288,7 +475,7 @@ def build_run_report(
         # stage_times / wall_s are handled above (their span-derived
         # fallbacks would always win this not-set check)
         for key in ("dispatch", "stage_flow", "caption_phases", "index_ops", "search", "object_plane", "anomalies",
-                    "stage_counts", "dead_lettered", "dlq_run_dir"):
+                    "node_plan", "node_events", "stage_counts", "dead_lettered", "dlq_run_dir"):
             if not report.get(key) and prior.get(key):
                 report[key] = prior[key]
         # presence, not truthiness: an overlap of 0.0 is a measurement

@@ -759,6 +759,17 @@ def object_plane_summaries() -> dict[str, dict]:
     return out
 
 
+def object_plane_snapshot_delta(prev: dict | None) -> tuple[dict, dict]:
+    """(current totals, delta since ``prev``) of this process's own
+    aggregate: what a node agent ships in each AgentStats frame (deltas, so
+    the driver's fold stays right across reconnects)."""
+    with _OP_LOCK:
+        cur = {k: _OP.get(k, 0.0) for k in OBJECT_PLANE_KEYS}
+    prev = prev or {}
+    delta = {k: cur[k] - float(prev.get(k, 0.0)) for k in OBJECT_PLANE_KEYS}
+    return cur, {k: v for k, v in delta.items() if v}
+
+
 def reset_object_plane() -> None:
     with _OP_LOCK:
         _OP.clear()

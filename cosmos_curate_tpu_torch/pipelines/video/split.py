@@ -35,8 +35,18 @@ gate). Every run publishes its live status to
 ``<output>/profile/traces/driver.ndjson``, all rooted on one ``run.split``
 span, and the flight recorder writes ``<output>/report/run_report.json`` at
 the end; a recorder failure is logged and leaves the run's output as it is.
-It leaves out what else the reference wraps around the run: multi-node
-initialisation and work stealing (item 15).
+
+Multi-node runs follow the reference's environment contract
+(parallel/distributed.py): under ``CURATE_NUM_NODES`` / ``CURATE_NODE_RANK``
+node *i* takes every *N*-th task, or, with ``CURATE_WORK_STEALING=1``,
+claims batches from the shared ledger under the output root
+(parallel/work_stealing.py), its dead-lettered batches summed across the
+claims. Rank 0 writes ``summary.json`` and rank *r* ``summary-node<r>.json``;
+a traced node writes ``driver-n<rank>.ndjson`` and its stats sidecar, and
+clears only its own stale files; artifact delivery, the run report and the
+corpus index's consolidation wait for ``local merge-summaries``, which runs
+once every node has finished. ``CURATE_COORDINATOR_ADDRESS`` also joins the
+nodes in a gloo process group.
 """
 
 from __future__ import annotations
@@ -55,12 +65,22 @@ from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature
 from cosmos_curate_tpu_torch.dedup.corpus_index import consolidate_index
 from cosmos_curate_tpu_torch.observability import tracing
 from cosmos_curate_tpu_torch.observability.artifacts import collect_artifacts, finalize_delivery
-from cosmos_curate_tpu_torch.observability.flight_recorder import clear_trace_artifacts, write_run_report
+from cosmos_curate_tpu_torch.observability.flight_recorder import (
+    clear_trace_artifacts,
+    write_node_stats,
+    write_run_report,
+)
 from cosmos_curate_tpu_torch.observability.live_status import export_live_status_dir
 from cosmos_curate_tpu_torch.observability.profiling import ProfilingConfig, profiling_wrapper
 from cosmos_curate_tpu_torch.observability.stage_replay import StageSaveConfig, stage_save_wrapper
 from cosmos_curate_tpu_torch.ops._build import DEVICE_FAULTS
-from cosmos_curate_tpu_torch.pipelines.video.input_discovery import discover_split_tasks
+from cosmos_curate_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed,
+    node_rank_and_count,
+    partition_tasks_for_node,
+)
+from cosmos_curate_tpu_torch.parallel.work_stealing import run_with_stealing, stealing_enabled
+from cosmos_curate_tpu_torch.pipelines.video.input_discovery import _processed_video_ids, discover_split_tasks
 from cosmos_curate_tpu_torch.pipelines.video.stages.aesthetic_filter import AestheticFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.artificial_text_filter import ArtificialTextFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.caption_embedding import CaptionEmbeddingStage
@@ -81,7 +101,7 @@ from cosmos_curate_tpu_torch.pipelines.video.stages.semantic_filter import Seman
 from cosmos_curate_tpu_torch.pipelines.video.stages.shot_detection import TransNetV2ClipExtractionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.super_resolution import SuperResolutionStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.tracking import TrackingStage
-from cosmos_curate_tpu_torch.pipelines.video.stages.writer import ClipWriterStage
+from cosmos_curate_tpu_torch.pipelines.video.stages.writer import ClipWriterStage, video_record_id
 from cosmos_curate_tpu_torch.utils.health import accelerator_health_gate
 from cosmos_curate_tpu_torch.utils.logging import get_logger
 from cosmos_curate_tpu_torch.utils.summary import build_summary, write_summary
@@ -271,26 +291,66 @@ def run_split(
     # resolved here, not in run_pipeline, so the flight recorder reads the
     # instance that ran (its dead-letter counts, stage times, overlap)
     runner = runner or default_runner()
+    maybe_initialize_distributed()
+    rank, n_nodes = node_rank_and_count()
+    # work stealing runs the pipeline once per claimed batch, and each run
+    # resets the runner's DLQ accounting: the node's drops add up here
+    steal_dead: dict = {"count": 0, "dirs": []}
     index_extra: dict = {}
     run_root = None
     # tracing starts right before the try whose finally ends it
     if args.tracing:
         # a re-run into the same root starts from a clean trace: stale
-        # rotation parts carry the old run's trace ids
-        clear_trace_artifacts(args.output_path)
-        tracing.enable_tracing(f"{args.output_path.rstrip('/')}/profile/traces/driver.ndjson")
+        # rotation parts carry the old run's trace ids. A node of a
+        # multi-node run clears only its own files (peers may be writing)
+        clear_trace_artifacts(args.output_path, rank=rank if n_nodes > 1 else None)
+        name = "driver.ndjson" if n_nodes <= 1 else f"driver-n{rank}.ndjson"
+        tracing.enable_tracing(f"{args.output_path.rstrip('/')}/profile/traces/{name}")
         # join a caller-stamped trace where there is one, then root every
         # span of the run on ONE run.split span, carried as the process
-        # parent (not the contextvar stack), so any thread joins it
+        # parent (not the contextvar stack), so any thread (and every
+        # stolen batch's pipeline.run) joins it
         tracing.attach_traceparent(os.environ.get(tracing.TRACEPARENT_ENV))
         run_root = tracing.start_span("run.split", output_path=args.output_path)
         tracing.attach_traceparent(tracing.format_traceparent(run_root))
     try:
         tasks = discover_split_tasks(args.input_path, args.output_path, limit=args.limit)
         stages = _apply_observability_wrappers(assemble_stages(args), args)
-        out = run_pipeline(tasks, stages, config=config, runner=runner) or []
-        if args.corpus_index:
-            # before the report, so its index aggregates land in it
+        if n_nodes > 1 and stealing_enabled():
+            # shared-ledger mode: nodes pull claim batches until the ledger
+            # is dry, so a skewed split rebalances instead of idling a node
+            done_cache = {"ts": 0.0, "ids": set()}
+
+            def _task_done(t) -> bool:
+                # the resume records are the completion signal; one listing
+                # a linger poll, not one a task
+                now = time.monotonic()
+                if now - done_cache["ts"] > 5.0:
+                    done_cache["ids"] = _processed_video_ids(args.output_path)
+                    done_cache["ts"] = now
+                return video_record_id(t.video.path) in done_cache["ids"]
+
+            def _run_batch(batch):
+                res = run_pipeline(batch, stages, config=config, runner=runner)
+                dlq = getattr(runner, "dlq", None)
+                n = int(getattr(runner, "dead_lettered", 0) or getattr(dlq, "recorded", 0) or 0)
+                if n:
+                    steal_dead["count"] += n
+                    if dlq is not None and getattr(dlq, "recorded", 0):
+                        steal_dead["dirs"].append(str(dlq.run_dir))
+                return res
+
+            out = run_with_stealing(tasks, args.output_path, _run_batch,
+                                    record_id=lambda t: video_record_id(t.video.path), is_done=_task_done)
+        else:
+            # each node takes a disjoint slice (the resume records keep
+            # re-runs consistent)
+            out = run_pipeline(partition_tasks_for_node(tasks), stages, config=config, runner=runner) or []
+        if args.corpus_index and n_nodes == 1:
+            # before the report, so its index aggregates land in it; a
+            # multi-node run leaves the pending fragments to `index
+            # consolidate` after the merge (concurrent consolidations would
+            # race on the centroids)
             index_extra = _consolidate_corpus_index(args)
     finally:
         if args.tracing:
@@ -298,16 +358,35 @@ def run_split(
             tracing.disable_tracing()  # flushes the buffered spans
         if args.tracing or args.profile_cpu or args.profile_memory:
             collect_artifacts(args.output_path)
-            finalize_delivery(args.output_path)
-        if args.tracing:
-            try:
-                write_run_report(args.output_path, runner=runner)
-            except Exception:
-                logger.exception("flight recorder failed (run output unaffected)")
+            extra = None
+            if steal_dead["count"]:
+                # the accumulator holds every stolen batch's drops: it
+                # replaces the runner's last-run accounting
+                extra = {"dead_lettered": steal_dead["count"]}
+                if steal_dead["dirs"]:
+                    extra["dlq_run_dir"] = ",".join(dict.fromkeys(steal_dead["dirs"]))
+            if n_nodes == 1:
+                # one node is also the delivery driver; a multi-node run
+                # finalizes in `local merge-summaries`, once every node
+                # has collected
+                finalize_delivery(args.output_path)
+                if args.tracing:
+                    try:
+                        write_run_report(args.output_path, runner=runner, extra=extra)
+                    except Exception:
+                        logger.exception("flight recorder failed (run output unaffected)")
+            elif args.tracing:
+                # the merged report is built at merge time, when this
+                # runner's memory is gone: keep its sections in a sidecar
+                try:
+                    write_node_stats(args.output_path, rank, runner, extra=extra)
+                except Exception:
+                    logger.exception("node stats sidecar failed (run output unaffected)")
     elapsed = time.monotonic() - t0
     num_chips = args.num_chips or max(1, torch.cuda.device_count())
     summary = build_summary(out, pipeline_run_time_s=elapsed, num_chips=num_chips, extra=index_extra or None)
-    write_summary(f"{args.output_path.rstrip('/')}/summary.json", summary)
+    name = "summary.json" if rank == 0 else f"summary-node{rank}.json"
+    write_summary(f"{args.output_path.rstrip('/')}/{name}", summary)
     logger.info("split done: %d videos, %d clips, %.1fs", summary["num_videos"], summary["num_clips"], elapsed)
     return summary
 

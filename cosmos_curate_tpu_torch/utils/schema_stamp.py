@@ -1,7 +1,7 @@
 """Schema-version stamping of durable JSON (port of the part of
 ``cosmos_curate_tpu/utils/schema_stamp.py`` that the dead-letter queue, the
-corpus index's manifests, the run report and the live status write and read
-through). The versions are the
+corpus index's manifests, the run report, the per-node stats sidecars and
+the live status write and read through). The versions are the
 reference's, so a record the port writes reads as the same version of the
 same surface, and a manifest either package wrote opens in the other."""
 
@@ -19,6 +19,8 @@ SCHEMA_VERSIONS: dict[str, int] = {
     "index-manifest": 2,
     # observability/flight_recorder.py report/run_report.json
     "run-report": 1,
+    # observability/flight_recorder.py report/node-stats-<rank>.json
+    "node-stats": 1,
     # observability/live_status.py report/live/status.json
     "live-status": 1,
 }

@@ -46,9 +46,10 @@ zeroed just before it and read just after. One JSON line per phase:
   ``index build``, ``query`` and ``stats`` on it, each exiting 0 with the
   same counts as ``run_split``, ``run_dedup``, ``run_shard`` and
   ``incremental_dedup`` called directly; ``local split --runner
-  streaming`` with ``CURATE_ENGINE_DRIVER_PORT`` set (the engine's
-  cross-node plane) and ``index serve`` raise ``NotImplementedError``
-  naming their ROADMAP item.
+  streaming`` with ``CURATE_ENGINE_DRIVER_PORT`` set and no
+  ``CURATE_ENGINE_TOKEN`` (the engine's cross-node plane refuses to run
+  without its cluster secret) raises before any stage runs, and ``index
+  serve`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -592,14 +593,22 @@ def drive_cli(cs, dev, root: Path, corpus: list[Path]) -> dict:
         assert run["rc"] == 0, (name, run["printed"])
 
     os.environ["CURATE_ENGINE_DRIVER_PORT"] = "7070"
+    token = os.environ.pop("CURATE_ENGINE_TOKEN", None)
     try:
-        streaming = refusal(["local", "split", "--input-path", str(videos), "--output-path", str(root / "refused"),
-                             "--runner", "streaming"])
+        cli(["local", "split", "--input-path", str(videos), "--output-path", str(root / "refused"),
+             "--runner", "streaming"])
+    except RuntimeError as e:
+        streaming = str(e)
+    else:
+        raise AssertionError("the cross-node plane ran without CURATE_ENGINE_TOKEN")
     finally:
         os.environ.pop("CURATE_ENGINE_DRIVER_PORT")
-    refused = {"local split --runner streaming (remote plane)": streaming,
+        if token is not None:
+            os.environ["CURATE_ENGINE_TOKEN"] = token
+    refused = {"local split --runner streaming (remote plane, no token)": streaming,
                "index serve": refusal(["index", "serve", "--index-path", f"{split_out}/index"])}
-    assert "item 15" in streaming and "item 19" in refused["index serve"], refused
+    assert "CURATE_ENGINE_TOKEN" in streaming and "item 19" in refused["index serve"], refused
+    assert not (root / "refused" / "clips").exists(), "the refused run wrote clips"
     return dict(
         subprocess={"info_rc": info.returncode, "info": info.stdout.strip().splitlines(),
                     "hello_rc": hello.returncode, "hello_device_cuda_lines": hello.stdout.count("device=cuda"),

@@ -96,25 +96,6 @@ def remote_name(i: int, path: Path) -> str:
     return f"take+{i} 100% é {path.name}"
 
 
-@contextlib.contextmanager
-def patched_environ(values: dict[str, str | None]):
-    """``os.environ`` with ``values`` set (None: removed), restored after."""
-    saved = {k: os.environ.get(k) for k in values}
-    try:
-        for k, v in values.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 def counted_traffic(servers: dict) -> dict:
     """Wrap each fake's request handlers: per backend, requests by method,
     request and response body bytes; for S3, the Range header of every GET
@@ -316,7 +297,7 @@ def drive_remote(cs, dev, timer, root: Path, corpus: list[Path]) -> dict:
     with stack:
         s3, gcs, azure = (stack.enter_context(srv()) for srv in (FakeS3Server, FakeGcsServer, FakeAzureServer))
         stats = counted_traffic({"s3": s3, "gcs": gcs, "azure": azure})
-        stack.enter_context(patched_environ({
+        stack.enter_context(cs.patched_environ({
             "AWS_ACCESS_KEY_ID": TEST_ACCESS_KEY, "AWS_SECRET_ACCESS_KEY": TEST_SECRET_KEY,
             "AWS_DEFAULT_REGION": "us-east-1", "AWS_ENDPOINT_URL": s3.endpoint, "AWS_SESSION_TOKEN": None,
             "STORAGE_EMULATOR_HOST": gcs.endpoint, "GCS_OAUTH_TOKEN": None,
@@ -346,7 +327,7 @@ def drive_remote(cs, dev, timer, root: Path, corpus: list[Path]) -> dict:
 
         # the local run first (the same videos and checkpoint, all on local disk), so
         # that neither run pays the process's first model setup in the phase alone
-        with patched_environ({registry.WEIGHTS_URI_ENV: None, registry.WEIGHTS_DIR_ENV: str(local_weights)}):
+        with cs.patched_environ({registry.WEIGHTS_URI_ENV: None, registry.WEIGHTS_DIR_ENV: str(local_weights)}):
             local = cs.split_run(dev, cs.split_args(local_videos, root / "remote_local_out"), default_runner(),
                                  stage_classes)
         # the remote run: s3:// -> az://, the checkpoint pulled from the prefix

@@ -164,3 +164,25 @@ class DeviceStage(Stage):
         for t in tasks:
             t.pids.append(os.getpid())
         return tasks
+
+
+class NodeStampStage(Stage):
+    """Adds one and stamps the node its worker was placed on. The sleep
+    keeps a batch longer than a remote worker's start, so a placement
+    check is about the plane, not a start-up race."""
+
+    def __init__(self, sleep_s: float = 0.1):
+        self.sleep_s = sleep_s
+
+    @property
+    def resources(self):
+        return Resources(cpus=1.0)
+
+    def setup(self, worker):
+        self._node = worker.node.node_id
+
+    def process_data(self, tasks):
+        import time
+
+        time.sleep(self.sleep_s)
+        return [Item(value=t.value + 1, trail=t.trail + [self._node]) for t in tasks]

@@ -3,12 +3,14 @@
 
 - ``load_pipeline_config``: the same results (list -> tuple coercion) and
   the same errors as the reference's, JSON and YAML.
-- The parser walk: the ``local``, ``index`` and ``dlq`` groups of both
-  parsers, subcommand by subcommand, and the ``report`` and ``top``
-  commands, action by action (option strings, dest, default, choices,
-  required, nargs, type, const, action class); the only difference allowed
-  is the port's ``--device``; ``info``, ``local``, ``dlq``, ``report``,
-  ``top`` and ``index`` are the port's only groups.
+- The parser walk: the ``local`` (``merge-summaries`` included), ``index``
+  and ``dlq`` groups of both parsers, subcommand by subcommand, and the
+  ``report``, ``top`` and ``agent`` commands, action by action (option
+  strings, dest, default, choices, required, nargs, type, const, action
+  class); the only difference allowed is the port's ``--device``; ``info``,
+  ``local``, ``dlq``, ``report``, ``top``, ``index`` and ``agent`` are the
+  port's only groups. ``local merge-summaries`` prints and writes what the
+  JAX CLI's does on the same per-node summaries and sidecars.
 - ``main``'s exit codes (2 with no command or on ``FileNotFoundError``, 130
   on an interrupt) in both packages; every refusal raises
   ``NotImplementedError`` naming its ROADMAP item.
@@ -135,10 +137,10 @@ def _actions(parser: argparse.ArgumentParser) -> dict[str, tuple]:
 
 def test_parser_walk_matches_jax():
     jtop, ttop = _subcommands(jmain.build_parser()), _subcommands(tmain.build_parser())
-    assert sorted(ttop) == ["dlq", "index", "info", "local", "report", "top"] and set(ttop) <= set(jtop)
+    assert sorted(ttop) == ["agent", "dlq", "index", "info", "local", "report", "top"] and set(ttop) <= set(jtop)
     assert _actions(tmain.build_parser()).keys() == _actions(jmain.build_parser()).keys() - {"<sub>"} | {"<sub>"}
     walked = 0
-    for command in ("report", "top"):
+    for command in ("report", "top", "agent"):
         assert _actions(ttop[command]) == _actions(jtop[command]), command
         walked += len(_actions(ttop[command]))
     for group in ("local", "index", "dlq"):
@@ -159,6 +161,32 @@ def test_parser_walk_matches_jax():
     assert with_device == {("local", "hello"), ("local", "split"), ("local", "image-annotate"), ("local", "dedup"),
                            ("index", "build"), ("index", "add"), ("index", "query"), ("index", "stats"),
                            ("index", "consolidate"), ("index", "compact")}
+
+
+def test_merge_summaries_matches_jax(tmp_path, capsys):
+    """``local merge-summaries`` on the same per-node summaries and node-stats
+    sidecars: the same printed and written merge, the same exit code, and
+    no run report without spans (as in the reference)."""
+    from tests.test_torch_multinode import _summary
+
+    node_stats = {"node-stats-0.json": {"node_rank": 0, "dead_lettered": 1, "stage_times": {"Embed": 1.5},
+                                        "stage_counts": {"Embed": {"completed": 3}}, "wall_s": 4.0},
+                  "node-stats-1.json": {"node_rank": 1, "dead_lettered": 2, "stage_times": {"Embed": 2.0},
+                                        "stage_counts": {"Embed": {"completed": 5}}, "wall_s": 6.0}}
+    outs = []
+    for name, main in (("jax", jmain), ("torch", tmain)):
+        root = tmp_path / name
+        (root / "report").mkdir(parents=True)
+        (root / "summary.json").write_text(json.dumps(_summary(0)))
+        (root / "summary-node1.json").write_text(json.dumps(_summary(1)))
+        for fname, doc in node_stats.items():
+            (root / "report" / fname).write_text(json.dumps(doc))
+        rc = main.main(["local", "merge-summaries", "--output-path", str(root)])
+        printed = json.loads(capsys.readouterr().out)
+        written = json.loads((root / "summary-merged.json").read_text())
+        outs.append((rc, printed, written, (root / "report" / "run_report.json").exists()))
+    assert outs[1] == outs[0]
+    assert outs[1][0] == 0 and outs[1][1]["num_clips"] == 15 and not outs[1][3]
 
 
 def test_caption_model_choices_are_the_flavors():
@@ -192,23 +220,31 @@ def test_main_exit_codes(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["local", "split", "--runner", "streaming"], "item 15"),
+    (["local", "split", "--runner", "streaming"], "CURATE_ENGINE_TOKEN"),
     (["local", "av", "ingest"], "item 19"),
-    (["local", "merge-summaries"], "item 15"),
+    (["local", "merge-summaries"], "no summaries found"),
     (["index", "serve", "--index-path", "x"], "item 19"),
     (["local", "split", "--multicam", "--device", "cpu"], "item 11"),
     (["local", "split", "--sr", "--sr-sp-size", "2", "--device", "cpu"], "item 7"),
 ], ids=["streaming", "av", "merge-summaries", "index-serve", "multicam", "sr-sp"])
-def test_refusals_name_their_roadmap_item(argv, item, tmp_path, monkeypatch):
+def test_refusals_name_their_roadmap_item(argv, item, tmp_path, monkeypatch, capsys):
+    """What is not ported raises, naming its ROADMAP item; the cross-node
+    plane refuses to run without its cluster secret, and merge-summaries
+    refuses a root with no node summaries (exit 1)."""
     if "streaming" in argv:
-        # the streaming engine runs; its cross-node data plane is refused
         monkeypatch.setenv("CURATE_ENGINE_DRIVER_PORT", "7070")
+        monkeypatch.delenv("CURATE_ENGINE_TOKEN", raising=False)
     if argv[:2] in (["local", "split"], ["local", "av"]):
         argv = [*argv, "--input-path", str(tmp_path), "--output-path", str(tmp_path / "out")]
     if argv[:2] == ["local", "merge-summaries"]:
-        argv = [*argv, "--output-path", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}|\\({item}"):
-        tmain.main(argv)
+        assert tmain.main([*argv, "--output-path", str(tmp_path)]) == 1
+        assert item in capsys.readouterr().out
+    elif item == "CURATE_ENGINE_TOKEN":
+        with pytest.raises(RuntimeError, match=item):
+            tmain.main(argv)
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}|\\({item}"):
+            tmain.main(argv)
     assert not (tmp_path / "out").exists()
 
 

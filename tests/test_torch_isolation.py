@@ -67,7 +67,9 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "observability.profiling", "observability.stage_replay", "observability.stage_compare",
                    "engine.object_store", "engine.worker", "engine.pool", "engine.runner", "core.map_runner",
                    "data.lazy", "cli.report_cli", "cli.top_cli", "cli.dlq_cli",
-                   "pipelines.video.stages.caption_prep", *STORAGE_MODULES):
+                   "pipelines.video.stages.caption_prep", "parallel.distributed", "parallel.work_stealing",
+                   "engine.lineage", "engine.object_channel", "engine.remote_plane", "engine.remote_agent",
+                   *STORAGE_MODULES):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -90,6 +92,36 @@ def test_observability_layer_imports_neither_torch_nor_jax():
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) == 9  # profiling, stage_replay and stage_compare joined the six
+
+
+@pytest.mark.parametrize("entry", [["-m", "cosmos_curate_tpu_torch.engine.remote_agent"],
+                                   ["-m", "cosmos_curate_tpu_torch.cli.main", "agent"]], ids=["module", "cli"])
+def test_node_agent_entry_points_import_neither_torch_nor_jax(entry):
+    """A node agent is host code, as the reference's is: both of its entry
+    points (``python -m cosmos_curate_tpu_torch.engine.remote_agent`` and the
+    ``agent`` command) run, and with the cross-node plane's modules loaded
+    hold no torch, no JAX and nothing of the JAX package (a CPU worker the
+    agent spawns imports only its stage's modules)."""
+    script = textwrap.dedent(
+        f"""
+        import runpy, sys
+        import cosmos_curate_tpu_torch.engine.remote_plane, cosmos_curate_tpu_torch.engine.object_channel
+        import cosmos_curate_tpu_torch.engine.lineage, cosmos_curate_tpu_torch.parallel.work_stealing
+        sys.argv = ["agent", *{entry[2:]!r}, "--help"]
+        try:
+            runpy.run_module({entry[1]!r}, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            code = e.code
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "flax", "cosmos_curate_tpu"))
+        print(code, bad)
+        sys.exit(1 if bad or code else 0)
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "--driver" in out.stdout and "--num-cpus" in out.stdout
+    real = subprocess.run([sys.executable, *entry, "--help"], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert real.returncode == 0 and "--node-id" in real.stdout, real.stderr
 
 
 def test_storage_layer_imports_neither_torch_nor_jax():

@@ -466,9 +466,9 @@ def test_chaos_crash_and_retry(runner_cls):
 
 def test_chaos_refuses_unknown_and_duplicate_sites():
     with pytest.raises(ValueError, match="unknown chaos site"):
-        # a site of the reference's that the port does not have (the object
-        # plane's); storage.request is ported with storage/retry.py
-        chaos.install(chaos.FaultPlan(rules=(chaos.FaultRule(site="object_channel.fetch"),)))
+        # a site of the reference's that the port does not have (the job
+        # service's); the object plane's are ported with the cross-node plane
+        chaos.install(chaos.FaultPlan(rules=(chaos.FaultRule(site="service.job.crash"),)))
     rule = chaos.FaultRule(site=chaos.SITE_WORKER_HANG, kind="delay")
     with pytest.raises(ValueError, match="duplicate"):
         chaos.install(chaos.FaultPlan(rules=(rule, rule)))
@@ -495,13 +495,12 @@ def test_default_runner_selection(monkeypatch):
         assert isinstance(default_runner(), StreamingRunner)
     monkeypatch.setenv("CURATE_RUNNER", "map")
     assert isinstance(default_runner(), MapRunner)
-    # a remote data plane selects the streaming engine's cross-node part,
-    # not ported: it raises and names its ROADMAP item, never falls back
+    # a remote data plane selects the streaming engine, whose run serves the
+    # cross-node plane, as the reference selects it
     monkeypatch.setenv("CURATE_ENGINE_DRIVER_PORT", "7070")
     for choice in ("auto", "engine", "streaming"):
         monkeypatch.setenv("CURATE_RUNNER", choice)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 15"):
-            default_runner()
+        assert isinstance(default_runner(), StreamingRunner)
     monkeypatch.setenv("CURATE_RUNNER", "map")
     assert isinstance(default_runner(), MapRunner)
     # a typo fails loudly, never silently lands on the threaded default

@@ -160,8 +160,13 @@ def test_cpu_workers_claim_no_card_and_device_stages_stay_in_the_driver(monkeypa
 
 
 def test_driver_port_refuses_the_remote_plane(monkeypatch):
+    """``CURATE_ENGINE_DRIVER_PORT`` selects the cross-node plane, which
+    refuses to run without its cluster secret (frames are authenticated
+    before they are unpickled), as the reference's does; it never runs
+    single-host instead."""
     monkeypatch.setenv("CURATE_ENGINE_DRIVER_PORT", "7070")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 15"):
+    monkeypatch.delenv("CURATE_ENGINE_TOKEN", raising=False)
+    with pytest.raises(RuntimeError, match="CURATE_ENGINE_TOKEN"):
         run_pipeline([ts.Item(value=1)], [ts.AddStage()], runner=StreamingRunner())
 
 
