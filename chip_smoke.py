@@ -61,12 +61,12 @@ and prints one JSON line per phase:
    profiler, as in 7 (``gather_breakdown``);
    witness: for each request the two engines answer differently, the first
    differing step and both engines' top-2 logits there, and which engine
-   six more drives side with: a paged drive with both paged kernels held
+   four more drives side with: a paged drive with both paged kernels held
    against their fp32 plain versions on every call (within 1e-2 of the
-   call's largest output), and gather drives with the prefill kernel
-   again, with the kernel held the same way, with its plain version in its
-   place, with the plain version in fp32, and with it at the kernel's
-   stated precision. That paged drive counts its paged calls by shape and
+   call's largest output), and gather drives with the prefill kernel held
+   the same way, with its plain version in its place and with it at the
+   kernel's stated precision (the rerun of the kernel and the plain
+   version in fp32 left the call with the av phase, PERF.md §5). That paged drive counts its paged calls by shape and
    snapshots each prefill shape's first call (inputs, pool layer, output);
    paged prefill is then checked and timed at the (B, T) it sent most, on
    that snapshot (``paged_prefill_at_drive_shape``);
@@ -224,7 +224,7 @@ and prints one JSON line per phase:
    filtered, full-frame moving clips kept); tracking (the NCC tracker and
    the siamese tracker from a staged seeded checkpoint on a scaled
    moving-box clip, boxes equal to the CPU path's and on the object, and on
-   32 corpus clips; ms and launches a frame, idle share); sr (one 16-frame
+   32 corpus clips; ms and launches a frame, idle share); sr (one 8-frame
    1280x720 window through the diffusion model, its final conv drawn
    non-zero, and SRNet, bf16 against fp32 on the card; frames/s, chunk
    group, peak memory); legs_split (run F: 2 corpus videos through
@@ -278,6 +278,20 @@ and prints one JSON line per phase:
    dead-lettered). Every run's clips are the one-node run's (embeddings
    within ``EMBED_BOUND``); walls beside the one-node run's, workers by
    node, spawn-to-ready seconds, object-channel bytes and prefetch overlap.
+    av (``scripts/av_phase.py``, after multinode): 6 corpus videos as two
+   sessions of three cameras, one camera a scene shorter: ``run_split``
+   at run A's settings with ``multicam=True`` (every camera's clips under
+   the primary's uuid, metas and embeddings of the primary only, flash
+   launched, a resumed run empty, shot detection refused); the AV pipeline's
+   steps through ``local av`` in process (ingest, split, caption on
+   ``CaptionEngine(VLM_BASE, max_batch=8)``: one batch of 8 requests with
+   paged decode, paged prefill and flash launched, its idle share; the rest
+   of the clips, then a resume that builds no engine and launches nothing;
+   the trajectory's phase correlation on the card; annotate; package on
+   ``T5EncoderTPU(T5_BASE)``, its device ms; shard with the T5 and
+   clip-session tars); ingest and split again on the fake PostgreSQL
+   server (``tests/pipelines/fake_pg.py``), whose rows are the sqlite
+   run's, with ``postgres update-schemas`` and ``show-tables``.
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -324,7 +338,7 @@ and prints one JSON line per phase:
    1152-wide deepstack tower, taps at blocks 8 / 16 / 24), seeded weights
    with the experts stored in bf16, on the flavor's lanes: 3 chat requests
    of 8 frames at 2 fps and one text-only request in one 512-token prefill
-   bucket (prep at admission), 64 greedy tokens, paged and then gather
+   bucket (prep at admission), 24 greedy tokens, paged and then gather
    (``drive_qwen3``): tok/s, ms a decode step, the profiled window's idle
    share and launches a step, the MoE's share of the device's busy time
    (profiler ranges), peak memory and parameter bytes, dropped over routed
@@ -528,6 +542,9 @@ QWEN3_FLAVOR = "qwen3vl-moe-a3b"
 QWEN3_REQUESTS = 3
 QWEN3_SUFFIX = 316  # 196 vision tokens + the 120-token text suffix
 QWEN3_TRANSCRIPT = " transcript: " + "the camera pans across the scene. " * 6
+# greedy tokens a measured Qwen3 request: 24 since the av phase joined the
+# call (64 before; the full call's time, PERF.md §5)
+QWEN3_NEW_TOKENS = 24
 QWEN3_LAYER_BOUND = 5e-2
 # engine steps in the profiled decode window and in the MoE's (each step
 # runs both lanes: ~12 000 launches, so few steps keep the traces short)
@@ -1254,14 +1271,15 @@ def record_greedy(engine, keep_rows: bool = True):
 
 def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4)), *, tokenizer=None,
                 prompts=None, n_frames=4, frame_fps=None, n_requests=8, keep_logits=True,
-                during=contextlib.nullcontext, async_prep=True) -> tuple:
+                during=contextlib.nullcontext, async_prep=True, new_tokens=64) -> tuple:
     """The caption benchmark's base workload through CaptionEngine (its
     lanes: half the slots at 256 positions, half at max_seq), or, given
     ``prompts`` ((prefix_ids, prompt_ids) pairs, taken in turn; a third
     item False makes that prompt's requests text-only) and the
     ``tokenizer`` they were encoded with, that workload's shape with other
     prompts: ``n_requests`` requests of ``n_frames`` random frames at the
-    tower's size, 64 greedy tokens each. ``during()`` is a context entered
+    tower's size, ``new_tokens`` greedy tokens each (the request factory's
+    default stays 64). ``during()`` is a context entered
     around the measured requests only (after the warm-up). With
     ``async_prep=False`` every queued request is prepped at admission, so
     the batches' rows do not depend on host timing. Returns the
@@ -1321,7 +1339,7 @@ def drive_slice(dev, cfg, paged_attention="auto", kv_lanes=((256, 4), (1024, 4))
     with during():
         t0 = time.monotonic()
         for i in range(n_requests):
-            engine.add_request(make_request(f"r{i}", i))
+            engine.add_request(make_request(f"r{i}", i, max_new=new_tokens))
         results = engine.run_until_complete()
         torch.cuda.synchronize()
         elapsed = time.monotonic() - t0
@@ -1427,13 +1445,12 @@ def agreement(a: dict, b: dict) -> dict:
 
 def witness_prefill(dev, cfg, paged: dict, gather: dict, timer) -> dict:
     """Which engine the requests that the paged and gather engines answer
-    differently side with. Five more gather drives: with the contiguous
-    prefill kernel again (a rerun), with the kernel held against its plain
-    version in fp32 on every call the engine makes (the kernel's output goes
-    on; each call's max abs error, over the call's largest output, must stay
-    within ``BOUND``; the plain version in bf16 is held the same way), with the
-    plain version in its place (the reference's rounding: bf16
-    probabilities), with the plain version in fp32, and with it at the
+    differently side with. Three more gather drives: with the contiguous
+    prefill kernel held against its plain version in fp32 on every call the
+    engine makes (the kernel's output goes on; each call's max abs error,
+    over the call's largest output, must stay within ``BOUND``; the plain
+    version in bf16 is held the same way), with the plain version in its
+    place (the reference's rounding: bf16 probabilities), and with it at the
     kernel's stated precision (q * scale rounded to bf16, the rest in
     fp32). ``paged`` and ``gather`` are the first drives' greedy records.
     For each differing request: the first differing step, and in every run
@@ -1452,9 +1469,6 @@ def witness_prefill(dev, cfg, paged: dict, gather: dict, timer) -> dict:
 
     def plain(q, k, v, wi, kl):
         return chunk_attention_plain(q, k, v, wi, kl, q.shape[-1] ** -0.5)
-
-    def plain_fp32(q, k, v, wi, kl):
-        return chunk_attention_plain(q.float(), k.float(), v.float(), wi, kl, q.shape[-1] ** -0.5).to(q.dtype)
 
     def plain_as_kernel(q, k, v, wi, kl):
         q_scaled = (q * q.shape[-1] ** -0.5).float()  # rounded to q's bf16 first
@@ -1504,9 +1518,7 @@ def witness_prefill(dev, cfg, paged: dict, gather: dict, timer) -> dict:
         del engine
     finally:
         vlm_model.paged_attention = saved_paged
-    for label, attn in (("gather_rerun", saved), ("gather_kernel_checked", kernel_checked),
-                        ("gather_plain_prefill", plain),
-                        ("gather_plain_prefill_fp32", plain_fp32),
+    for label, attn in (("gather_kernel_checked", kernel_checked), ("gather_plain_prefill", plain),
                         ("gather_plain_prefill_as_kernel", plain_as_kernel)):
         try:
             vlm_model.prefill_attention = attn
@@ -3166,7 +3178,8 @@ def drive_qwen3(dev, timer, root: Path, checks: dict) -> dict:
     weights, experts in bf16: ``CaptionEngine(VLM_QWEN3_VL_MOE_A3B)`` on the
     flavor's KV lanes serves QWEN3_REQUESTS chat requests of QWEN_FRAMES
     frames at QWEN_FPS and one text-only request (prep at admission: the
-    four rows share one 512-token prefill bucket), 64 greedy tokens each,
+    four rows share one 512-token prefill bucket), QWEN3_NEW_TOKENS greedy
+    tokens each,
     paged and then gather. Each drive: tok/s, ms a decode step, device
     peak, each kernel's launches (asserted). The paged drive also: its
     paged prefill calls by (B, T) (each one ``checks`` lacks is checked on
@@ -3199,7 +3212,8 @@ def drive_qwen3(dev, timer, root: Path, checks: dict) -> dict:
         during = (lambda: counted_paged_prefill(shapes)) if mode == "auto" else (lambda: logged_routes(routes))
         record, engine, make_request, _, greedy = drive_slice(
             dev, cfg, mode, lanes, tokenizer=tok, prompts=prompts, n_frames=QWEN_FRAMES, frame_fps=QWEN_FPS,
-            n_requests=len(prompts), keep_logits=False, during=during, async_prep=False)
+            n_requests=len(prompts), keep_logits=False, during=during, async_prep=False,
+            new_tokens=QWEN3_NEW_TOKENS)
         tokens[mode] = {rid: [steps[k][0] for k in sorted(steps)] for rid, steps in greedy.items()}
         record["parameter_bytes"] = sum(p.numel() * p.element_size() for p in engine.model.parameters())
         record["expert_bytes"] = sum(
@@ -3354,6 +3368,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     import image_phase
     import index_phase
     import engine_phase
+    import av_phase
     import legs_phase
     import multinode_phase
     import observe_phase
@@ -3460,6 +3475,9 @@ def _main(stack: contextlib.ExitStack) -> int:
     # the cross-node plane with a loopback agent, node loss
     multinode = multinode_phase.run(sys.modules[__name__], dev, timer, root, corpus)
     checks["flash"]["cases"].update(multinode["flash_checked_here"])
+    # multicam sessions: the multicam split, the AV steps through `local av`, postgres
+    av = av_phase.run(sys.modules[__name__], dev, timer, root, corpus)
+    checks["flash"]["cases"].update(av["flash_checked_here"])
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3510,6 +3528,8 @@ def _main(stack: contextlib.ExitStack) -> int:
             cli_launches=sum(c["launches"][name] for c in image["cli"]["commands"].values()),
             remote_launches=remote["launches"][name],
             multinode_launches=multinode["launches"][name],
+            av_launches={"caption": av["caption"]["launches"][name],
+                         "multicam_split": av["multicam"]["launches"][name]},
             cases=c.get("cases"),
         ))
     # each phase line's seconds from the start: where the call's time went

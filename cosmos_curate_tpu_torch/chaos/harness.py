@@ -24,7 +24,7 @@ Fault kinds:
 
 Not ported: the job service's sites (``service.job.crash``,
 ``service.journal.write``), which wait for the service (ROADMAP queue A
-item 19).
+item 19a).
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ index takes ``--device`` (its k-means and top-k products run there:
 ``cuda`` unless given ``cpu``). ``--no-mesh`` is accepted as the
 reference accepts it; the port scores on one device either way (the mesh
 waits for ROADMAP queue A item 7). ``index serve`` (the HTTP search
-server, ``service/search.py``) is refused: it waits for item 19.
+server, ``service/search.py``) is refused: it waits for item 19a.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import argparse
 import json
 import sys
 
-_SERVE = "the HTTP search server service/search.py (ROADMAP queue A item 19)"
+_SERVE = "the HTTP search server service/search.py (ROADMAP queue A item 19a)"
 
 
 def register(sub: argparse._SubParsersAction) -> None:

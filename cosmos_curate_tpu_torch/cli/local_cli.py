@@ -5,15 +5,18 @@ Every subcommand and flag of the reference's parser, with the same names,
 defaults and choices, plus ``--device`` (where the models run: ``cuda``
 unless given ``cpu``) on ``hello``, ``split``, ``image-annotate`` and
 ``dedup``; ``shard`` is host work and takes none. ``split`` takes flags or
-a YAML / JSON config (``--config``), as the reference's does.
+a YAML / JSON config (``--config``), as the reference's does. ``av`` runs
+one step of the multi-camera AV pipeline (pipelines/av/pipeline.py:
+``ingest``, ``split``, ``caption``, ``trajectory``, ``annotate``,
+``package``, ``shard``) and takes ``--device`` too.
 
 ``split --runner streaming|map`` runs the streaming engine
 (engine/runner.py; with ``CURATE_ENGINE_DRIVER_PORT`` set, its cross-node
 plane) or the map runner (core/map_runner.py). ``merge-summaries`` folds a
 multi-node run's per-node summaries, runs artifact delivery's driver phase
-and writes the merged run report. Refused, naming what it waits for: ``av``
-(ROADMAP queue A item 19). A split option that ``run_split`` refuses passes
-through and raises there; ``split --tracing`` runs.
+and writes the merged run report. A split option that ``run_split`` refuses
+passes through and raises there; ``split --tracing`` and ``split
+--multicam`` run.
 """
 
 from __future__ import annotations
@@ -35,8 +38,6 @@ CAPTION_MODEL_CHOICES = (
     "qwen-chat-tiny-test",
     "tiny-test",
 )
-
-_AV = "the multi-camera AV pipelines (ROADMAP queue A item 19)"
 
 
 def _device_flag(p: argparse.ArgumentParser, default: str | None = "cuda") -> None:
@@ -137,7 +138,7 @@ def register(sub: argparse._SubParsersAction) -> None:
     _device_flag(split, default=None)
     split.set_defaults(func=_cmd_split)
 
-    av = lsub.add_parser("av", help="multi-camera AV pipelines (not ported yet)")
+    av = lsub.add_parser("av", help="multi-camera AV pipelines")
     av.add_argument(
         "subcommand2",
         choices=["ingest", "split", "caption", "trajectory", "annotate", "package", "shard"],
@@ -155,6 +156,7 @@ def register(sub: argparse._SubParsersAction) -> None:
     av.add_argument("--min-clip-len-s", type=float, default=None)
     av.add_argument("--limit", type=int, default=0)
     av.add_argument("--sequential", action="store_true")
+    _device_flag(av)
     av.set_defaults(func=_cmd_av)
 
     image = lsub.add_parser("image-annotate", help="curate still images")
@@ -265,7 +267,40 @@ def _cmd_merge_summaries(args: argparse.Namespace) -> int:
 
 
 def _cmd_av(args: argparse.Namespace) -> int:
-    raise NotImplementedError(f"local av {args.subcommand2} runs {_AV}, not ported yet")
+    from cosmos_curate_tpu_torch.core.runner import SequentialRunner
+    from cosmos_curate_tpu_torch.pipelines.av import pipeline as av
+
+    variants = [v.strip() for v in args.caption_variants.split(",") if v.strip()]
+    pargs = av.AVPipelineArgs(
+        input_path=args.input_path,
+        output_path=args.output_path,
+        db_path=args.db_path,
+        clip_len_s=args.clip_len_s,
+        min_clip_len_s=args.min_clip_len_s,
+        caption_prompt_variant=variants[0] if variants else "av",
+        extra_caption_variants=tuple(variants[1:]),
+        limit=args.limit,
+        device=args.device,
+    )
+    step = args.subcommand2
+    if step == "ingest":
+        summary = av.run_av_ingest(pargs)
+    elif step == "split":
+        summary = av.run_av_split(pargs, runner=SequentialRunner() if args.sequential else None)
+    elif step == "caption":
+        summary = av.run_av_caption(pargs)
+    elif step == "trajectory":
+        from cosmos_curate_tpu_torch.pipelines.av.trajectory import run_av_trajectory
+
+        summary = run_av_trajectory(pargs)
+    elif step == "annotate":
+        summary = av.run_av_annotate(pargs)
+    elif step == "package":
+        summary = av.run_av_package(pargs)
+    else:
+        summary = av.run_av_shard(pargs)
+    print(json.dumps(summary, indent=2))
+    return 0
 
 
 def _cmd_hello(args: argparse.Namespace) -> int:

@@ -2,15 +2,16 @@
 ``cosmos_curate_tpu/cli/main.py``).
 
 The same argparse tree as the reference's, with the groups the port has:
-``info``, ``local`` (run the pipelines, ``cli/local_cli.py``), ``dlq``
+``info``, ``local`` (run the pipelines, ``cli/local_cli.py``), ``postgres``
+(the AV state database's admin commands, ``cli/postgres_cli.py``), ``dlq``
 (dead-lettered batches, ``cli/dlq_cli.py``), ``report`` (a run's flight
 recorder report, ``cli/report_cli.py``), ``top`` (live status,
 ``cli/top_cli.py``), ``index`` (the corpus index, ``cli/index_cli.py``) and
 ``agent`` (join a driver's cross-node engine plane as a worker node,
 engine/remote_agent.py), registered in the reference's order. The other
 groups of the reference (``export-lance``, ``serve``, ``view``, ``slurm``,
-``models``, ``lint``, ``postgres``, ``image``) wait for the layers they drive
-(ROADMAP queue A item 22).
+``models``, ``lint``, ``image``) wait for the layers they drive (ROADMAP
+queue A item 22).
 
 Run it as ``python -m cosmos_curate_tpu_torch.cli.main`` or through the
 ``cosmos-curate-tpu-torch`` console script. Every command that runs a model
@@ -23,7 +24,7 @@ import argparse
 import sys
 
 from cosmos_curate_tpu_torch import __version__
-from cosmos_curate_tpu_torch.cli import dlq_cli, index_cli, local_cli, report_cli, top_cli
+from cosmos_curate_tpu_torch.cli import dlq_cli, index_cli, local_cli, postgres_cli, report_cli, top_cli
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,6 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     info = sub.add_parser("info", help="show environment and device info")
     info.set_defaults(func=_cmd_info)
     local_cli.register(sub)
+    postgres_cli.register(sub)
     dlq_cli.register(sub)
     report_cli.register(sub)
     top_cli.register(sub)

@@ -10,7 +10,7 @@ Renders a refreshing per-stage table from the live status:
 - ``top http://host:port --job <id>`` (or a full ``…/v1/jobs/<id>/status``
   URL): one job's live snapshot as the service serves it.
 
-The port's job service waits for ROADMAP queue A item 19; the service
+The port's job service waits for ROADMAP queue A item 19a; the service
 views read the reference's endpoints, so they work against its service.
 ``--once`` prints one frame; otherwise the screen refreshes every
 ``--interval`` seconds until Ctrl-C. A stale snapshot (a publisher that

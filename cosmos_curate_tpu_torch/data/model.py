@@ -1,9 +1,6 @@
 """The video-curation data model: the payload flowing through every stage
 (port of ``cosmos_curate_tpu/data/model.py``, the fields the split's
-stages read and write).
-
-Not ported: ``SplitPipeTask.aux_videos`` / ``Video.camera`` of multicam
-sessions (ROADMAP queue A item 11).
+stages read and write, multicam sessions' cameras among them).
 
 - decoded frames are numpy ``uint8 [T, H, W, 3]`` arrays keyed by a
   ``FrameExtractionSignature``, so a CPU prep stage extracts once and many
@@ -167,6 +164,9 @@ class Video:
     """A source video being split."""
 
     path: str = ""
+    # camera label for multicam sessions (the filename stem); empty for
+    # single-camera inputs
+    camera: str = ""
     raw_bytes: bytes | None = None
     metadata: VideoMetadata = field(default_factory=VideoMetadata)
     clips: list[Clip] = field(default_factory=list)
@@ -183,21 +183,36 @@ class Video:
 @dataclass
 class SplitPipeTask(PipelineTask):
     """Unit of work in the split-annotate pipeline: one video (or one chunk
-    of its clips)."""
+    of its clips).
+
+    Multi-camera sessions: ``video`` is the primary camera, which every
+    single-camera stage (filters, embedding, captioning) works on as it is;
+    the time-aligned secondary cameras ride in ``aux_videos`` and only the
+    camera-aware stages (download, clip extraction, transcode, writer)
+    handle them."""
 
     video: Video = field(default_factory=Video)
+    # secondary cameras, their clips time-aligned with the primary's spans
+    aux_videos: list[Video] = field(default_factory=list)
+    # the session's name (its directory); empty for single-camera tasks
+    session_id: str = ""
     stage_perf: dict[str, float] = field(default_factory=dict)
     stats: ClipStats | None = None
 
     @property
     def videos(self) -> list[Video]:
-        """Every camera of the task; one until multicam is ported."""
-        return [self.video]
+        """Every camera of the task, primary first."""
+        return [self.video, *self.aux_videos]
+
+    @property
+    def is_multicam(self) -> bool:
+        return bool(self.aux_videos)
 
     @property
     def weight(self) -> float:
-        # weight by content duration: a long video counts for more
-        return max(1.0, self.video.metadata.duration_s / 60.0)
+        # weight by content duration (a long video counts for more), times
+        # the cameras
+        return max(1.0, self.video.metadata.duration_s / 60.0) * len(self.videos)
 
     @property
     def fraction(self) -> float:

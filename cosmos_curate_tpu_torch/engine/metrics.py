@@ -7,7 +7,7 @@ Same names as the reference's (``pipeline_*``, ``caption_*``, ``search_*``
 and ``index_*``), so one dashboard reads both; the streaming engine adds the
 deserialize-time and object-store series, and its cross-node plane the
 per-node workers and CPUs, node deaths and lineage reconstruction. Left out:
-the series of the job service (ROADMAP queue A item 19). The collectors live in
+the series of the job service (ROADMAP queue A item 19a). The collectors live in
 a registry of their own (``EngineMetrics.registry``, which a caller serves
 with ``prometheus_client.start_http_server(port, registry=...)``): a
 process that also holds the JAX package's gauges would otherwise register

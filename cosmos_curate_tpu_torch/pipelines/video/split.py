@@ -18,8 +18,12 @@ fails on storage or data is logged and leaves the run's output as it is,
 but a device fault propagates.
 
 ``assemble_stages`` raises ``NotImplementedError``, naming the ROADMAP item,
-for every option whose stage is not ported yet (multicam and super
-resolution's ``sr_sp_size > 1``). ``run_split`` wraps the assembled stages
+for every option whose stage is not ported yet (super resolution's
+``sr_sp_size > 1``). With ``multicam`` the input is session directories
+of time-aligned cameras (``<session>/<camera>.mp4``, input_discovery.py's
+``discover_multicam_tasks``), split fixed-stride only (any other
+algorithm raises ``ValueError``): the secondary cameras take the primary's
+spans and the writer puts their clips beside the primary's. ``run_split`` wraps the assembled stages
 in the observability wrappers the options ask for
 (``_apply_observability_wrappers``): ``stage_save_rate`` records sampled
 stage inputs under ``<output>/stage_save/`` (observability/stage_replay.py)
@@ -80,7 +84,11 @@ from cosmos_curate_tpu_torch.parallel.distributed import (
     partition_tasks_for_node,
 )
 from cosmos_curate_tpu_torch.parallel.work_stealing import run_with_stealing, stealing_enabled
-from cosmos_curate_tpu_torch.pipelines.video.input_discovery import _processed_video_ids, discover_split_tasks
+from cosmos_curate_tpu_torch.pipelines.video.input_discovery import (
+    _processed_video_ids,
+    discover_multicam_tasks,
+    discover_split_tasks,
+)
 from cosmos_curate_tpu_torch.pipelines.video.stages.aesthetic_filter import AestheticFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.artificial_text_filter import ArtificialTextFilterStage
 from cosmos_curate_tpu_torch.pipelines.video.stages.caption_embedding import CaptionEmbeddingStage
@@ -186,7 +194,6 @@ class SplitPipelineArgs:
 _NOT_PORTED: tuple[tuple[str, Callable[[SplitPipelineArgs], bool], str], ...] = (
     ("sr_sp_size", lambda a: a.sr and a.sr_sp_size > 1,
      "sequence-parallel super resolution (ROADMAP queue A item 7)"),
-    ("multicam", lambda a: a.multicam, "multicam sessions (ROADMAP queue A item 11)"),
 )
 
 
@@ -314,11 +321,18 @@ def run_split(
         run_root = tracing.start_span("run.split", output_path=args.output_path)
         tracing.attach_traceparent(tracing.format_traceparent(run_root))
     try:
-        tasks = discover_split_tasks(args.input_path, args.output_path, limit=args.limit)
+        if args.multicam:
+            if args.splitting_algorithm != "fixed-stride":
+                raise ValueError("multicam sessions split fixed-stride only (time-aligned spans across cameras)")
+            tasks = discover_multicam_tasks(args.input_path, args.output_path, primary_camera=args.primary_camera,
+                                            limit=args.limit)
+        else:
+            tasks = discover_split_tasks(args.input_path, args.output_path, limit=args.limit)
         stages = _apply_observability_wrappers(assemble_stages(args), args)
         if n_nodes > 1 and stealing_enabled():
             # shared-ledger mode: nodes pull claim batches until the ledger
             # is dry, so a skewed split rebalances instead of idling a node
+            # (a multicam session is claimed by its primary's record id)
             done_cache = {"ts": 0.0, "ids": set()}
 
             def _task_done(t) -> bool:

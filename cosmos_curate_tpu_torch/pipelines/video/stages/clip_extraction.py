@@ -3,11 +3,9 @@
 
 Turns a probed video into fixed-stride clip spans, re-encodes each span as
 a standalone mp4, then re-chunks one big video task into tasks of at most
-``chunk_size`` clips.
-
-Not ported: the multicam branches (aligned secondary cameras), which wait
-for multicam sessions (ROADMAP queue A item 11); the port's task carries
-one camera.
+``chunk_size`` clips. A multicam session's secondary cameras take the
+primary's spans, each clipped to its own duration, and the session stays
+one task.
 """
 
 from __future__ import annotations
@@ -51,6 +49,15 @@ class FixedStrideExtractorStage(Stage[SplitPipeTask, SplitPipeTask]):
                 )
             video.clips = make_clips(video.path, spans)
             video.num_total_clips = len(video.clips)
+            # multicam: the secondary cameras take the primary's spans
+            # verbatim (time-aligned clips), clipped to each camera's own
+            # duration
+            for aux in task.aux_videos:
+                if aux.errors:
+                    continue
+                aux_spans = [(a, min(b, aux.metadata.duration_s)) for a, b in spans if a < aux.metadata.duration_s]
+                aux.clips = make_clips(aux.path, aux_spans)
+                aux.num_total_clips = len(aux.clips)
         return tasks
 
 
@@ -74,13 +81,20 @@ class ClipTranscodingStage(Stage[SplitPipeTask, SplitPipeTask]):
 
     def process_data(self, tasks: list[SplitPipeTask]) -> list[SplitPipeTask]:
         # one sequential decode pass per video (transcode_clips decodes each
-        # source frame once, feeding all spans); the batch's videos fan out
-        # over the thread pool
+        # source frame once, feeding all spans); the batch's videos (every
+        # camera of every task) fan out over the thread pool
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             list(pool.map(self._transcode_video, [v for t in tasks for v in t.videos]))
         out: list[SplitPipeTask] = []
         for task in tasks:
-            out.extend(chunk_split_task(task, self.chunk_size))
+            if task.is_multicam:
+                # aligned secondary clip lists would make re-slicing
+                # ambiguous: a multicam session stays one task
+                task.video.num_clip_chunks = 1
+                task.video.clip_chunk_index = 0
+                out.append(task)
+            else:
+                out.extend(chunk_split_task(task, self.chunk_size))
         return out
 
     def _transcode_video(self, video: Video) -> None:

@@ -1,8 +1,8 @@
 """Video download + probe stage (port of
 ``cosmos_curate_tpu/pipelines/video/stages/download.py``).
 
-Fetches each video's raw bytes from storage and probes its metadata;
-per-item errors are recorded on the video instead of raised, so one bad
+Fetches each video's raw bytes from storage and probes its metadata (every
+camera of a multicam session); per-item errors are recorded on the video instead of raised, so one bad
 input cannot kill a run.
 """
 

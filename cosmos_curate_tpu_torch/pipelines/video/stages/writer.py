@@ -2,6 +2,8 @@
 of ``cosmos_curate_tpu/pipelines/video/stages/writer.py``):
 
     <output>/clips/<clip-uuid>.mp4                       transcoded clip
+    <output>/clips/<clip-uuid>/<camera>.mp4              a multicam session's clip,
+                                                         each camera's (primary-clip uuid)
     <output>/previews/<clip-uuid>.webp                   preview (when produced)
     <output>/tracking/<clip-uuid>.mp4                    annotated track (when produced)
     <output>/t5_embeddings/<clip-uuid>.npz               T5 caption embeddings,
@@ -24,8 +26,9 @@ provenance, and "random" (seeded-init) embeddings are refused unless
 ``index_fragment_rows`` and ``index_skipped_random``, and stage_timer's
 index aggregate the same adds and refusals under the stage's name.
 
-Not ported: the secondary cameras of multicam sessions (ROADMAP queue A
-item 11).
+A multicam session's metas, embeddings, captions and resume record come
+from its primary camera alone; each secondary camera's clip lands beside
+the primary's under the primary clip's uuid.
 """
 
 from __future__ import annotations
@@ -129,7 +132,9 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
             stats = ClipStats()
             embedding_rows: dict[str, list[tuple[str, np.ndarray]]] = defaultdict(list)
             for clip in video.clips:
-                self._write_clip(clip, stats, embedding_rows)
+                self._write_clip(clip, stats, embedding_rows, camera=video.camera if task.is_multicam else "")
+            if task.is_multicam:
+                self._write_aux_cameras(task, stats)
             for clip in video.filtered_clips:
                 stats.num_clips += 1
                 self._count_filtered(clip, stats)
@@ -207,12 +212,28 @@ class ClipWriterStage(Stage[SplitPipeTask, SplitPipeTask]):
         record_index_ops(self.name, adds=len(rows), add_s=time.monotonic() - t0)
         task.stage_perf["index_fragment_rows"] = task.stage_perf.get("index_fragment_rows", 0) + len(rows)
 
-    def _write_clip(self, clip: Clip, stats: ClipStats, embedding_rows) -> None:
+    def _write_aux_cameras(self, task: SplitPipeTask, stats: ClipStats) -> None:
+        """Secondary cameras land beside the primary under the clip's
+        directory, ``clips/<primary-uuid>/<camera>.mp4``. A secondary clip
+        matches the primary's by span start (a shorter camera lacks the
+        tail clips)."""
+        for aux in task.aux_videos:
+            by_start = {round(c.span[0], 6): c for c in aux.clips}
+            for primary_clip in task.video.clips:
+                aux_clip = by_start.get(round(primary_clip.span[0], 6))
+                if aux_clip is None or not aux_clip.encoded_data:
+                    continue
+                write_bytes(f"{self.output_path}/clips/{primary_clip.uuid}/{aux.camera}.mp4", aux_clip.encoded_data)
+                aux_clip.encoded_data = None
+                stats.num_transcoded += 1
+
+    def _write_clip(self, clip: Clip, stats: ClipStats, embedding_rows, *, camera: str = "") -> None:
         stats.num_clips += 1
         stats.total_clip_duration_s += clip.duration_s
         stats.max_clip_duration_s = max(stats.max_clip_duration_s, clip.duration_s)
         if clip.encoded_data:
-            dest = f"{self.output_path}/clips/{clip.uuid}.mp4"
+            dest = (f"{self.output_path}/clips/{clip.uuid}/{camera}.mp4" if camera
+                    else f"{self.output_path}/clips/{clip.uuid}.mp4")
             write_bytes(dest, clip.encoded_data)
             clip.encoded_byte_size = len(clip.encoded_data)
             clip.encoded_sha256 = hashlib.sha256(clip.encoded_data).hexdigest()

@@ -71,9 +71,9 @@ MOTION_THRESHOLD = 0.004  # the stage's default
 TRACK_CLIPS = 32  # one-second clips of the first corpus videos
 NCC_TOL = 1e-5  # rtol and atol of the NCC scores, card vs CPU
 SIAMESE_ATOL, SIAMESE_RTOL = 1e-4, 1e-3
-# 16 frames (4 chunks of the window): 24 before the engine phase joined the
-# call (the full call's time, PERF.md §5)
-SR_FRAMES = 16
+# 8 frames (2 chunks of the window): 16 before the av phase joined the call,
+# 24 before the engine phase did (the full call's time, PERF.md §5)
+SR_FRAMES = 8
 # bf16 vs fp32 on the card, max abs error over the largest magnitude of
 # each model's residual: the diffusion model's after 8 DDIM steps (errors
 # compound through the steps; the CPU tests read 5.9e-3 after 2), SRNet's

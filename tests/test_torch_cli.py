@@ -3,17 +3,19 @@
 
 - ``load_pipeline_config``: the same results (list -> tuple coercion) and
   the same errors as the reference's, JSON and YAML.
-- The parser walk: the ``local`` (``merge-summaries`` included), ``index``
-  and ``dlq`` groups of both parsers, subcommand by subcommand, and the
-  ``report``, ``top`` and ``agent`` commands, action by action (option
-  strings, dest, default, choices, required, nargs, type, const, action
-  class); the only difference allowed is the port's ``--device``; ``info``,
-  ``local``, ``dlq``, ``report``, ``top``, ``index`` and ``agent`` are the
-  port's only groups. ``local merge-summaries`` prints and writes what the
+- The parser walk: the ``local`` (``merge-summaries`` and ``av`` included),
+  ``postgres``, ``index`` and ``dlq`` groups of both parsers, subcommand by
+  subcommand, and the ``report``, ``top`` and ``agent`` commands, action by
+  action (option strings, dest, default, choices, required, nargs, type,
+  const, action class); the only difference allowed is the port's
+  ``--device``; ``info``, ``local``, ``postgres``, ``dlq``, ``report``,
+  ``top``, ``index`` and ``agent`` are the port's only groups. ``local merge-summaries`` prints and writes what the
   JAX CLI's does on the same per-node summaries and sidecars.
 - ``main``'s exit codes (2 with no command or on ``FileNotFoundError``, 130
   on an interrupt) in both packages; every refusal raises
-  ``NotImplementedError`` naming its ROADMAP item.
+  ``NotImplementedError`` naming its ROADMAP item, and the lifted ones
+  (``local av``, ``split --multicam``) raise what the reference raises
+  where they cannot run, writing nothing.
 - The commands end to end on the CPU (``--device cpu``), each against the
   JAX CLI given the same argv and inputs: ``local hello``, ``local
   image-annotate`` (the image path's tiny towers from
@@ -21,7 +23,10 @@
   stride), ``local shard`` of that split, ``local dedup``, and ``index
   build`` and ``query``; the printed summaries without what the clock or
   the output path decides (nor the port's ``ops`` and ``cache`` counters
-  in the index's stats), and the output files; ``report``, ``top --once``
+  in the index's stats), and the output files; ``local av``'s seven steps
+  on the sessions of ``tests/test_torch_av_pipeline.py``, with that test's
+  models and tolerances (captions by the engine rule, the state rows and
+  annotation files equal once run ids are normalised); ``report``, ``top --once``
   (a run directory, and a fake job service on a local port) and ``dlq
   list|show|requeue`` through both command lines on the same run
   directory and dead-letter queue. Split, dedup and every
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -49,6 +55,7 @@ import pytest
 from cosmos_curate_tpu.cli import local_cli as jlocal
 from cosmos_curate_tpu.cli import main as jmain
 from cosmos_curate_tpu.utils import config as jconfig
+from cosmos_curate_tpu.video import h264 as jh264
 from cosmos_curate_tpu_torch.cli import local_cli as tlocal
 from cosmos_curate_tpu_torch.cli import main as tmain
 from cosmos_curate_tpu_torch.core.runner import SequentialRunner
@@ -58,6 +65,7 @@ from cosmos_curate_tpu_torch.pipelines.video import dedup as tdedup
 from cosmos_curate_tpu_torch.pipelines.video import shard as tshard
 from cosmos_curate_tpu_torch.pipelines.video import split as tsplit
 from cosmos_curate_tpu_torch.utils import config as tconfig
+from cosmos_curate_tpu_torch.video import h264 as th264
 from tests.fixtures.media import make_scene_video
 from tests.fixtures.observability import observability_state  # noqa: F401  (autouse)
 from tests.test_torch_dedup import planted, write_split_embeddings
@@ -137,13 +145,14 @@ def _actions(parser: argparse.ArgumentParser) -> dict[str, tuple]:
 
 def test_parser_walk_matches_jax():
     jtop, ttop = _subcommands(jmain.build_parser()), _subcommands(tmain.build_parser())
-    assert sorted(ttop) == ["agent", "dlq", "index", "info", "local", "report", "top"] and set(ttop) <= set(jtop)
+    assert sorted(ttop) == ["agent", "dlq", "index", "info", "local", "postgres", "report", "top"]
+    assert set(ttop) <= set(jtop)
     assert _actions(tmain.build_parser()).keys() == _actions(jmain.build_parser()).keys() - {"<sub>"} | {"<sub>"}
     walked = 0
     for command in ("report", "top", "agent"):
         assert _actions(ttop[command]) == _actions(jtop[command]), command
         walked += len(_actions(ttop[command]))
-    for group in ("local", "index", "dlq"):
+    for group in ("local", "postgres", "index", "dlq"):
         jsub, tsub = _subcommands(jtop[group]), _subcommands(ttop[group])
         assert list(tsub) == list(jsub), group
         for name, jparser in jsub.items():
@@ -154,11 +163,13 @@ def test_parser_walk_matches_jax():
                 assert device[0] == "device" and device[2] == ("cuda", "cpu") and device[1] in ("cuda", None)
             walked += len(want)
     assert walked > 100
-    # --device where a model runs: local hello / split / image-annotate /
-    # dedup, every index action that opens the index; not shard or serve
-    with_device = {(g, n) for g in ("local", "index") for n, p in _subcommands(ttop[g]).items()
+    # --device where a model runs: local hello / split / av /
+    # image-annotate / dedup, every index action that opens the index; not
+    # shard, serve or the postgres admin
+    with_device = {(g, n) for g in ("local", "postgres", "index") for n, p in _subcommands(ttop[g]).items()
                    if "--device" in _actions(p)}
-    assert with_device == {("local", "hello"), ("local", "split"), ("local", "image-annotate"), ("local", "dedup"),
+    assert with_device == {("local", "hello"), ("local", "split"), ("local", "av"), ("local", "image-annotate"),
+                           ("local", "dedup"),
                            ("index", "build"), ("index", "add"), ("index", "query"), ("index", "stats"),
                            ("index", "consolidate"), ("index", "compact")}
 
@@ -187,6 +198,19 @@ def test_merge_summaries_matches_jax(tmp_path, capsys):
         outs.append((rc, printed, written, (root / "report" / "run_report.json").exists()))
     assert outs[1] == outs[0]
     assert outs[1][0] == 0 and outs[1][1]["num_clips"] == 15 and not outs[1][3]
+
+
+def test_av_args_mirror_the_reference_field_for_field():
+    """``local av``'s config, ``AVPipelineArgs``: the reference's fields in
+    its order with its defaults, plus ``device``."""
+    from cosmos_curate_tpu.pipelines.av import pipeline as jav
+    from cosmos_curate_tpu_torch.pipelines.av import pipeline as tav
+
+    port = {f.name: f.default for f in dataclasses.fields(tav.AVPipelineArgs)}
+    ref = {f.name: f.default for f in dataclasses.fields(jav.AVPipelineArgs)}
+    assert port.pop("device") == "cuda" and list(port.items()) == list(ref.items())
+    assert tav.AV_CAPTION_FPS == jav.AV_CAPTION_FPS
+    assert tav.AVPipelineArgs(output_path="o/").resolved_db == jav.AVPipelineArgs(output_path="o/").resolved_db
 
 
 def test_caption_model_choices_are_the_flavors():
@@ -221,16 +245,24 @@ def test_main_exit_codes(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["local", "split", "--runner", "streaming"], "CURATE_ENGINE_TOKEN"),
-    (["local", "av", "ingest"], "item 19"),
+    (["local", "av", "trajectory", "--db-path", "s3://bucket/av_state.sqlite"], "s3:// storage unavailable"),
     (["local", "merge-summaries"], "no summaries found"),
-    (["index", "serve", "--index-path", "x"], "item 19"),
-    (["local", "split", "--multicam", "--device", "cpu"], "item 11"),
+    (["index", "serve", "--index-path", "x"], "item 19a"),
+    (["local", "split", "--multicam", "--splitting-algorithm", "transnetv2", "--device", "cpu"], "fixed-stride only"),
     (["local", "split", "--sr", "--sr-sp-size", "2", "--device", "cpu"], "item 7"),
 ], ids=["streaming", "av", "merge-summaries", "index-serve", "multicam", "sr-sp"])
 def test_refusals_name_their_roadmap_item(argv, item, tmp_path, monkeypatch, capsys):
     """What is not ported raises, naming its ROADMAP item; the cross-node
     plane refuses to run without its cluster secret, and merge-summaries
-    refuses a root with no node summaries (exit 1)."""
+    refuses a root with no node summaries (exit 1). The lifted ``local av``
+    and ``split --multicam`` raise what the reference raises where they
+    cannot run: a remote state database with no credentials (its backend
+    names what is missing), a multicam split by shot detection (fixed
+    stride only)."""
+    if "s3://" in " ".join(argv):
+        for var in ("AWS_ACCESS_KEY_ID", "AWS_SECRET_ACCESS_KEY", "AWS_ENDPOINT_URL"):
+            monkeypatch.delenv(var, raising=False)
+        argv = [*argv, "--device", "cpu"]
     if "streaming" in argv:
         monkeypatch.setenv("CURATE_ENGINE_DRIVER_PORT", "7070")
         monkeypatch.delenv("CURATE_ENGINE_TOKEN", raising=False)
@@ -239,9 +271,15 @@ def test_refusals_name_their_roadmap_item(argv, item, tmp_path, monkeypatch, cap
     if argv[:2] == ["local", "merge-summaries"]:
         assert tmain.main([*argv, "--output-path", str(tmp_path)]) == 1
         assert item in capsys.readouterr().out
-    elif item == "CURATE_ENGINE_TOKEN":
+    elif item in ("CURATE_ENGINE_TOKEN", "s3:// storage unavailable"):
         with pytest.raises(RuntimeError, match=item):
             tmain.main(argv)
+    elif item == "fixed-stride only":
+        with pytest.raises(ValueError, match=item):
+            tmain.main(argv)
+        with pytest.raises(ValueError, match=item):
+            j_argv = [a for a in argv[:-2] if a not in ("--device", "cpu")]
+            jmain.main([*j_argv, "--output-path", str(tmp_path / "jout")])
     else:
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}|\\({item}"):
             tmain.main(argv)
@@ -255,7 +293,7 @@ def test_python_dash_m_runs_the_port(tmp_path):
     assert out.stdout.startswith("cosmos-curate-tpu-torch 0.1.0\n") and "torch " in out.stdout
     refused = subprocess.run([sys.executable, "-m", "cosmos_curate_tpu_torch.cli.main", "index", "serve",
                               "--index-path", str(tmp_path)], cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert refused.returncode != 0 and "NotImplementedError" in refused.stderr and "item 19" in refused.stderr
+    assert refused.returncode != 0 and "NotImplementedError" in refused.stderr and "item 19a" in refused.stderr
 
 
 def test_info_reports_the_host(capsys):
@@ -666,3 +704,72 @@ def test_dlq_requeue_matches_the_jax_cli(dead_letters, tmp_path, capsys):
 def _run_json(main, argv, capsys) -> str:
     assert main(argv) == 0
     return capsys.readouterr().out
+
+
+# -- local av ----------------------------------------------------------------------
+
+
+def test_av_steps_match_the_jax_cli(tmp_path, monkeypatch, capsys):
+    """``local av``'s seven steps through both command lines on the same
+    sessions. The steps build their models inside; both packages' constructors
+    hand out ``tests/test_torch_av_pipeline.py``'s tiny models on shared
+    parameters (T5 in fp32), whose logits the engine rule then reads."""
+    import jax.numpy as jnp
+    import torch
+
+    from cosmos_curate_tpu.models import t5 as jt5
+    from cosmos_curate_tpu.models import vlm as jvlm
+    from cosmos_curate_tpu.pipelines.av import pipeline as jav
+    from cosmos_curate_tpu_torch.pipelines.av import pipeline as tav
+    from tests import test_torch_av_pipeline as avt
+
+    monkeypatch.setattr(jt5, "T5Encoder", functools.partial(jt5.T5Encoder, dtype=jnp.float32))
+    monkeypatch.setattr(avt.tt5, "T5Encoder", functools.partial(avt.tt5.T5Encoder, dtype=torch.float32))
+    monkeypatch.setenv("CURATE_MODEL_WEIGHTS_DIR", str(tmp_path / "weights"))
+    monkeypatch.delenv("CURATE_RUNNER", raising=False)
+    for module in (jh264, th264):
+        monkeypatch.setattr(module, "_probe_result", False)
+    models = avt.make_models()
+    for model in (models.j_engine, models.t_engine, models.j_t5, models.t_t5):
+        model.setup = lambda *a, **k: None  # built above; a rebuild would drop the logits tracing
+    monkeypatch.setattr(jvlm, "CaptionEngine", lambda cfg, **kw: models.j_engine)
+    monkeypatch.setattr(jt5, "T5EncoderTPU", lambda cfg: models.j_t5)
+    monkeypatch.setattr(tav, "CaptionEngine", lambda cfg, **kw: models.t_engine)
+    monkeypatch.setattr(tav, "T5EncoderTPU", lambda cfg, **kw: models.t_t5)
+    inputs = tmp_path / "in"
+    inputs.mkdir()
+    for stem, scenes in avt.AV_FILES.items():
+        make_scene_video(inputs / f"{stem}.mp4", scene_len_frames=24, num_scenes=scenes)
+    roots = {"jax": tmp_path / "jax", "port": tmp_path / "port"}
+    argv = ["--input-path", str(inputs), "--clip-len-s", "3.0", "--min-clip-len-s", "0.5", "--caption-variants",
+            "av,short", "--sequential"]
+    printed: dict[str, dict] = {"jax": {}, "port": {}}
+    for step in avt.STEPS:
+        for pkg, main, extra in (("jax", jmain, []), ("port", tmain, ["--device", "cpu"])):
+            assert main.main(["local", "av", step, *argv, "--output-path", str(roots[pkg]), *extra]) == 0
+            printed[pkg][step] = json.loads(capsys.readouterr().out)
+        if step == "caption":
+            j_db, t_db = (jav.AVPipelineArgs(output_path=str(roots[p])).resolved_db for p in ("jax", "port"))
+            compared = avt.assert_captions_by_rule(models.j_trace, models.t_trace, j_db, t_db)
+            avt.copy_differing_captions(j_db, t_db, compared)
+            # the default 8-frame windows: one a request, 4 clips x 2 variants
+            assert len(compared) == 8
+    for pkg in printed:
+        printed[pkg]["ingest"]["db"] = printed[pkg]["ingest"]["db"].replace(str(roots[pkg]), "<root>")
+        printed[pkg]["shard"]["buckets"] = json.loads(
+            json.dumps(printed[pkg]["shard"]["buckets"]).replace(str(roots[pkg]), "<root>"))
+    labels = {pkg: {printed[pkg][s]["run_uuid"]: f"<{s}-run>" for s in ("split", "annotate")} for pkg in printed}
+    for step in avt.STEPS:
+        got, want = avt._summary(printed["port"][step], labels["port"]), avt._summary(printed["jax"][step],
+                                                                                      labels["jax"])
+        if step == "caption":
+            got.pop("tokens_per_s"), want.pop("tokens_per_s")
+        assert got == want, step
+    assert printed["port"]["package"]["num_packaged"] == 4 and printed["port"]["shard"]["num_samples"] == 4
+    got = avt.normalized_rows(tav.AVPipelineArgs(output_path=str(roots["port"])).resolved_db, roots["port"])
+    want = avt.normalized_rows(jav.AVPipelineArgs(output_path=str(roots["jax"])).resolved_db, roots["jax"])
+    assert got == want
+    for prefix in ("metas", "processed_sessions", "trajectories"):
+        assert set(avt._files(roots["port"], prefix)) == set(avt._files(roots["jax"], prefix))
+    assert avt._normalized_json(roots["port"], "processed_sessions") == \
+        avt._normalized_json(roots["jax"], "processed_sessions")

@@ -146,6 +146,27 @@ def test_storage_layer_imports_neither_torch_nor_jax():
     assert int(out.stdout.split()[0]) == len(STORAGE_MODULES)
 
 
+# the AV state database, its wire client and admin commands (host code:
+# ``postgres`` and ``local av ingest`` load no torch)
+AV_STATE_MODULES = ("utils.pg_client", "pipelines.av.state_db", "pipelines.av.ego_tags",
+                    "pipelines.av.packaging", "pipelines.av.annotation_writer", "cli.postgres_cli")
+
+
+def test_av_state_layer_imports_neither_torch_nor_jax():
+    script = textwrap.dedent(
+        f"""
+        import importlib, sys
+        for name in {AV_STATE_MODULES!r}:
+            importlib.import_module("cosmos_curate_tpu_torch." + name)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "flax", "cosmos_curate_tpu"))
+        print(bad)
+        sys.exit(1 if bad else 0)
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_engine_defaults_to_the_gpu():
     import torch
 

@@ -791,6 +791,9 @@ def test_unported_options_raise(case, videos, jax_split, tmp_path, monkeypatch):
         _remote_paths_are_gated_then_served(case, kw, jax_split, tmp_path, monkeypatch)
         return
     kw.update(REFUSED_OPTIONS[case])
+    if case == "multicam":
+        _multicam_is_served(kw, tmp_path)
+        return
     # the Qwen3 flavor is ported: it refuses, as qwen2vl-2b does, for want
     # of its staged tokenizer files (and then weights)
     err, match = (FileNotFoundError, "vocab.json") if case == "qwen_captions" else (
@@ -803,6 +806,23 @@ def test_unported_options_raise(case, videos, jax_split, tmp_path, monkeypatch):
         assert _files(tmp_path / "out") == {"report/live/status.json"}
     else:
         assert not (tmp_path / "out").exists()
+
+
+def _multicam_is_served(kw, tmp_path):
+    """``multicam``, once refused as unported, is served: on these flat
+    videos (no ``<session>/<camera>`` directories) both packages warn, skip
+    every file and write an empty summary, and a multicam split by shot
+    detection raises the reference's ``ValueError`` (its sessions are
+    tested in ``tests/test_torch_multicam.py``)."""
+    summary = tsplit.run_split(tsplit.SplitPipelineArgs(**kw), runner=SequentialRunner())
+    with preserved_observability_state():
+        j_summary = jsplit.run_split(jsplit.SplitPipelineArgs(**dict(kw, output_path=str(tmp_path / "jout"))),
+                                     runner=JSequentialRunner())
+    assert _counts(summary) == _counts(j_summary) and summary["num_videos"] == 0
+    for pkg, mod, runner in (("port", tsplit, SequentialRunner()), ("jax", jsplit, JSequentialRunner())):
+        with pytest.raises(ValueError, match="fixed-stride only"), preserved_observability_state():
+            mod.run_split(mod.SplitPipelineArgs(**dict(kw, splitting_algorithm="transnetv2",
+                                                       output_path=str(tmp_path / f"shots-{pkg}"))), runner=runner)
 
 
 def _remote_paths_are_gated_then_served(case, kw, jax_split, tmp_path, monkeypatch):

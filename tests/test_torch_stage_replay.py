@@ -54,9 +54,8 @@ EMBED_TOL = 2e-2
 SCORE_ATOL, SCORE_RTOL = 2e-5, 1e-4
 SPLIT = dict(fixed_stride_len_s=1.0, min_clip_len_s=0.5, motion_filter="score-only", motion_backend="frame-diff",
              extract_fps=(8.0,), extract_resize_hw=(32, 32), stage_save_rate=1.0)
-# the JAX package's multicam fields (not ported) and the motion scores, which
-# the motion tests hold at their own bounds
-IGNORED = ("aux_videos", "session_id", "camera", "motion_score_global", "motion_score_per_patch")
+# the motion scores, which the motion tests hold at their own bounds
+IGNORED = ("motion_score_global", "motion_score_per_patch")
 STAGES = ("VideoDownloadStage", "FixedStrideExtractorStage", "ClipTranscodingStage", "MotionFilterStage",
           "ClipFrameExtractionStage", "ClipEmbeddingStage", "ClipWriterStage")
 
