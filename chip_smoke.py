@@ -86,7 +86,7 @@ and prints one JSON line per phase:
    ``PipelinedRunner``) over ``PIPELINE_TASKS`` tasks, more than one embed
    stage call can take, so the embed stage embeds while the caption stage
    decodes, from two host threads on one card; then ``SequentialRunner``
-   over 2 of the tasks (64 new tokens a window); then the caption pipeline efficiency as
+   over 2 of the tasks (32 new tokens a window); then the caption pipeline efficiency as
    ``benchmarks/caption_benchmark.py`` defines it: the windows of
    ``EFFICIENCY_TASKS`` tasks straight into the shared engine, then the
    same windows through ``CaptionStage``, each pass's decode tokens over its
@@ -249,7 +249,7 @@ and prints one JSON line per phase:
    ``query`` and ``stats`` against the entry points called directly, and
    the refusals of ``--runner streaming`` with ``CURATE_ENGINE_DRIVER_PORT``
    set and no ``CURATE_ENGINE_TOKEN`` (the cross-node plane runs only with
-   its cluster secret) and of ``index serve``.
+   its cluster secret) and of ``local split --sr --sr-sp-size 2`` (item 7).
     remote (``scripts/remote_phase.py``, after image and cli): the
    repository's fake S3, GCS and Azure servers on 127.0.0.1 in this
    process (every SigV4 and Shared Key signature verified), the first 2
@@ -292,6 +292,16 @@ and prints one JSON line per phase:
    clip-session tars); ingest and split again on the fake PostgreSQL
    server (``tests/pipelines/fake_pg.py``), whose rows are the sqlite
    run's, with ``postgres update-schemas`` and ``show-tables``.
+    service (``scripts/service_phase.py``, after av): run B's settings as a
+   ``split`` job through the port's job service over HTTP (``build_app`` in
+   a thread; the job child counts its own launches: flash, paged decode and
+   paged prefill; clips and embeddings run B's); a ``serve`` subprocess
+   SIGKILLed while its job runs and started again on the same work root
+   (the orphaned child's group reaped before the resumed attempt, the
+   journal's transitions, the outputs the multinode phase's one-node run's);
+   ``POST /v1/search`` by embedding, clip uuid and text over an index of the
+   job's embeddings (answers the ``IndexServer``'s, causal flash launched in
+   this process, p50 / p99, a burst shed with 429 + ``Retry-After``).
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -430,11 +440,14 @@ PIPELINE_KERNELS = ("paged_decode", "paged_prefill", "prefill", "flash")
 # starts and the two device stages never run at once
 PIPELINE_TASKS = 48
 PIPELINE_SEQUENTIAL_TASKS = 2
-# 64 new tokens a window (split.py's stage default is 128): the phase's
+# 32 new tokens a window (split.py's stage default is 128): the phase's
 # decode is host-bound at ~170 tok/s, and at 128 its 192 windows took 140 s
-# of the full call's 1200 s on a slow host
-PIPELINE_NEW_TOKENS = 64
-EFFICIENCY_TASKS = 4  # 16 windows: through the engine alone, then CaptionStage
+# of the full call's 1200 s on a slow host; 64 until the service phase
+# joined the call
+PIPELINE_NEW_TOKENS = 32
+# 8 windows: through the engine alone, then CaptionStage (16 until the
+# service phase joined the call)
+EFFICIENCY_TASKS = 2
 # split phase: bench.py's corpus (bench.py:41-47, :84-103) and headline
 # settings (bench.py:217-227), built by this script's own copy of its
 # generator: 32 videos (64 before the multinode phase joined the call: the
@@ -498,7 +511,7 @@ OCR_TIMED_CLIPS = 32
 # tokenizer.json loads through tokenizers); the device phase reports which
 # are here
 OPTIONAL_MODULES = ("cv2", "msgpack", "cloudpickle", "prometheus_client", "pyarrow", "regex", "PIL", "tokenizers",
-                    "boto3", "google.cloud.storage", "yaml")
+                    "boto3", "google.cloud.storage", "yaml", "aiohttp")
 FFMPEG_LIBRARIES = ("avcodec", "avformat", "avutil", "swscale", "x264")
 # embed phase: stage calls timed, clips per task (4 one-second clips of
 # bench.py's videos), so each call is one 32-clip dispatch
@@ -3373,6 +3386,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     import multinode_phase
     import observe_phase
     import remote_phase
+    import service_phase
 
     started = time.monotonic()
     dev = torch.device("cuda", 0)
@@ -3478,6 +3492,9 @@ def _main(stack: contextlib.ExitStack) -> int:
     # multicam sessions: the multicam split, the AV steps through `local av`, postgres
     av = av_phase.run(sys.modules[__name__], dev, timer, root, corpus)
     checks["flash"]["cases"].update(av["flash_checked_here"])
+    # the job service: a job through HTTP, a killed service resumed, search
+    service = service_phase.run(sys.modules[__name__], dev, timer, root, corpus, split_run["run_b"]["wall_s"])
+    checks["flash"]["cases"].update(service["flash_checked_here"])
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3530,6 +3547,7 @@ def _main(stack: contextlib.ExitStack) -> int:
             multinode_launches=multinode["launches"][name],
             av_launches={"caption": av["caption"]["launches"][name],
                          "multicam_split": av["multicam"]["launches"][name]},
+            service_launches={part: service["launches"][part][name] for part in ("job", "search")},
             cases=c.get("cases"),
         ))
     # each phase line's seconds from the start: where the call's time went

@@ -1,6 +1,5 @@
-"""Chaos fault injection for the runners, the retry policy and the
-cross-node plane (port of ``cosmos_curate_tpu/chaos``, all but the job
-service's sites).
+"""Chaos fault injection for the runners, the retry policy, the cross-node
+plane and the job service (port of ``cosmos_curate_tpu/chaos``).
 
 Every failure mode the runners must survive has a *named injection site*,
 one ``fire()`` call in production code, and a :class:`FaultPlan` arms a
@@ -17,6 +16,8 @@ from cosmos_curate_tpu_torch.chaos.harness import (
     SITE_OBJECT_CHANNEL_SERVE,
     SITE_REMOTE_PLANE_RECV,
     SITE_REMOTE_PLANE_SEND,
+    SITE_SERVICE_JOB_CRASH,
+    SITE_SERVICE_JOURNAL_WRITE,
     SITE_STORAGE_REQUEST,
     SITE_WORKER_CRASH,
     SITE_WORKER_HANG,
@@ -40,6 +41,8 @@ __all__ = [
     "SITE_OBJECT_CHANNEL_SERVE",
     "SITE_REMOTE_PLANE_RECV",
     "SITE_REMOTE_PLANE_SEND",
+    "SITE_SERVICE_JOB_CRASH",
+    "SITE_SERVICE_JOURNAL_WRITE",
     "SITE_STORAGE_REQUEST",
     "SITE_WORKER_CRASH",
     "SITE_WORKER_HANG",

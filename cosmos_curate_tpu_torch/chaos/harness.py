@@ -1,8 +1,9 @@
 """Fault-plan model and the per-process injection runtime (port of
 ``cosmos_curate_tpu/chaos/harness.py``: the worker-batch sites the runners
-fire, the ``storage.request`` site of ``storage/retry.py``, and the sites
-of the cross-node plane: the object channel, the control link and the node
-agents).
+fire, the ``storage.request`` site of ``storage/retry.py``, the sites of
+the cross-node plane: the object channel, the control link and the node
+agents, and the job service's: a job child's start and the journal's
+append).
 
 - **No-op when disabled.** ``fire(site)`` is the only call on the hot path;
   while no plan is installed it is a single falsy check on a module global.
@@ -22,9 +23,6 @@ Fault kinds:
 - ``error``: raise :class:`InjectedFault` (a ``ConnectionError``);
 - ``delay``: ``time.sleep(delay_s)`` then continue.
 
-Not ported: the job service's sites (``service.job.crash``,
-``service.journal.write``), which wait for the service (ROADMAP queue A
-item 19a).
 """
 
 from __future__ import annotations
@@ -46,6 +44,12 @@ SITE_OBJECT_CHANNEL_SERVE = "object_channel.serve"
 SITE_REMOTE_PLANE_SEND = "remote_plane.send"
 SITE_REMOTE_PLANE_RECV = "remote_plane.recv"
 SITE_STORAGE_REQUEST = "storage.request"
+# the job service (service/app.py + service/job_queue.py): a job child
+# dying at startup (a crash rule rides CURATE_CHAOS into the child; pair it
+# with ``worker_re`` against the stamped CURATE_WORKER_ID=job-<id>-a<attempt>
+# to fault only the first attempt), and the journal's append failing
+SITE_SERVICE_JOB_CRASH = "service.job.crash"
+SITE_SERVICE_JOURNAL_WRITE = "service.journal.write"
 # node loss (engine/remote_agent.py): agent.kill fires in the agent right
 # after it relays a result (kind=crash: the node dies holding outputs the
 # driver already references); agent.partition fires on every frame in both
@@ -63,6 +67,8 @@ ALL_SITES = (
     SITE_REMOTE_PLANE_SEND,
     SITE_REMOTE_PLANE_RECV,
     SITE_STORAGE_REQUEST,
+    SITE_SERVICE_JOB_CRASH,
+    SITE_SERVICE_JOURNAL_WRITE,
     SITE_AGENT_KILL,
     SITE_AGENT_PARTITION,
 )

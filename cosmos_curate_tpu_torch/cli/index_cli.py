@@ -14,14 +14,17 @@ embedding index (port of ``cosmos_curate_tpu/cli/index_cli.py``).
     index consolidate --index-path <root>    fold pending fragments into the
                                              index
     index compact --index-path <root>        one compaction pass
+    index serve --index-path <root>          standalone HTTP search server
+                                             (POST /v1/search, service/search.py)
 
 ``--index-path`` defaults to ``<input>/index``, the root ``local split
 --corpus-index`` writes its fragments to. Every action that opens the
 index takes ``--device`` (its k-means and top-k products run there:
 ``cuda`` unless given ``cpu``). ``--no-mesh`` is accepted as the
 reference accepts it; the port scores on one device either way (the mesh
-waits for ROADMAP queue A item 7). ``index serve`` (the HTTP search
-server, ``service/search.py``) is refused: it waits for item 19a.
+waits for ROADMAP queue A item 7). ``index serve`` takes ``--device`` too:
+its scoring and text tower run there, and asked for ``cuda`` on a host
+without a card it refuses to start.
 """
 
 from __future__ import annotations
@@ -29,8 +32,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-_SERVE = "the HTTP search server service/search.py (ROADMAP queue A item 19a)"
 
 
 def register(sub: argparse._SubParsersAction) -> None:
@@ -114,7 +115,7 @@ def register(sub: argparse._SubParsersAction) -> None:
     _device(compact)
     compact.set_defaults(func=_cmd_compact)
 
-    srv = isub.add_parser("serve", help="standalone HTTP search server over the index (not ported yet)")
+    srv = isub.add_parser("serve", help="standalone HTTP search server over the index (POST /v1/search)")
     srv.add_argument("--index-path", required=True)
     srv.add_argument("--host", default="0.0.0.0")
     srv.add_argument("--port", type=int, default=8081)
@@ -128,6 +129,7 @@ def register(sub: argparse._SubParsersAction) -> None:
     srv.add_argument("--compact-interval-s", type=float, default=0.0,
                      help="background compaction cadence (0 disables)")
     srv.add_argument("--metrics-port", type=int, default=None)
+    _device(srv)
     srv.set_defaults(func=_cmd_serve)
 
     index.set_defaults(func=lambda args: (index.print_help(), 2)[1])
@@ -238,7 +240,27 @@ def _cmd_compact(args: argparse.Namespace) -> int:
 
 
 def _cmd_serve(args: argparse.Namespace) -> int:
-    raise NotImplementedError(f"index serve runs {_SERVE}, not ported yet")
+    from cosmos_curate_tpu_torch.service.search import SearchConfig, serve_index
+
+    if args.metrics_port is not None:
+        from cosmos_curate_tpu_torch.engine.metrics import get_metrics
+
+        get_metrics().ensure_server(args.metrics_port)
+    serve_index(
+        host=args.host,
+        port=args.port,
+        cfg=SearchConfig(
+            index_path=args.index_path.rstrip("/"),
+            device=args.device,
+            max_inflight=args.max_inflight,
+            max_waiting=args.max_waiting,
+            text_model=args.text_model,
+            cache_bytes=(args.cache_mb << 20) or None,
+            warmup=not args.no_warmup,
+            compact_interval_s=args.compact_interval_s,
+        ),
+    )
+    return 0
 
 
 def _cmd_stats(args: argparse.Namespace) -> int:

@@ -2,16 +2,19 @@
 ``cosmos_curate_tpu/cli/main.py``).
 
 The same argparse tree as the reference's, with the groups the port has:
-``info``, ``local`` (run the pipelines, ``cli/local_cli.py``), ``postgres``
-(the AV state database's admin commands, ``cli/postgres_cli.py``), ``dlq``
-(dead-lettered batches, ``cli/dlq_cli.py``), ``report`` (a run's flight
-recorder report, ``cli/report_cli.py``), ``top`` (live status,
-``cli/top_cli.py``), ``index`` (the corpus index, ``cli/index_cli.py``) and
-``agent`` (join a driver's cross-node engine plane as a worker node,
+``info``, ``local`` (run the pipelines, ``cli/local_cli.py``), ``serve``
+(the job service, ``cli/serve_cli.py``), ``view`` (a clip viewer over a
+split output, ``cli/view_cli.py``), ``slurm`` (sbatch scripts and job
+management, ``cli/slurm_cli.py``), ``postgres`` (the AV state database's
+admin commands, ``cli/postgres_cli.py``), ``dlq`` (dead-lettered batches,
+``cli/dlq_cli.py``), ``report`` (a run's flight recorder report,
+``cli/report_cli.py``), ``top`` (live status, ``cli/top_cli.py``),
+``index`` (the corpus index, ``cli/index_cli.py``) and ``agent`` (join a
+driver's cross-node engine plane as a worker node,
 engine/remote_agent.py), registered in the reference's order. The other
-groups of the reference (``export-lance``, ``serve``, ``view``, ``slurm``,
-``models``, ``lint``, ``image``) wait for the layers they drive (ROADMAP
-queue A item 22).
+groups of the reference (``export-lance``, ``models``, ``lint``,
+``image``) wait for the layers they drive (ROADMAP queue A item 22;
+``image`` also for the port's container image, item 23).
 
 Run it as ``python -m cosmos_curate_tpu_torch.cli.main`` or through the
 ``cosmos-curate-tpu-torch`` console script. Every command that runs a model
@@ -24,7 +27,17 @@ import argparse
 import sys
 
 from cosmos_curate_tpu_torch import __version__
-from cosmos_curate_tpu_torch.cli import dlq_cli, index_cli, local_cli, postgres_cli, report_cli, top_cli
+from cosmos_curate_tpu_torch.cli import (
+    dlq_cli,
+    index_cli,
+    local_cli,
+    postgres_cli,
+    report_cli,
+    serve_cli,
+    slurm_cli,
+    top_cli,
+    view_cli,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,6 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     info = sub.add_parser("info", help="show environment and device info")
     info.set_defaults(func=_cmd_info)
     local_cli.register(sub)
+    serve_cli.register(sub)
+    view_cli.register(sub)
+    slurm_cli.register(sub)
     postgres_cli.register(sub)
     dlq_cli.register(sub)
     report_cli.register(sub)

@@ -10,9 +10,9 @@ Renders a refreshing per-stage table from the live status:
 - ``top http://host:port --job <id>`` (or a full ``…/v1/jobs/<id>/status``
   URL): one job's live snapshot as the service serves it.
 
-The port's job service waits for ROADMAP queue A item 19a; the service
-views read the reference's endpoints, so they work against its service.
-``--once`` prints one frame; otherwise the screen refreshes every
+The service views read the endpoints of the port's job service
+(service/app.py), which are the reference's, so they work against either
+package's service. ``--once`` prints one frame; otherwise the screen refreshes every
 ``--interval`` seconds until Ctrl-C. A stale snapshot (a publisher that
 stopped while the run claims to be running) is flagged: that staleness is
 the wedged-run signal of a single-threaded runner. Host code: no torch.
@@ -24,10 +24,6 @@ import argparse
 import json
 import sys
 import time
-
-# the job service's admission lanes (the reference's service/job_queue.py
-# LANES); the port keeps its own copy until the service is ported
-LANES = ("interactive", "batch")
 
 
 def register(sub: argparse._SubParsersAction) -> None:
@@ -60,6 +56,8 @@ def _http_get(url: str, timeout: float = 5.0) -> dict:
 def _render_service(base: str) -> tuple[str, dict]:
     """(rendered text, raw payload) for a bare service URL — the payload
     carries the actual health + SLO documents so --json is scriptable."""
+    from cosmos_curate_tpu_torch.service.job_queue import LANES
+
     health = _http_get(f"{base}/health")
     lines = [
         f"service: {base}  status={health.get('status')}  "

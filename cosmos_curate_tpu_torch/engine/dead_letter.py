@@ -206,7 +206,9 @@ def list_entries(root: str | None = None, *, run_id: str | None = None) -> list[
             continue
         for entry in sorted(p for p in run.iterdir() if p.is_dir()):
             try:
-                meta = json.loads((entry / "meta.json").read_text())
+                # pre-stamp (v1) entries migrate through the shim chain; an
+                # entry a newer build wrote reads as-is (listing is display only)
+                meta = schema_stamp.upgrade(json.loads((entry / "meta.json").read_text()), "dlq-meta", strict=False)
             except (OSError, ValueError):
                 meta = {"stage": "?", "batch_id": -1, "error_tail": "unreadable meta.json"}
             out.append(DlqEntry(path=entry, meta=meta))

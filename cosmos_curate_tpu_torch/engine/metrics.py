@@ -1,23 +1,26 @@
 """Prometheus series for the runners, the caption stage and the
 observability aggregates (port of ``cosmos_curate_tpu/engine/metrics.py``,
-the series the in-process runners, ``CaptionStage`` and
-observability/stage_timer.py write).
+the series the in-process runners, ``CaptionStage``,
+observability/stage_timer.py and the job service write).
 
-Same names as the reference's (``pipeline_*``, ``caption_*``, ``search_*``
-and ``index_*``), so one dashboard reads both; the streaming engine adds the
-deserialize-time and object-store series, and its cross-node plane the
-per-node workers and CPUs, node deaths and lineage reconstruction. Left out:
-the series of the job service (ROADMAP queue A item 19a). The collectors live in
-a registry of their own (``EngineMetrics.registry``, which a caller serves
-with ``prometheus_client.start_http_server(port, registry=...)``): a
-process that also holds the JAX package's gauges would otherwise register
-every name twice. A no-op when ``prometheus_client`` is absent; it is
-imported only when the metrics object is first made.
+Same names as the reference's (``pipeline_*``, ``caption_*``, ``search_*``,
+``index_*`` and ``service_*``), so one dashboard reads both; the streaming
+engine adds the deserialize-time and object-store series, and its
+cross-node plane the per-node workers and CPUs, node deaths and lineage
+reconstruction. The collectors live in a registry of their own
+(``EngineMetrics.registry``, which ``ensure_server`` serves): a process
+that also holds the JAX package's gauges would otherwise register every
+name twice. A no-op when ``prometheus_client`` is absent; it is imported
+only when the metrics object is first made.
 """
 
 from __future__ import annotations
 
 import threading
+
+from cosmos_curate_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 _SINGLETON: EngineMetrics | None = None
 _SINGLETON_LOCK = threading.Lock()
@@ -165,6 +168,10 @@ class EngineMetrics:
         self.search_requests = Counter(
             "search_requests_total", "similarity-search requests served", labels + ["mode"], **reg
         )
+        self.search_shed = Counter(
+            "search_shed_total", "search requests shed with 429 (admission lane over capacity)",
+            labels + ["reason"], **reg
+        )
         self.index_cache_hit_bytes = Counter(
             "index_cache_hit_bytes_total", "shard bytes served from the warm cache", labels, **reg
         )
@@ -201,7 +208,44 @@ class EngineMetrics:
             "caption_owner_queue", "caption engine requests per owner by state", ["owner", "state"], **reg
         )
         self._caption_owner_seen: set[str] = set()
+        # the job service (service/app.py): transitions per tenant, current
+        # jobs per state, queue depth and wait per lane, sheds, and SLO
+        # breaches. shed_total rising under ``tenant_queue_full`` is a noisy
+        # tenant at its quota; under ``queue_full`` the whole service is
+        # over capacity
+        self.service_transitions = Counter(
+            "service_jobs_total", "job state transitions", ["tenant", "state"], **reg
+        )
+        # "service_jobs" itself is taken: prometheus_client registers a
+        # Counter's base name (service_jobs_total -> service_jobs)
+        self.service_jobs_state = Gauge("service_jobs_current", "current jobs per state", ["state"], **reg)
+        self.service_queue_depth = Gauge("service_queue_depth", "queued jobs per lane", ["lane"], **reg)
+        self.service_queue_wait = Counter(
+            "service_queue_wait_seconds_total", "summed pending->running wait", ["lane"], **reg
+        )
+        self.service_dispatches = Counter(
+            "service_dispatches_total", "jobs dispatched (divide queue_wait by this for mean wait)", ["lane"], **reg
+        )
+        self.service_shed = Counter("service_shed_total", "admissions shed with 429", ["tenant", "reason"], **reg)
+        self.slo_breaches = Counter(
+            "service_slo_breaches_total", "per-tenant SLO breaches (queue_wait, run_duration, success_rate)",
+            ["tenant", "kind"], **reg
+        )
+        self._server_port: int | None = None
         self.enabled = True
+
+    def ensure_server(self, port: int) -> None:
+        """Serve the registry on ``port`` (once a process; a failure to bind
+        is logged, the caller runs on)."""
+        if not self.enabled or self._server_port is not None:
+            return
+        from prometheus_client import start_http_server
+
+        try:
+            start_http_server(port, registry=self.registry)
+            self._server_port = port
+        except OSError as e:
+            logger.warning("metrics server on :%d failed to start: %s", port, e)
 
     def observe_result(self, stage: str, process_s: float, n_out: int, deserialize_s: float = 0.0) -> None:
         if not self.enabled:
@@ -332,6 +376,40 @@ class EngineMetrics:
     def observe_anomaly(self, stage: str, kind: str) -> None:
         if self.enabled:
             self.anomalies_total.labels(stage, kind).inc()
+
+    def observe_search_shed(self, name: str, reason: str) -> None:
+        if self.enabled:
+            self.search_shed.labels(name, reason).inc()
+
+    def observe_service_transition(self, tenant: str, state: str) -> None:
+        if self.enabled:
+            self.service_transitions.labels(tenant, state).inc()
+
+    def set_service_states(self, counts: dict) -> None:
+        """``counts``: state -> current job count (every known state, so a
+        state that empties out reads 0 instead of its stale last value)."""
+        if not self.enabled:
+            return
+        for state, n in counts.items():
+            self.service_jobs_state.labels(state).set(int(n))
+
+    def set_service_queue_depth(self, lane: str, depth: int) -> None:
+        if self.enabled:
+            self.service_queue_depth.labels(lane).set(int(depth))
+
+    def observe_service_dispatch(self, lane: str, wait_s: float) -> None:
+        if not self.enabled:
+            return
+        self.service_dispatches.labels(lane).inc()
+        self.service_queue_wait.labels(lane).inc(max(0.0, wait_s))
+
+    def observe_service_shed(self, tenant: str, reason: str) -> None:
+        if self.enabled:
+            self.service_shed.labels(tenant, reason).inc()
+
+    def observe_slo_breach(self, tenant: str, kind: str) -> None:
+        if self.enabled:
+            self.slo_breaches.labels(tenant, kind).inc()
 
     def observe_object_plane(self, node: str, deltas: dict) -> None:
         """Fold one object-plane delta set (the

@@ -15,8 +15,9 @@ staging tree to ``<output>/profile/collected/node<rank>/`` with
 
 The **driver** then runs delivery's finalize phase: it merges the node
 manifests into one run index, verifies chunk counts and CRCs, and
-reassembles chunked files where the destination is local. The port runs
-one node; several nodes wait for ROADMAP queue A item 15.
+reassembles chunked files where the destination is local. Each node of a
+multi-node run (parallel/distributed.py) collects under its own
+``CURATE_NODE_RANK``.
 """
 
 from __future__ import annotations

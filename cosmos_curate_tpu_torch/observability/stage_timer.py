@@ -17,8 +17,9 @@ stage (``stage_timer.py:30``): ``time_process`` around each call,
 reference, ``run_split``'s ``perf_profile`` option only carries the flag:
 nothing reads it.
 
-Host code only: a record is folded from numbers the caller already holds.
-The node agents' object-plane deltas wait for ROADMAP queue A item 15.
+Host code only: a record is folded from numbers the caller already holds,
+the node agents' object-plane deltas (``record_node_object_plane``) among
+them.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Schema-version stamping of durable JSON (port of the part of
-``cosmos_curate_tpu/utils/schema_stamp.py`` that the dead-letter queue, the
-corpus index's manifests, the run report, the per-node stats sidecars and
-the live status write and read through). The versions are the
+``cosmos_curate_tpu/utils/schema_stamp.py`` that the job service's journal,
+the dead-letter queue, the corpus index's manifests, the run report, the
+per-node stats sidecars and the live status write and read through). The versions are the
 reference's, so a record the port writes reads as the same version of the
 same surface, and a manifest either package wrote opens in the other."""
 
@@ -14,6 +14,8 @@ STAMP_KEY = "schema_version"
 # surface -> published version; version 1 is each surface's historical,
 # unstamped format
 SCHEMA_VERSIONS: dict[str, int] = {
+    # service/job_queue.py journal envelope + JobRecord snapshot
+    "job-journal": 2,
     "dlq-meta": 2,
     # dedup/index_store.py manifests/gen-N.json + MANIFEST.json pointer
     "index-manifest": 2,
@@ -40,6 +42,17 @@ def stamp(doc: dict, surface: str) -> dict:
     return doc
 
 
+def _journal_v1_to_v2(doc: dict) -> dict:
+    """v1 journal lines predate stamping: the envelope was ``{ts, event,
+    record}`` with no field renames since."""
+    return {**doc, STAMP_KEY: 2}
+
+
+def _dlq_meta_v1_to_v2(doc: dict) -> dict:
+    """v1 DLQ meta.json predates stamping; the field set is unchanged."""
+    return {**doc, STAMP_KEY: 2}
+
+
 def _manifest_v1_to_v2(doc: dict) -> dict:
     """v1 manifests (and MANIFEST.json pointers) predate stamping; the field
     set is unchanged."""
@@ -49,6 +62,8 @@ def _manifest_v1_to_v2(doc: dict) -> dict:
 # (surface, from_version) -> shim to from_version + 1; shims never mutate
 # their input
 MIGRATIONS: dict[tuple[str, int], Callable[[dict], dict]] = {
+    ("job-journal", 1): _journal_v1_to_v2,
+    ("dlq-meta", 1): _dlq_meta_v1_to_v2,
     ("index-manifest", 1): _manifest_v1_to_v2,
 }
 
@@ -61,14 +76,18 @@ def doc_version(doc: dict) -> int:
         return 1
 
 
-def upgrade(doc: dict, surface: str) -> dict:
+def upgrade(doc: dict, surface: str, *, strict: bool = True) -> dict:
     """Carry ``doc`` forward to the surface's published version through the
     shim chain; a same-version document returns unchanged. A document newer
-    than this build, or an older one without a shim, raises
-    :class:`SchemaVersionError`."""
+    than this build raises :class:`SchemaVersionError` when ``strict``;
+    with ``strict=False`` it is returned as-is (for readers that drop
+    unknown fields, such as the job journal's replay). An older document
+    without a shim always raises."""
     current = SCHEMA_VERSIONS[surface]
     v = doc_version(doc)
     if v > current:
+        if not strict:
+            return doc
         raise SchemaVersionError(
             f"{surface} document is schema v{v} but this build publishes v{current}; "
             "upgrade this process before reading it"

@@ -48,8 +48,10 @@ zeroed just before it and read just after. One JSON line per phase:
   ``incremental_dedup`` called directly; ``local split --runner
   streaming`` with ``CURATE_ENGINE_DRIVER_PORT`` set and no
   ``CURATE_ENGINE_TOKEN`` (the engine's cross-node plane refuses to run
-  without its cluster secret) raises before any stage runs, and ``index
-  serve`` raises ``NotImplementedError`` naming its ROADMAP item.
+  without its cluster secret) raises before any stage runs, and ``local
+  split --sr --sr-sp-size 2`` raises ``NotImplementedError`` naming its
+  ROADMAP item (``index serve``, refused until the job service came, is
+  served since; the ``service`` phase drives the search).
 """
 
 from __future__ import annotations
@@ -606,8 +608,10 @@ def drive_cli(cs, dev, root: Path, corpus: list[Path]) -> dict:
         if token is not None:
             os.environ["CURATE_ENGINE_TOKEN"] = token
     refused = {"local split --runner streaming (remote plane, no token)": streaming,
-               "index serve": refusal(["index", "serve", "--index-path", f"{split_out}/index"])}
-    assert "CURATE_ENGINE_TOKEN" in streaming and "item 19" in refused["index serve"], refused
+               "local split --sr --sr-sp-size 2": refusal(["local", "split", "--input-path", str(videos),
+                                                           "--output-path", str(root / "refused"), "--sr",
+                                                           "--sr-sp-size", "2"])}
+    assert "CURATE_ENGINE_TOKEN" in streaming and "item 7" in refused["local split --sr --sr-sp-size 2"], refused
     assert not (root / "refused" / "clips").exists(), "the refused run wrote clips"
     return dict(
         subprocess={"info_rc": info.returncode, "info": info.stdout.strip().splitlines(),

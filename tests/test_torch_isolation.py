@@ -21,6 +21,12 @@ STORAGE_MODULES = ("storage.client", "storage.retry", "storage.writers", "storag
                    "storage.zip_transport", "utils.user_config", "utils.retry", "utils.file_lock")
 
 
+# the job service and the commands of its slice (host code: a service
+# without a search index never imports torch)
+SERVICE_MODULES = ("service.slo", "service.job_queue", "service.admission", "service.search", "service.app",
+                   "cli.serve_cli", "cli.view_cli", "cli.slurm_cli")
+
+
 def test_port_imports_no_jax_flax_or_reference_package():
     script = textwrap.dedent(
         """
@@ -69,7 +75,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "data.lazy", "cli.report_cli", "cli.top_cli", "cli.dlq_cli",
                    "pipelines.video.stages.caption_prep", "parallel.distributed", "parallel.work_stealing",
                    "engine.lineage", "engine.object_channel", "engine.remote_plane", "engine.remote_agent",
-                   *STORAGE_MODULES):
+                   *SERVICE_MODULES, *STORAGE_MODULES):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -161,6 +167,45 @@ def test_av_state_layer_imports_neither_torch_nor_jax():
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "flax", "cosmos_curate_tpu"))
         print(bad)
         sys.exit(1 if bad else 0)
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_service_layer_imports_neither_torch_nor_jax():
+    """The job service (without its search index) and the ``serve``,
+    ``view`` and ``slurm`` commands are host code: importing them, building
+    the app, starting it and answering ``/health``, ``/v1/jobs``,
+    ``/v1/slo``, ``/v1/progress`` and a refused ``/v1/invoke`` load no torch,
+    no JAX and nothing of the JAX package."""
+    script = textwrap.dedent(
+        f"""
+        import asyncio, importlib, sys, tempfile
+        for name in {SERVICE_MODULES!r}:
+            importlib.import_module("cosmos_curate_tpu_torch." + name)
+        from aiohttp.test_utils import TestClient, TestServer
+        from cosmos_curate_tpu_torch.cli import main
+        from cosmos_curate_tpu_torch.service.app import build_app
+
+        async def drive(root):
+            client = TestClient(TestServer(build_app(work_root=root)))
+            await client.start_server()
+            codes = []
+            for method, path, body in (("GET", "/health", None), ("GET", "/v1/jobs", None),
+                                       ("GET", "/v1/slo", None), ("GET", "/v1/progress/x", None),
+                                       ("POST", "/v1/invoke", {{"pipeline": "nope"}})):
+                resp = await client.request(method, path, json=body)
+                codes.append(resp.status)
+            await client.close()
+            return codes
+
+        with tempfile.TemporaryDirectory() as root:
+            codes = asyncio.run(drive(root))
+        main.build_parser()
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "flax", "cosmos_curate_tpu"))
+        print(codes, bad)
+        sys.exit(1 if bad or codes != [200, 200, 200, 404, 400] else 0)
         """
     )
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -617,7 +662,8 @@ def test_run_split_with_the_legs_defaults_to_the_gpu(option, tmp_path):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/engine_phase.py", "scripts/observe_phase.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/engine_phase.py", "scripts/observe_phase.py",
+                                    "scripts/service_phase.py"])
 def test_chip_scripts_import_neither_jax_nor_the_reference(script):
     """The card's scripts run the port alone: no import of jax, flax or the
     JAX package anywhere in them (the card's machine has no jax)."""

@@ -466,9 +466,9 @@ def test_chaos_crash_and_retry(runner_cls):
 
 def test_chaos_refuses_unknown_and_duplicate_sites():
     with pytest.raises(ValueError, match="unknown chaos site"):
-        # a site of the reference's that the port does not have (the job
-        # service's); the object plane's are ported with the cross-node plane
-        chaos.install(chaos.FaultPlan(rules=(chaos.FaultRule(site="service.job.crash"),)))
+        # a site neither package has (every site of the reference's is
+        # ported, the job service's with the service)
+        chaos.install(chaos.FaultPlan(rules=(chaos.FaultRule(site="service.job.crashes"),)))
     rule = chaos.FaultRule(site=chaos.SITE_WORKER_HANG, kind="delay")
     with pytest.raises(ValueError, match="duplicate"):
         chaos.install(chaos.FaultPlan(rules=(rule, rule)))
