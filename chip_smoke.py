@@ -10,7 +10,7 @@ and prints one JSON line per phase:
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA,
    which optional modules import (``cv2``, ``msgpack``, ``cloudpickle``,
    ``prometheus_client``, ``pyarrow``, ``regex``, ``boto3``,
-   ``google.cloud.storage``, ``yaml``), and which FFmpeg libraries and
+   ``google.cloud.storage``, ``yaml``, ``zstandard``, ``lance``), and which FFmpeg libraries and
    headers are installed;
 2. build: seconds to compile every kernel (one ``nvcc`` per source, in
    parallel), and the HGMMA / UTMALDG / FFMA counts of the tensor-core
@@ -86,7 +86,7 @@ and prints one JSON line per phase:
    ``PipelinedRunner``) over ``PIPELINE_TASKS`` tasks, more than one embed
    stage call can take, so the embed stage embeds while the caption stage
    decodes, from two host threads on one card; then ``SequentialRunner``
-   over 2 of the tasks (32 new tokens a window); then the caption pipeline efficiency as
+   over 2 of the tasks (``PIPELINE_NEW_TOKENS`` new tokens a window); then the caption pipeline efficiency as
    ``benchmarks/caption_benchmark.py`` defines it: the windows of
    ``EFFICIENCY_TASKS`` tasks straight into the shared engine, then the
    same windows through ``CaptionStage``, each pass's decode tokens over its
@@ -302,6 +302,18 @@ and prints one JSON line per phase:
    ``POST /v1/search`` by embedding, clip uuid and text over an index of the
    job's embeddings (answers the ``IndexServer``'s, causal flash launched in
    this process, p50 / p99, a burst shed with 429 + ``Retry-After``).
+    sensors (``scripts/sensors_phase.py``, after service; host code, no
+   kernel launches, which it asserts): the corpus's first three videos as
+   the three cameras of a rig (4 s at 1280x720, 96 frames a camera)
+   captured by ``make_mcap_from_video`` (zstd where ``zstandard`` imports);
+   each camera read through ``McapCameraSensor`` and through
+   ``CameraSensor`` over its mp4 at 10 and 24 Hz, the same batches and
+   frames bit for bit, frames/s and MB/s of each; a ``SensorGroup`` of the
+   MCAP cameras with the rear camera cut to 2 s, its lockstep windows
+   holding the short camera only inside its span, and ``align`` over the
+   frame refs; the lance backend on a host without ``pylance``: a lance
+   store and index resolved to parquet with the reference's warning, the
+   index answering, ``export-lance`` exiting 2 with the guidance.
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -319,8 +331,8 @@ and prints one JSON line per phase:
    chat requests (``build_qwen_vl_chat`` around the default caption
    prompt over byte-level ids: ``HFVocabTokenizer`` over a generated
    byte vocabulary; 8 random 224^2 frames: 4 temporal patches, 1024
-   tower tokens, 256 vision tokens; 64 greedy tokens), paged and then
-   gather: tok/s end to end and decoding, ms a decode step, the profiled
+   tower tokens, 256 vision tokens; ``QWEN_NEW_TOKENS`` greedy tokens), paged
+   and then gather: tok/s end to end and decoding, ms a decode step, the profiled
    decode window (device idle share, launches a step), device peak, each
    kernel's launches, the measured requests' paged prefill calls by
    (B, T) (each (B, T) the qwen kernels phase did not check is checked
@@ -348,7 +360,7 @@ and prints one JSON line per phase:
    1152-wide deepstack tower, taps at blocks 8 / 16 / 24), seeded weights
    with the experts stored in bf16, on the flavor's lanes: 3 chat requests
    of 8 frames at 2 fps and one text-only request in one 512-token prefill
-   bucket (prep at admission), 24 greedy tokens, paged and then gather
+   bucket (prep at admission), ``QWEN3_NEW_TOKENS`` greedy tokens, paged and then gather
    (``drive_qwen3``): tok/s, ms a decode step, the profiled window's idle
    share and launches a step, the MoE's share of the device's busy time
    (profiler ranges), peak memory and parameter bytes, dropped over routed
@@ -404,7 +416,10 @@ BOUND = 1e-2  # kernel vs plain version, max abs error (bf16 output)
 # of unit-norm 768-d embeddings: above the 1.2e-3 sound runs read, below
 # what a kernel that drops one key tile gives (PERF.md)
 EMBED_BOUND = 3e-3
-SWEEP_ROUNDS = 6  # rounds of the embed phase's micro-batch sweep
+# rounds of the embed phase's micro-batch sweep, each setting in another
+# order: 3 since the sensors phase joined the call (6 before; the full
+# call's time, PERF.md §5)
+SWEEP_ROUNDS = 3
 FORWARD_BOUND = 5e-2  # 12-layer logits, kernels vs plain versions, bf16
 SEED = 0
 
@@ -440,11 +455,11 @@ PIPELINE_KERNELS = ("paged_decode", "paged_prefill", "prefill", "flash")
 # starts and the two device stages never run at once
 PIPELINE_TASKS = 48
 PIPELINE_SEQUENTIAL_TASKS = 2
-# 32 new tokens a window (split.py's stage default is 128): the phase's
-# decode is host-bound at ~170 tok/s, and at 128 its 192 windows took 140 s
-# of the full call's 1200 s on a slow host; 64 until the service phase
-# joined the call
-PIPELINE_NEW_TOKENS = 32
+# 16 new tokens a window (split.py's stage default is 128): the phase's
+# decode is host-bound at ~130-170 tok/s, and at 128 its 192 windows took
+# 140 s of the full call's 1200 s on a slow host; 64 until the service
+# phase joined the call, 32 until the sensors phase did
+PIPELINE_NEW_TOKENS = 16
 # 8 windows: through the engine alone, then CaptionStage (16 until the
 # service phase joined the call)
 EFFICIENCY_TASKS = 2
@@ -486,8 +501,9 @@ CANONICAL_L14_CLIPS = 4  # kept clips whose frames make the L/14 check's batch
 TRANSNET_BOUND = 1e-2
 # iv2 phase: stage calls of EMBED_STAGE_TASK_BATCH tasks x 4 clips; bf16
 # embeddings vs the fp32 module, max abs error of unit-norm 512-d vectors:
-# about 6x the 8.6e-4 two full runs read on the H100 (PERF.md)
-IV2_CALLS = 4
+# about 6x the 8.6e-4 two full runs read on the H100 (PERF.md). 2 calls
+# since the sensors phase joined the call (4 before; the full call's time)
+IV2_CALLS = 2
 IV2_BOUND = 5e-3
 IV2_CHECK_CLIPS = 4
 # filters phase: the split's text filter (the learned detector on the
@@ -511,7 +527,7 @@ OCR_TIMED_CLIPS = 32
 # tokenizer.json loads through tokenizers); the device phase reports which
 # are here
 OPTIONAL_MODULES = ("cv2", "msgpack", "cloudpickle", "prometheus_client", "pyarrow", "regex", "PIL", "tokenizers",
-                    "boto3", "google.cloud.storage", "yaml", "aiohttp")
+                    "boto3", "google.cloud.storage", "yaml", "aiohttp", "zstandard", "lance")
 FFMPEG_LIBRARIES = ("avcodec", "avformat", "avutil", "swscale", "x264")
 # embed phase: stage calls timed, clips per task (4 one-second clips of
 # bench.py's videos), so each call is one 32-clip dispatch
@@ -520,9 +536,9 @@ EMBED_CLIPS_PER_TASK = 4
 # qwen phase: the dense Qwen-VL caption flavors at full width and depth,
 # seeded weights. Chat requests: a 45-token chat prefix, 8 frames of 224^2
 # (4 temporal patches: 1024 tower tokens, 256 vision tokens) and a
-# 120-token suffix around the default caption prompt (byte-level ids), 64
-# greedy tokens; 8 through the 2B (paged, then gather), 2 through the 7B at
-# 2 fps. Bounds (stated before the first run): the 28-layer prefill logits
+# 120-token suffix around the default caption prompt (byte-level ids),
+# QWEN_NEW_TOKENS greedy tokens; 8 through the 2B (paged, then gather), 2
+# through the 7B at 2 fps. Bounds (stated before the first run): the 28-layer prefill logits
 # in bf16 with the kernels vs the module in fp32 with the plain attention,
 # max abs difference (the seeded logits' std is about 0.8); each tower's
 # bf16 output vs fp32, max abs difference over the fp32 output's largest
@@ -531,6 +547,9 @@ QWEN_FLAVORS = ("qwen2vl-2b", "qwen25vl-7b")
 QWEN_LONG_LANE = ("qwen2vl-2b", "qwen3vl-moe-a3b")  # flavors whose 4096-key lane decode is checked too
 QWEN_REQUESTS = 8
 QWEN_7B_REQUESTS = 2
+# greedy tokens a measured Qwen2 / Qwen2.5 request: 32 since the sensors
+# phase joined the call (64 before; the full call's time, PERF.md §5)
+QWEN_NEW_TOKENS = 32
 QWEN_FRAMES = 8
 QWEN_FPS = 2.0
 QWEN_PREFIX = 45
@@ -545,7 +564,7 @@ QWEN_TOWER_BOUND = 5e-2
 # vision tokens) around the default caption prompt, and one text-only
 # request whose prompt carries a transcript, so that its suffix falls in
 # the same 512-token bucket: the four rows share one prefill, deepstack
-# and not; 64 greedy tokens; prep at admission (no prep thread), so both
+# and not; QWEN3_NEW_TOKENS greedy tokens; prep at admission (no prep thread), so both
 # drives hand the MoE the same rows. Bound (stated before the first run):
 # layer 0 in bf16 with the kernels against the same layer in fp32 with the
 # plain attention, on one request's prefill input, max abs difference of
@@ -555,9 +574,10 @@ QWEN3_FLAVOR = "qwen3vl-moe-a3b"
 QWEN3_REQUESTS = 3
 QWEN3_SUFFIX = 316  # 196 vision tokens + the 120-token text suffix
 QWEN3_TRANSCRIPT = " transcript: " + "the camera pans across the scene. " * 6
-# greedy tokens a measured Qwen3 request: 24 since the av phase joined the
-# call (64 before; the full call's time, PERF.md §5)
-QWEN3_NEW_TOKENS = 24
+# greedy tokens a measured Qwen3 request: 12 since the sensors phase joined
+# the call (24 since the av phase did, 64 before; the full call's time,
+# PERF.md §5)
+QWEN3_NEW_TOKENS = 12
 QWEN3_LAYER_BOUND = 5e-2
 # engine steps in the profiled decode window and in the MoE's (each step
 # runs both lanes: ~12 000 launches, so few steps keep the traces short)
@@ -3005,8 +3025,8 @@ def drive_qwen(dev, timer, root: Path, checks: dict) -> dict:
     ``CaptionEngine(VLM_QWEN2_2B)`` at full width and depth on the
     flavor's KV lanes: QWEN_REQUESTS chat requests (``build_qwen_vl_chat``
     around the default caption prompt; QWEN_FRAMES random 224^2 frames:
-    4 temporal patches, 1024 tower tokens, 256 vision tokens), 64 greedy
-    tokens, paged and then gather, each with the profiled decode window,
+    4 temporal patches, 1024 tower tokens, 256 vision tokens),
+    QWEN_NEW_TOKENS greedy tokens, paged and then gather, each with the profiled decode window,
     the measured requests' paged prefill calls counted by (B, T) and each
     (B, T) that ``checks`` (``check_qwen_kernels``) lacks checked on the
     spot; the two engines' agreement reported;
@@ -3034,7 +3054,8 @@ def drive_qwen(dev, timer, root: Path, checks: dict) -> dict:
         shapes = collections.Counter()
         record, engine, make_request, _, greedy = drive_slice(
             dev, VLM_QWEN2_2B, mode, lanes, tokenizer=tok, prompts=prompts, n_frames=QWEN_FRAMES,
-            n_requests=QWEN_REQUESTS, keep_logits=False, during=lambda s=shapes: counted_paged_prefill(s))
+            n_requests=QWEN_REQUESTS, keep_logits=False, during=lambda s=shapes: counted_paged_prefill(s),
+            new_tokens=QWEN_NEW_TOKENS)
         # seeded weights choose ids past the byte vocabulary, which decode to
         # nothing: compare the engines' token ids
         tokens[mode] = {rid: [steps[k][0] for k in sorted(steps)] for rid, steps in greedy.items()}
@@ -3059,7 +3080,7 @@ def drive_qwen(dev, timer, root: Path, checks: dict) -> dict:
     record, engine, _, _, _ = drive_slice(
         dev, VLM_QWEN25_7B, "auto", vlm_flavor("qwen25vl-7b").kv_lanes, tokenizer=tok, prompts=prompts,
         n_frames=QWEN_FRAMES, frame_fps=QWEN_FPS, n_requests=QWEN_7B_REQUESTS,
-        during=lambda: counted_paged_prefill(shapes))
+        during=lambda: counted_paged_prefill(shapes), new_tokens=QWEN_NEW_TOKENS)
     record.update(check_prefill_shapes(timer, "qwen25vl-7b", shapes, checks))
     for name in ("paged_decode", "paged_prefill", "prefill"):
         assert record["launches"][name] > 0, f"qwen 7b: {name} was not launched"
@@ -3386,6 +3407,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     import multinode_phase
     import observe_phase
     import remote_phase
+    import sensors_phase
     import service_phase
 
     started = time.monotonic()
@@ -3495,6 +3517,8 @@ def _main(stack: contextlib.ExitStack) -> int:
     # the job service: a job through HTTP, a killed service resumed, search
     service = service_phase.run(sys.modules[__name__], dev, timer, root, corpus, split_run["run_b"]["wall_s"])
     checks["flash"]["cases"].update(service["flash_checked_here"])
+    # sensor rigs: MCAP capture, the two sources, the lockstep group, the lance fallback
+    sensors = sensors_phase.run(sys.modules[__name__], dev, root, corpus)
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3548,6 +3572,7 @@ def _main(stack: contextlib.ExitStack) -> int:
             av_launches={"caption": av["caption"]["launches"][name],
                          "multicam_split": av["multicam"]["launches"][name]},
             service_launches={part: service["launches"][part][name] for part in ("job", "search")},
+            sensors_launches=sensors["launches"][name],
             cases=c.get("cases"),
         ))
     # each phase line's seconds from the start: where the call's time went

@@ -2,7 +2,8 @@
 ``cosmos_curate_tpu/cli/main.py``).
 
 The same argparse tree as the reference's, with the groups the port has:
-``info``, ``local`` (run the pipelines, ``cli/local_cli.py``), ``serve``
+``info``, ``export-lance`` (a run's embeddings parquet to lance datasets,
+storage/lance_export.py), ``local`` (run the pipelines, ``cli/local_cli.py``), ``serve``
 (the job service, ``cli/serve_cli.py``), ``view`` (a clip viewer over a
 split output, ``cli/view_cli.py``), ``slurm`` (sbatch scripts and job
 management, ``cli/slurm_cli.py``), ``postgres`` (the AV state database's
@@ -12,9 +13,9 @@ admin commands, ``cli/postgres_cli.py``), ``dlq`` (dead-lettered batches,
 ``index`` (the corpus index, ``cli/index_cli.py``) and ``agent`` (join a
 driver's cross-node engine plane as a worker node,
 engine/remote_agent.py), registered in the reference's order. The other
-groups of the reference (``export-lance``, ``models``, ``lint``,
-``image``) wait for the layers they drive (ROADMAP queue A item 22;
-``image`` also for the port's container image, item 23).
+groups of the reference (``models``, ``lint``, ``image``) wait for the
+layers they drive (ROADMAP queue A item 22; ``image`` also for the port's
+container image, item 23).
 
 Run it as ``python -m cosmos_curate_tpu_torch.cli.main`` or through the
 ``cosmos-curate-tpu-torch`` console script. Every command that runs a model
@@ -50,6 +51,17 @@ def build_parser() -> argparse.ArgumentParser:
 
     info = sub.add_parser("info", help="show environment and device info")
     info.set_defaults(func=_cmd_info)
+
+    lance = sub.add_parser(
+        "export-lance",
+        help="convert a run's embeddings parquet output to lance datasets "
+        "(requires `pip install pylance` in the target environment)",
+    )
+    lance.add_argument("--src", required=True, help="embeddings/ dir (or one model subdir)")
+    lance.add_argument("--dest", required=True, help="output root for <model>.lance datasets")
+    lance.add_argument("--mode", default="create", choices=["create", "overwrite", "append"])
+    lance.set_defaults(func=_cmd_export_lance)
+
     local_cli.register(sub)
     serve_cli.register(sub)
     view_cli.register(sub)
@@ -66,6 +78,19 @@ def build_parser() -> argparse.ArgumentParser:
     agent.add_argument("--num-cpus", type=float, default=None)
     agent.set_defaults(func=_cmd_agent)
     return parser
+
+
+def _cmd_export_lance(args: argparse.Namespace) -> int:
+    from cosmos_curate_tpu_torch.storage.lance_export import export_parquet_to_lance
+
+    try:
+        written = export_parquet_to_lance(args.src, args.dest, mode=args.mode)
+    except (RuntimeError, FileNotFoundError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    for uri, rows in written.items():
+        print(f"{uri}: {rows} rows")
+    return 0
 
 
 def _cmd_agent(args: argparse.Namespace) -> int:

@@ -3,9 +3,10 @@ k-means (port of ``cosmos_curate_tpu/dedup/corpus_index.py``).
 
 - **centroids** come from the port's ``kmeans_fit`` on ``device`` ("cuda"
   unless the caller asks for the CPU);
-- **corpus vectors** live in per-cluster parquet shards
-  (dedup/index_store.py), appended in-pipeline by ``ClipWriterStage`` and
-  consolidated at the end of a run;
+- **corpus vectors** live in per-cluster shards (dedup/index_store.py:
+  lance fragments where ``lance`` imports and the root is local, parquet
+  otherwise), appended in-pipeline by ``ClipWriterStage`` and consolidated
+  at the end of a run;
 - **queries** are routed on the host to their top-``nprobe`` clusters by
   one centroid product (``route_queries``, numpy, as in the reference), then
   scored on the card: per probed shard, ``q @ shard.T`` and a per-row top-k

@@ -1,13 +1,13 @@
 """Persistent storage of the sharded corpus embedding index (port of
-``cosmos_curate_tpu/dedup/index_store.py``, its parquet backend).
+``cosmos_curate_tpu/dedup/index_store.py``).
 
 Layout, the reference's byte for byte, so an index written by either
 package opens in the other:
 
-    <root>/meta.json                        index metadata (model, dim, k, counts, backend)
-    <root>/centroids.npy                    [K, D] float32 L2-normalised centroids
-    <root>/pending/<tag>.parquet            in-pipeline fragment appends
-    <root>/clusters/c<cid>/<frag>.parquet   per-cluster vector shards
+    <root>/meta.json                                 index metadata (model, dim, k, counts, backend)
+    <root>/centroids.npy                             [K, D] float32 L2-normalised centroids
+    <root>/pending/<tag>.(parquet|lance)             in-pipeline fragment appends
+    <root>/clusters/c<cid>/<frag>.(parquet|lance)    per-cluster vector shards
     <root>/manifests/gen-<NNNNNN>.json      immutable snapshot manifests
     <root>/MANIFEST.json                    pointer: the current published generation
     <root>/centroids-<NNNNNN>.npy           per-generation centroids (compaction)
@@ -31,11 +31,13 @@ first, then the small ``MANIFEST.json`` pointer (an atomic rename), so a
 reader sees the old or the new generation, never half of one. Compaction
 (dedup/compaction.py) is the only writer of manifests.
 
-Only the parquet backend is ported: at a local root, an index whose
-``meta.json`` pins ``lance``, lance fragments, or ``backend="lance"`` raise
-``NotImplementedError`` (ROADMAP queue A item 21). A remote root (``s3://``,
-``gs://``, ``az://``) is parquet in both packages: lance falls back to it
-with a warning, as in the reference.
+Fragments are **lance** datasets (directories, written and read through
+``lance.write_dataset`` / ``lance.dataset``) when ``lance`` imports and the
+root is local, **parquet** otherwise. The backend is resolved once per
+store: a ``meta.json`` pins it, so readers and writers of one index agree;
+without a pin, lance where it imports and the root is local, else parquet.
+A lance request where ``lance`` is absent, or at a remote root (``s3://``,
+``gs://``, ``az://``), falls back to parquet with a warning.
 """
 
 from __future__ import annotations
@@ -56,7 +58,6 @@ from cosmos_curate_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 ALLOW_RANDOM_ENV = "CURATE_INDEX_ALLOW_RANDOM"
-LANCE_NOT_PORTED = "the corpus index's lance backend is not ported yet (ROADMAP queue A item 21)"
 
 
 def allow_random_provenance() -> bool:
@@ -64,6 +65,15 @@ def allow_random_provenance() -> bool:
     "random" anyway (tests, architecture-only runs). The default refuses: an
     index of noise silently dedups real clips against garbage."""
     return os.environ.get(ALLOW_RANDOM_ENV, "").lower() in ("1", "true", "on")
+
+
+def _lance_module():
+    try:
+        import lance  # noqa: PLC0415
+
+        return lance
+    except ImportError:
+        return None
 
 
 def normalize_rows(vecs: np.ndarray) -> np.ndarray:
@@ -91,28 +101,22 @@ def _decode_embedding_column(column, n: int) -> np.ndarray:
     return np.asarray(arr.values, dtype=np.float32).reshape(n, -1)
 
 
-def _has_lance_fragments(root: str) -> bool:
-    base = Path(root)
-    return any(base.glob("pending/*.lance")) or any(base.glob("clusters/*/*.lance"))
-
-
 class IndexStore:
-    """Fragment-level IO for one index root."""
+    """Fragment-level IO for one index root; the backend is resolved once
+    (pinned by ``meta.json`` when the index exists)."""
 
     def __init__(self, root: str, *, backend: str | None = None) -> None:
         self.root = str(root).rstrip("/")
         meta = self.load_meta()
-        backend = backend or meta.get("backend") or "parquet"
+        if backend is None:
+            backend = meta.get("backend") if meta else None
+        if backend is None:
+            backend = "lance" if _lance_module() is not None and not is_remote_path(self.root) else "parquet"
         if backend not in ("lance", "parquet"):
             raise ValueError(f"unknown index backend {backend!r}")
-        if is_remote_path(self.root):
-            # lance writes local roots only, in the reference too: a remote
-            # index is parquet, and its root is never globbed as a local path
-            if backend == "lance":
-                logger.warning("lance backend unavailable for %s; falling back to parquet", self.root)
-                backend = "parquet"
-        elif backend == "lance" or _has_lance_fragments(self.root):
-            raise NotImplementedError(f"{self.root}: {LANCE_NOT_PORTED}")
+        if backend == "lance" and (_lance_module() is None or is_remote_path(self.root)):
+            logger.warning("lance backend unavailable for %s; falling back to parquet", self.root)
+            backend = "parquet"
         self.backend = backend
 
     # -- paths ---------------------------------------------------------------
@@ -126,7 +130,8 @@ class IndexStore:
         return f"{self.root}/centroids.npy"
 
     def _fragment_path(self, *parts: str) -> str:
-        return f"{self.root}/{'/'.join(parts)}.parquet"
+        ext = "lance" if self.backend == "lance" else "parquet"
+        return f"{self.root}/{'/'.join(parts)}.{ext}"
 
     @staticmethod
     def cluster_dir(cid: int) -> str:
@@ -251,14 +256,22 @@ class IndexStore:
                           "embedding": _embedding_column(np.asarray(vecs, np.float32)),
                           "model": pa.array([model] * n, pa.string()),
                           "provenance": pa.array([provenance] * n, pa.string())})
+        if self.backend == "lance":
+            # overwrite: fragment names derive from their content, so a
+            # re-run of one consolidation replaces its own fragment
+            _lance_module().write_dataset(table, path, mode="overwrite")
+            return
         sink = io.BytesIO()
         pq.write_table(table, sink)
         write_bytes(path, sink.getvalue())
 
     def _read_rows(self, path: str) -> tuple[list[str], np.ndarray, list[str], list[str]]:
-        import pyarrow.parquet as pq
+        if self.backend == "lance":
+            table = _lance_module().dataset(path).to_table()
+        else:
+            import pyarrow.parquet as pq
 
-        table = pq.read_table(io.BytesIO(read_bytes(path)))
+            table = pq.read_table(io.BytesIO(read_bytes(path)))
         ids = [str(u) for u in table.column("clip_uuid").to_pylist()]
         vecs = _decode_embedding_column(table.column("embedding"), len(ids))
         names = table.column_names
@@ -267,7 +280,15 @@ class IndexStore:
         return ids, vecs, models, provs
 
     def _list_fragments(self, subdir: str) -> list[str]:
+        """Fragment paths under ``<root>/<subdir>``. Lance datasets are
+        directories: they are found by their ``.lance`` names in the
+        parent's listing, not by file suffixes."""
         base = f"{self.root}/{subdir}"
+        if self.backend == "lance":
+            p = Path(base)
+            if not p.is_dir():
+                return []
+            return sorted(str(d) for d in p.iterdir() if d.name.endswith(".lance"))
         return sorted(info.path for info in get_storage_client(base).list_files(base, suffixes=(".parquet",)))
 
     def _relpath(self, path: str) -> str:
@@ -278,7 +299,15 @@ class IndexStore:
         return path[len(prefix):] if path.startswith(prefix) else path
 
     def fragment_info(self, subdir: str) -> list[tuple[str, int]]:
-        """(root-relative path, size in bytes) per fragment under ``subdir``."""
+        """(root-relative path, size in bytes) per fragment under ``subdir``.
+        A lance dataset's size is the sum of its files' (sizes feed cache
+        budgets, not correctness)."""
+        if self.backend == "lance":
+            out = []
+            for path in self._list_fragments(subdir):
+                p = Path(path)
+                out.append((self._relpath(path), sum(f.stat().st_size for f in p.rglob("*") if f.is_file())))
+            return out
         base = f"{self.root}/{subdir}"
         return [(self._relpath(info.path), int(info.size))
                 for info in sorted(get_storage_client(base).list_files(base, suffixes=(".parquet",)),
@@ -358,7 +387,7 @@ class IndexStore:
 
     def read_cluster(self, cid: int) -> tuple[list[str], np.ndarray]:
         ids, vecs = self.read_fragments(
-            [rel for rel, _sz in self.fragment_info(f"clusters/{self.cluster_dir(cid)}")])
+            [self._relpath(path) for path in self._list_fragments(f"clusters/{self.cluster_dir(cid)}")])
         if len(set(ids)) != len(ids):
             # the live view can see a row twice between a compaction publish
             # and GC (the new fragment and its superseded source): keep the
@@ -373,6 +402,14 @@ class IndexStore:
         """cid -> fragment count, for clusters that have any data."""
         base = f"{self.root}/clusters"
         out: dict[int, int] = {}
+        if self.backend == "lance":
+            root = Path(base)
+            for name in sorted(d.name for d in root.iterdir() if d.is_dir()) if root.is_dir() else []:
+                if name.startswith("c") and name[1:].isdigit():
+                    n = len(self._list_fragments(f"clusters/{name}"))
+                    if n:
+                        out[int(name[1:])] = n
+            return out
         for info in get_storage_client(base).list_files(base, suffixes=(".parquet",)):
             head = info.path[len(base):].lstrip("/").split("/", 1)[0]
             if head.startswith("c") and head[1:].isdigit():

@@ -1,6 +1,6 @@
 """CPU video decode: metadata probing and frame extraction (port of
-``cosmos_curate_tpu/video/decode.py``, the entry points the split
-pipeline's stages call).
+``cosmos_curate_tpu/video/decode.py``: the entry points the split
+pipeline's stages call, and ``decode_frame_ids`` for the camera sensors).
 
 Built on OpenCV's FFmpeg backend. Decode stays on the host: throughput comes
 from decode threads feeding batched device stages. Every entry point
@@ -90,6 +90,38 @@ def decode_frames(
     if not frames:
         return np.zeros((0, 0, 0, 3), np.uint8)
     return np.stack(frames)
+
+
+def decode_frame_ids(
+    source: str | bytes,
+    frame_ids: list[int],
+    *,
+    resize_hw: tuple[int, int] | None = None,
+) -> np.ndarray:
+    """Decode the frames at ``frame_ids`` to RGB uint8 ``[T, H, W, 3]``, one
+    per unique id, in sorted-id order (resized with ``INTER_AREA`` to
+    ``resize_hw`` when given). Ids past the end are left out."""
+    targets = sorted(set(frame_ids))
+    out: dict[int, np.ndarray] = {}
+    with _open_capture(source) as cap:
+        idx = 0
+        ti = 0
+        while ti < len(targets):
+            ok = cap.grab()
+            if not ok:
+                break
+            if idx == targets[ti]:
+                ok, bgr = cap.retrieve()
+                if not ok:
+                    break
+                if resize_hw is not None:
+                    bgr = cv2.resize(bgr, (resize_hw[1], resize_hw[0]), interpolation=cv2.INTER_AREA)
+                out[idx] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+                ti += 1
+            idx += 1
+    if not out:
+        return np.zeros((0, 0, 0, 3), np.uint8)
+    return np.stack([out[i] for i in targets if i in out])
 
 
 def extract_frames_multi(

@@ -5,10 +5,10 @@
   the same errors as the reference's, JSON and YAML.
 - The parser walk: the ``local`` (``merge-summaries`` and ``av`` included),
   ``postgres``, ``index``, ``dlq`` and ``slurm`` groups of both parsers,
-  subcommand by subcommand, and the ``report``, ``top``, ``agent``, ``view``
-  and ``serve`` commands, action by action (option strings, dest, default,
-  choices, required, nargs, type, const, action class); the only difference
-  allowed is the port's ``--device``; the reference's ``export-lance``,
+  subcommand by subcommand, and the ``report``, ``top``, ``agent``, ``view``,
+  ``export-lance`` and ``serve`` commands, action by action (option strings,
+  dest, default, choices, required, nargs, type, const, action class); the
+  only difference allowed is the port's ``--device``; the reference's
   ``image`` / ``deploy``, ``lint`` and ``models`` are the only groups the
   port lacks. ``local merge-summaries`` prints and writes what the
   JAX CLI's does on the same per-node summaries and sidecars.
@@ -30,7 +30,9 @@
   annotation files equal once run ids are normalised); ``report``, ``top --once``
   (a run directory, and a fake job service on a local port) and ``dlq
   list|show|requeue`` through both command lines on the same run
-  directory and dead-letter queue. Split, dedup and every
+  directory and dead-letter queue; ``export-lance`` with ``lance`` absent
+  and with a stand-in module (the same exit codes, stdout and stderr).
+  Split, dedup and every
   ``index`` action are also held against the port's own entry points
   called directly. Where bytes differ for a reason outside the port, the
   test says which: a split clip's mp4 is x264's, which differs between two
@@ -146,17 +148,17 @@ def _actions(parser: argparse.ArgumentParser) -> dict[str, tuple]:
 
 def test_parser_walk_matches_jax():
     jtop, ttop = _subcommands(jmain.build_parser()), _subcommands(tmain.build_parser())
-    assert sorted(ttop) == ["agent", "dlq", "index", "info", "local", "postgres", "report", "serve", "slurm", "top",
-                            "view"]
+    assert sorted(ttop) == ["agent", "dlq", "export-lance", "index", "info", "local", "postgres", "report", "serve",
+                            "slurm", "top", "view"]
     assert set(ttop) <= set(jtop)
     # the reference's groups the port still lacks (ROADMAP queue A items 22
     # and 23; the reference's cli/image_cli.py registers image and deploy)
-    assert set(jtop) - set(ttop) == {"export-lance", "image", "deploy", "lint", "models"}
+    assert set(jtop) - set(ttop) == {"image", "deploy", "lint", "models"}
     # registered in the reference's order
     assert list(ttop) == [c for c in jtop if c in ttop]
     assert _actions(tmain.build_parser()).keys() == _actions(jmain.build_parser()).keys() - {"<sub>"} | {"<sub>"}
     walked = 0
-    for command in ("report", "top", "agent", "view"):
+    for command in ("report", "top", "agent", "view", "export-lance"):
         assert _actions(ttop[command]) == _actions(jtop[command]), command
         walked += len(_actions(ttop[command]))
     # serve: the reference's flags and --device (where the search server runs)
@@ -798,3 +800,47 @@ def test_av_steps_match_the_jax_cli(tmp_path, monkeypatch, capsys):
         assert set(avt._files(roots["port"], prefix)) == set(avt._files(roots["jax"], prefix))
     assert avt._normalized_json(roots["port"], "processed_sessions") == \
         avt._normalized_json(roots["jax"], "processed_sessions")
+
+
+@pytest.mark.parametrize("lance", ["absent", "fake", "no_embeddings"])
+def test_export_lance_matches_the_jax_cli(lance, tmp_path, monkeypatch, capsys):
+    """``export-lance`` through both command lines on one split output's
+    ``embeddings/``: without ``lance`` both exit 2 with the ``pip install
+    pylance`` guidance; with a stand-in module both write one dataset a
+    model and print its rows; without embeddings both exit 2."""
+    import types
+
+    from cosmos_curate_tpu.storage.writers import write_parquet
+
+    src = tmp_path / "embeddings"
+    if lance == "no_embeddings":
+        src.mkdir()
+    else:
+        for model, rows in (("video-embed-tpu", 3), ("clip-vit-b16-tpu", 2)):
+            (src / model).mkdir(parents=True)
+            for c in range(2):
+                write_parquet(str(src / model / f"chunk-{c}.parquet"),
+                              {"clip_uuid": [f"{model}-{c}-{i}" for i in range(rows)],
+                               "embedding": [np.full(4, i, np.float32) for i in range(rows)]})
+    calls = []
+    if lance == "fake":
+        fake = types.ModuleType("lance")
+        fake.write_dataset = lambda table, uri, mode: calls.append((table.num_rows, uri, mode))
+        monkeypatch.setitem(sys.modules, "lance", fake)
+    else:
+        monkeypatch.setitem(sys.modules, "lance", None)
+    argv = ["export-lance", "--src", str(src), "--dest", str(tmp_path / "out"), "--mode", "overwrite"]
+    outs = []
+    for main in (jmain.main, tmain.main):
+        rc = main(argv)
+        outs.append((rc, *capsys.readouterr()))
+    assert outs[0] == outs[1]
+    rc, out, err = outs[1]
+    if lance == "fake":
+        assert rc == 0 and err == ""
+        assert sorted(out.splitlines()) == sorted(f"{tmp_path / 'out' / m}.lance: {n} rows"
+                                                  for m, n in (("video-embed-tpu", 6), ("clip-vit-b16-tpu", 4)))
+        assert calls[:2] == calls[2:] and {mode for *_, mode in calls} == {"overwrite"}
+    else:
+        assert rc == 2 and out == "" and err.startswith("error: ")
+        assert ("pip install pylance" in err) is (lance == "absent")

@@ -15,6 +15,7 @@ duplicates found must match, and its centroids agree within that bound.
 
 import csv
 import json
+import sys
 import uuid
 
 import numpy as np
@@ -387,9 +388,17 @@ def test_run_dedup_reclusters_like_the_reference(case, tmp_path, monkeypatch):
     assert csv_rows(tmp_path / "t" / "dedup_summary_0.001.csv") == csv_rows(tmp_path / "j" / "dedup_summary_0.001.csv")
 
 
-def test_run_dedup_refuses_a_lance_index(tmp_path):
+def test_run_dedup_refuses_a_lance_index(tmp_path, monkeypatch):
+    """An index whose ``meta.json`` pins lance, on a host without ``lance``:
+    both packages refuse the lance backend, fall back to parquet (where the
+    fragments are) and query the index alike."""
+    monkeypatch.setitem(sys.modules, "lance", None)
     dedup_run(tmp_path)
     meta = json.loads((tmp_path / "run" / "index" / "meta.json").read_text())
     (tmp_path / "run" / "index" / "meta.json").write_text(json.dumps({**meta, "backend": "lance"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 21"):
-        tdedup.run_dedup(tdedup.DedupPipelineArgs(input_path=str(tmp_path / "run"), device="cpu"))
+    kw = dict(input_path=str(tmp_path / "run"), eps=1e-3)
+    want = jdedup.run_dedup(jdedup.DedupPipelineArgs(output_path=str(tmp_path / "j"), use_mesh=False, **kw))
+    got = tdedup.run_dedup(tdedup.DedupPipelineArgs(output_path=str(tmp_path / "t"), device="cpu", **kw))
+    assert got.pop("elapsed_s") >= 0 and want.pop("elapsed_s") >= 0
+    assert got == want and got["method"] == "index_query"
+    assert csv_rows(tmp_path / "t" / "dedup_summary_0.001.csv") == csv_rows(tmp_path / "j" / "dedup_summary_0.001.csv")

@@ -10,6 +10,7 @@ exactly: both sides store the same float32 values widened to float64.
 
 import json
 import shutil
+import sys
 
 import numpy as np
 import pyarrow as pa
@@ -216,7 +217,12 @@ def test_manifest_versions_upgrade_and_refuse_like_the_reference(tmp_path, jax_f
 
 
 @pytest.mark.parametrize("how", ["argument", "meta", "pending_dataset", "cluster_dataset"])
-def test_the_lance_backend_is_refused(how, tmp_path):
+def test_the_lance_backend_is_refused(how, tmp_path, monkeypatch):
+    """Where ``lance`` does not import, a lance request (the argument or a
+    ``meta.json`` pin) falls back to parquet with the reference's warning,
+    and lance datasets on disk leave an unpinned store on parquet, in both
+    packages."""
+    monkeypatch.setitem(sys.modules, "lance", None)
     root = tmp_path / "idx"
     root.mkdir()
     kw = {}
@@ -228,8 +234,14 @@ def test_the_lance_backend_is_refused(how, tmp_path):
         (root / "pending" / "chunk.lance").mkdir(parents=True)
     else:
         (root / "clusters" / "c00000" / "frag.lance").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 21"):
-        tstore.IndexStore(str(root), **kw)
+    warned = {}
+    for name, mod in (("torch", tstore), ("jax", jstore)):
+        seen = warned.setdefault(name, [])
+        monkeypatch.setattr(mod.logger, "warning", lambda msg, *a, seen=seen: seen.append(msg % a))
+    assert tstore.IndexStore(str(root), **kw).backend == jstore.IndexStore(str(root), **kw).backend == "parquet"
+    assert warned["torch"] == warned["jax"]
+    assert warned["torch"] == ([f"lance backend unavailable for {root}; falling back to parquet"]
+                               if how in ("argument", "meta") else [])
 
 
 def test_unknown_backend_and_unreadable_meta_raise(tmp_path):
@@ -288,14 +300,15 @@ def test_a_gs_root_builds_consolidates_and_queries_like_a_local_root(object_stor
 
 
 def test_a_remote_root_is_never_globbed_as_a_local_path(object_stores, tmp_path, monkeypatch):  # noqa: F811
-    """Lance stays unported at local roots, but a remote root is parquet, as
-    in the reference: a local directory named like the URL, holding lance
-    fragments, changes nothing, and ``backend="lance"`` falls back with a
-    warning."""
+    """A remote root is parquet, as in the reference: a local directory
+    named like the URL, holding lance fragments, changes nothing, and
+    ``backend="lance"`` falls back with a warning."""
     monkeypatch.chdir(tmp_path)
     (tmp_path / "gs:" / "indexes" / "corpus" / "pending" / "chunk.lance").mkdir(parents=True)
     for kw in ({}, {"backend": "lance"}):
         store = tstore.IndexStore("gs://indexes/corpus", **kw)
         assert store.backend == jstore.IndexStore("gs://indexes/corpus", **kw).backend == "parquet"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 21"):
-        tstore.IndexStore("gs:/indexes/corpus")  # the local twin
+    # the local twin holds a lance dataset: without lance, parquet in both
+    monkeypatch.setitem(sys.modules, "lance", None)
+    assert tstore.IndexStore("gs:/indexes/corpus").backend == jstore.IndexStore("gs:/indexes/corpus").backend == \
+        "parquet"

@@ -18,7 +18,8 @@ REPO = Path(__file__).resolve().parents[1]
 # object stores through it)
 STORAGE_MODULES = ("storage.client", "storage.retry", "storage.writers", "storage.sigv4", "storage.s3_rest",
                    "storage.s3", "storage.azure_shared_key", "storage.azure_rest", "storage.gcs_rest", "storage.gcs",
-                   "storage.zip_transport", "utils.user_config", "utils.retry", "utils.file_lock")
+                   "storage.zip_transport", "storage.lance_export", "utils.user_config", "utils.retry",
+                   "utils.file_lock")
 
 
 # the job service and the commands of its slice (host code: a service
@@ -75,7 +76,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "data.lazy", "cli.report_cli", "cli.top_cli", "cli.dlq_cli",
                    "pipelines.video.stages.caption_prep", "parallel.distributed", "parallel.work_stealing",
                    "engine.lineage", "engine.object_channel", "engine.remote_plane", "engine.remote_agent",
-                   *SERVICE_MODULES, *STORAGE_MODULES):
+                   *SERVICE_MODULES, *STORAGE_MODULES, *SENSOR_MODULES):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -210,6 +211,45 @@ def test_service_layer_imports_neither_torch_nor_jax():
     )
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# the sensor rigs and the lance export (host code: frames stay numpy uint8
+# and timestamps int64, and a consumer moves them to the card itself)
+SENSOR_MODULES = ("sensors.validation", "sensors.sampling", "sensors.data", "sensors.alignment",
+                  "sensors.video_index", "sensors.camera_sensor", "sensors.image_sensor", "sensors.group",
+                  "sensors.mcap", "sensors.mcap_camera_sensor", "storage.lance_export")
+
+
+def test_sensor_layer_imports_neither_torch_nor_jax():
+    """Every module of the sensors package and ``storage.lance_export``, and
+    a sampled camera (``video.decode`` imported by ``sample``), load no
+    torch, no JAX and nothing of the JAX package."""
+    script = textwrap.dedent(
+        f"""
+        import importlib, pkgutil, sys, tempfile
+        import cosmos_curate_tpu_torch.sensors as sensors
+        names = [m.name for m in pkgutil.walk_packages(sensors.__path__, sensors.__name__ + ".")]
+        for name in names + ["cosmos_curate_tpu_torch." + m for m in {SENSOR_MODULES!r}]:
+            importlib.import_module(name)
+        from cosmos_curate_tpu_torch.sensors.camera_sensor import CameraSensor
+        from cosmos_curate_tpu_torch.sensors.sampling import SamplingGrid, SamplingSpec
+        from cosmos_curate_tpu_torch.sensors.video_index import camera_frame_refs
+        from tests.fixtures.media import make_scene_video
+
+        with tempfile.TemporaryDirectory() as d:
+            video = make_scene_video(d + "/cam.mp4", num_scenes=1, scene_len_frames=6)
+            sensor = CameraSensor("front", camera_frame_refs("front", video))
+            grid = SamplingGrid.from_rate(sensor.start_ns, sample_rate_hz=12.0, end_ns=sensor.end_ns)
+            frames = sum(len(b) for b in sensor.sample(SamplingSpec(grid)))
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "flax", "cosmos_curate_tpu"))
+        print(len(names), frames, bad)
+        sys.exit(1 if bad else 0)
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_modules, frames = map(int, out.stdout.split()[:2])
+    assert n_modules == 10 and frames == 3
 
 
 def test_engine_defaults_to_the_gpu():
@@ -663,7 +703,7 @@ def test_run_split_with_the_legs_defaults_to_the_gpu(option, tmp_path):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/engine_phase.py", "scripts/observe_phase.py",
-                                    "scripts/service_phase.py"])
+                                    "scripts/service_phase.py", "scripts/sensors_phase.py"])
 def test_chip_scripts_import_neither_jax_nor_the_reference(script):
     """The card's scripts run the port alone: no import of jax, flax or the
     JAX package anywhere in them (the card's machine has no jax)."""
