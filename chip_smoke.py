@@ -49,7 +49,9 @@ and prints one JSON line per phase:
    tile dropped (the first, or the ragged last) must land beyond that bound.
    Then clips/s of ``VideoEmbedder.encode_clips`` on the same calls at
    micro-batches of 32, 16 and 8 clips, over ``SWEEP_ROUNDS`` rounds in
-   rotating order;
+   rotating order. ``mfu``: ``models/flops.py``'s forward FLOPs of every
+   timed clip over the dispatches' device time and the card's dense bf16
+   peak (``chip_peak_flops``);
 5. slice: ``CaptionEngine(VLM_BASE)`` with seeded random weights answers the
    caption benchmark's base workload (8 requests, 4 random 224x224 frames,
    the default prompt or the 686-token long prompt as shared prefix, 64 new
@@ -148,7 +150,7 @@ and prints one JSON line per phase:
    subprocesses of the port's command line.
 
 11. canonical: run C, the reference's canonical split through ``run_split``
-   on the first ``CANONICAL_VIDEOS`` (16) videos of the split phase's
+   on the first ``CANONICAL_VIDEOS`` (8) videos of the split phase's
    corpus, clipped as run A clips it (1 s clips, none
    under 0.5 s): TransNetV2 shot detection (``transnetv2_threshold`` above
    1: the seeded detector has no signal, so no frame is a cut and each
@@ -171,8 +173,8 @@ and prints one JSON line per phase:
    ``FLASH_CASES`` checked and timed on the spot);
     filters: the split's filters and caption add-ons. The OCR detector and
    recognizer on the committed trained weights, on the card (fp32, TF32
-   off) against the port's CPU path on the golden fixtures (this script's
-   copies of the JAX package's generators): logits within ``OCR_BOUND`` of
+   off) against the port's CPU path on the golden fixtures (the port's
+   ``models/ocr_train.py`` generators): logits within ``OCR_BOUND`` of
    their scale, the same coverage, thresholded heatmap and strings, the
    golden assertions of ``tests/models/test_ocr.py``, and the learned score's
    time per clip. Then ``run_split`` on the first ``FILTER_VIDEOS`` corpus
@@ -313,7 +315,16 @@ and prints one JSON line per phase:
    holding the short camera only inside its span, and ``align`` over the
    frame refs; the lance backend on a host without ``pylance``: a lance
    store and index resolved to parquet with the reference's warning, the
-   index answering, ``export-lance`` exiting 2 with the guidance.
+   index answering, ``export-lance`` exiting 2 with the guidance;
+    train (``scripts/train_phase.py``, after sensors; no kernel on its path,
+   which it asserts): the five trainers' six runs (tracker, TransNet, the
+   OCR detector and recognizer, SR, diffusion SR) at their default
+   configurations and batches, ``train_phase.STEPS`` eager steps each through
+   ``train_and_stage``: host synthesis and device ms a step, samples/s,
+   launches a step and the idle share over the last steps (traced), peak
+   memory, the mean loss of the first and last 10 steps (finite and
+   falling); each checkpoint loaded by the port's inference class with
+   ``require_weights=True`` and read back bit-equal.
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -491,9 +502,10 @@ SPLIT_RSS_SAMPLE_S = 0.05
 CANONICAL_CLIP_LEN_S = 1.0
 CANONICAL_SHOT_THRESHOLD = 1.5
 # run C's videos: the corpus's first quarter since the remote phase joined
-# the call (32 before, 64 before the engine phase; the full call's time,
-# PERF.md §5)
-CANONICAL_VIDEOS = 16
+# the call, its first eighth since the train phase did (16 before, 32
+# before the remote phase, 64 before the engine phase; the full call's
+# time, PERF.md §5)
+CANONICAL_VIDEOS = 8
 AESTHETIC_THRESHOLD = 0.0
 CANONICAL_L14_CLIPS = 4  # kept clips whose frames make the L/14 check's batch
 # bf16 detector probabilities vs the fp32 module on the card (a CPU reading
@@ -514,9 +526,9 @@ IV2_CHECK_CLIPS = 4
 # fanned out and with one worker a stage. OCR on the card vs its CPU path:
 # max abs logit difference over the largest CPU logit (stated before the
 # first run; the port's CPU path matches the JAX package within 1e-4 on
-# these weights). 8 videos since the engine phase joined the call (16 before;
-# the full call's time, PERF.md §5)
-FILTER_VIDEOS = 8
+# these weights). 4 videos since the train phase joined the call (8 since
+# the engine phase did, 16 before; the full call's time, PERF.md §5)
+FILTER_VIDEOS = 4
 FILTER_FANOUT_CPUS = 16
 OCR_BOUND = 1e-4
 OCR_TIMED_CLIPS = 32
@@ -1132,6 +1144,7 @@ def drive_embed(dev) -> dict:
     uint8 224x224 frames (extraction at 8 fps over 1 s clips)."""
     from cosmos_curate_tpu_torch.core.stage import WorkerMetadata
     from cosmos_curate_tpu_torch.data.model import FrameExtractionSignature
+    from cosmos_curate_tpu_torch.models import flops
     from cosmos_curate_tpu_torch.models.embedder import EMBED_MICRO_BATCH, VIDEO_EMBED_BASE
     from cosmos_curate_tpu_torch.ops import kernels
     from cosmos_curate_tpu_torch.ops.flash_attention import flash_attention_plain
@@ -1197,7 +1210,14 @@ def drive_embed(dev) -> dict:
     assert plain_err <= EMBED_BOUND, f"embed: kernel vs plain flash {plain_err} > {EMBED_BOUND}"
 
     n_disp = len(records)
+    # model FLOPs utilization of the timed calls: the analytic forward
+    # FLOPs of every clip over the dispatches' device time (CUDA events)
+    flops_per_clip = flops.video_embed_forward_flops(cfg)
+    device_s = sum(r.compute_s for r in records)
     return dict(
+        mfu=flops.mfu(flops_per_clip * len(clips), device_s),
+        mfu_inputs={"flops_per_clip": flops_per_clip, "clips": len(clips), "device_s": device_s,
+                    "peak_flops": flops.chip_peak_flops(), "card": card_line()},
         breakdown=profile_window(lambda: stage.process_data(batches[1]), 2, "stage call"),
         config={"vit_width": cfg.vit.width, "vit_layers": cfg.vit.layers, "vit_heads": cfg.vit.heads,
                 "image_size": size, "num_frames": cfg.num_frames, "temporal_layers": cfg.temporal_layers,
@@ -2344,33 +2364,6 @@ def drive_split(dev, timer, root: Path, corpus: list[Path], corpus_s: float) -> 
     )
 
 
-def golden_eval_frames() -> tuple[np.ndarray, np.ndarray]:
-    """(clean, texty): eight 320x240 frames of rectangles, and the same with
-    two lines of overlay text (this script's copy of the JAX package's
-    ``models/ocr_train.golden_eval_frames``; a CPU test holds them equal)."""
-    import cv2
-
-    clean = np.full((8, 240, 320, 3), 90, np.uint8)
-    for f in clean:
-        cv2.rectangle(f, (40, 60), (200, 180), (200, 180, 40), -1)
-    texty = clean.copy()
-    for f in texty:
-        cv2.putText(f, "BREAKING NEWS UPDATE", (10, 40), cv2.FONT_HERSHEY_SIMPLEX, 0.8, (255, 255, 255), 2,
-                    cv2.LINE_AA)
-        cv2.putText(f, "subscribe now!", (60, 220), cv2.FONT_HERSHEY_DUPLEX, 0.7, (0, 255, 255), 2, cv2.LINE_AA)
-    return clean, texty
-
-
-def golden_rec_sample(text: str = "HELLO 42") -> np.ndarray:
-    """``text`` in black on a white 160x32 crop (a copy of the JAX
-    package's ``models/ocr_train.golden_rec_sample``)."""
-    import cv2
-
-    img = np.full((32, 160, 3), 255, np.uint8)
-    cv2.putText(img, text, (6, 24), cv2.FONT_HERSHEY_SIMPLEX, 0.8, (0, 0, 0), 2)
-    return img
-
-
 def check_ocr(dev) -> dict:
     """The OCR detector and recognizer on the committed weights, on the card
     (fp32, TF32 off) against the port's CPU path on the golden fixtures:
@@ -2378,6 +2371,7 @@ def check_ocr(dev) -> dict:
     then the golden assertions, and the card's time per clip of the text
     filter's learned score (4 frames)."""
     from cosmos_curate_tpu_torch.models.ocr import OcrModel
+    from cosmos_curate_tpu_torch.models.ocr_train import golden_eval_frames, golden_rec_sample
 
     gpu, cpu = OcrModel(device=dev), OcrModel(device="cpu")
     gpu.setup(require_weights=True)
@@ -3409,6 +3403,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     import remote_phase
     import sensors_phase
     import service_phase
+    import train_phase
 
     started = time.monotonic()
     dev = torch.device("cuda", 0)
@@ -3519,6 +3514,8 @@ def _main(stack: contextlib.ExitStack) -> int:
     checks["flash"]["cases"].update(service["flash_checked_here"])
     # sensor rigs: MCAP capture, the two sources, the lockstep group, the lance fallback
     sensors = sensors_phase.run(sys.modules[__name__], dev, root, corpus)
+    # training: the five trainers on the card, a checkpoint each, no kernel launched
+    train = train_phase.run(sys.modules[__name__], dev)
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3573,6 +3570,7 @@ def _main(stack: contextlib.ExitStack) -> int:
                          "multicam_split": av["multicam"]["launches"][name]},
             service_launches={part: service["launches"][part][name] for part in ("job", "search")},
             sensors_launches=sensors["launches"][name],
+            train_launches=train["launches"][name],
             cases=c.get("cases"),
         ))
     # each phase line's seconds from the start: where the call's time went

@@ -6,16 +6,18 @@ The same argparse tree as the reference's, with the groups the port has:
 storage/lance_export.py), ``local`` (run the pipelines, ``cli/local_cli.py``), ``serve``
 (the job service, ``cli/serve_cli.py``), ``view`` (a clip viewer over a
 split output, ``cli/view_cli.py``), ``slurm`` (sbatch scripts and job
-management, ``cli/slurm_cli.py``), ``postgres`` (the AV state database's
+management, ``cli/slurm_cli.py``), ``models`` (the weights registry:
+list, stage, seeded checkpoints, hub pulls, ``cli/models_cli.py``),
+``postgres`` (the AV state database's
 admin commands, ``cli/postgres_cli.py``), ``dlq`` (dead-lettered batches,
 ``cli/dlq_cli.py``), ``report`` (a run's flight recorder report,
 ``cli/report_cli.py``), ``top`` (live status, ``cli/top_cli.py``),
 ``index`` (the corpus index, ``cli/index_cli.py``) and ``agent`` (join a
 driver's cross-node engine plane as a worker node,
 engine/remote_agent.py), registered in the reference's order. The other
-groups of the reference (``models``, ``lint``, ``image``) wait for the
-layers they drive (ROADMAP queue A item 22; ``image`` also for the port's
-container image, item 23).
+groups of the reference (``lint``, ``image``) wait for the layers they
+drive (ROADMAP queue A item 22; ``image`` also for the port's container
+image, item 23).
 
 Run it as ``python -m cosmos_curate_tpu_torch.cli.main`` or through the
 ``cosmos-curate-tpu-torch`` console script. Every command that runs a model
@@ -32,6 +34,7 @@ from cosmos_curate_tpu_torch.cli import (
     dlq_cli,
     index_cli,
     local_cli,
+    models_cli,
     postgres_cli,
     report_cli,
     serve_cli,
@@ -66,6 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     serve_cli.register(sub)
     view_cli.register(sub)
     slurm_cli.register(sub)
+    models_cli.register(sub)
     postgres_cli.register(sub)
     dlq_cli.register(sub)
     report_cli.register(sub)

@@ -30,6 +30,18 @@ The port names its modules after the flax ones, so the map is mechanical:
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts; boxed
 leaves (flax's partitioning metadata) are unboxed through their ``value``.
 Values stay fp32, as the flax params are.
+
+``state_dict_to_flax`` is the inverse, for the checkpoint writer
+(``registry.save_params``). Names alone do not decide it (a ``weight`` may
+have been a ``kernel``, a ``scale``, an ``embedding`` or a ``weight``), so
+each leaf is resolved by the type of the module that owns it: a
+``Linear`` or conv ``weight`` was a kernel (transposed back by rank), an
+``Embedding``'s was an ``embedding``, a norm's was a ``scale``, a module
+that names its flax leaf itself (``FLAX_WEIGHT_NAME``: T5's norms keep
+``weight``, its bucket table was an ``embedding``) gives that name, and
+every other leaf keeps its name. Path parts go back as ``layers.{i}`` ->
+``layer_{i}``, ``blocks.{i}`` -> ``block_{i}`` and a bare ``{i}`` ->
+``layers_{i}``.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 _INDEXED = re.compile(r"^(layer|block|layers)_(\d+)$")
 _PLURAL = {"layer": "layers", "block": "blocks", "layers": ""}
@@ -87,6 +100,65 @@ def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
 
     walk(tree, [])
     return out
+
+
+_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.RMSNorm)
+_CONVS = (nn.Conv1d, nn.Conv2d, nn.Conv3d)
+# the inverse of ``_leaf``'s kernel layouts, by the torch weight's rank
+_KERNEL_FROM_WEIGHT = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
+
+
+def _is_norm(module: nn.Module) -> bool:
+    """A norm of torch's or of the port's own (``LayerNorm``, the RMS
+    norms): a module whose class name ends in ``Norm``."""
+    return isinstance(module, _NORMS) or type(module).__name__.endswith("Norm")
+
+
+def _flax_leaf(module: nn.Module, name: str, value: torch.Tensor) -> tuple[str, np.ndarray]:
+    arr = value.detach().to(device="cpu", dtype=torch.float32).numpy()
+    if name != "weight":
+        return name, arr
+    if hasattr(module, "FLAX_WEIGHT_NAME"):
+        return module.FLAX_WEIGHT_NAME, arr
+    if isinstance(module, (nn.Linear, *_CONVS)):
+        return "kernel", arr.transpose(_KERNEL_FROM_WEIGHT[arr.ndim])
+    if isinstance(module, nn.Embedding):
+        return "embedding", arr
+    if _is_norm(module):
+        return "scale", arr
+    return name, arr
+
+
+def _flax_path(parts: list[str]) -> list[str]:
+    out: list[str] = []
+    for part in parts:
+        if part.isdigit():
+            if out and out[-1] in ("layers", "blocks"):
+                out[-1] = f"{out[-1][:-1]}_{part}"
+            else:
+                out.append(f"layers_{part}")
+        else:
+            out.append(part)
+    return out
+
+
+def state_dict_to_flax(module: nn.Module, state_dict: Mapping[str, torch.Tensor] | None = None) -> dict:
+    """The flax parameter tree (``{"params": {...}}`` of fp32 numpy arrays)
+    that ``flax_to_state_dict`` maps onto ``state_dict`` (``module``'s own
+    by default): ``flax_to_state_dict(state_dict_to_flax(m, sd)) == sd``."""
+    if state_dict is None:
+        state_dict = module.state_dict()
+    tree: dict = {}
+    for key, value in state_dict.items():
+        owner, _, name = key.rpartition(".")
+        leaf, arr = _flax_leaf(module.get_submodule(owner), name, value)
+        node = tree
+        for part in _flax_path(owner.split(".") if owner else []):
+            node = node.setdefault(part, {})
+        if leaf in node:
+            raise ValueError(f"two parameters map onto flax leaf {key!r}")
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}
 
 
 def load_flax_params(module: torch.nn.Module, tree) -> None:

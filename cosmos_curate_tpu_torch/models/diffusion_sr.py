@@ -121,6 +121,13 @@ def cosine_alpha_sigma(t: float) -> tuple[float, float]:
     return float(np.cos(angle)), float(np.sin(angle))
 
 
+def cosine_alpha_sigma_tensor(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cosine_alpha_sigma`` over a float32 tensor of timesteps (the
+    trainer's, one a window), elementwise."""
+    angle = t.to(torch.float32) * float(np.float32(np.pi / 2))
+    return torch.cos(angle), torch.sin(angle)
+
+
 def _timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     """Sinusoidal embedding of continuous t in [0, 1] -> [..., dim]."""
     freqs = torch.exp(torch.from_numpy(linspace32(0.0, 6.0, dim // 2)).to(t.device))
@@ -148,7 +155,8 @@ class _FiLMResBlock(nn.Module):
     def forward(self, x: torch.Tensor, temb: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         h = F.silu(_group_norm(self.GroupNorm_0, x), inplace=True)
         h = conv_as(self.Conv_0, h, dtype)
-        scale, shift = self.Dense_0(temb).chunk(2, dim=-1)  # [1, C] each: one t for every frame
+        # [1, C] each for one t over every frame, [N, C] for one a frame
+        scale, shift = self.Dense_0(temb).chunk(2, dim=-1)
         h = h.to(torch.float32) * (1 + scale)[:, :, None, None] + shift[:, :, None, None]
         h = conv_as(self.Conv_1, F.silu(h, inplace=True), dtype)
         if self.shortcut:
@@ -235,14 +243,18 @@ class DenoiserUNet(nn.Module):
         with torch.no_grad():
             getattr(self, self.conv_out).weight.zero_()
 
-    def forward(self, z: torch.Tensor, cond: torch.Tensor, t: float, chunks: int = 1) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, cond: torch.Tensor, t: float | torch.Tensor, chunks: int = 1) -> torch.Tensor:
         """z, cond: float32 NCHW [chunks * window, 3, H, W] (the noisy
-        residual and the upsampled input); t in [0, 1]. Returns the v
-        prediction, float32 [chunks * window, 3, H, W]."""
+        residual and the upsampled input); t in [0, 1], a float for every
+        chunk or a ``[chunks]`` tensor, one a chunk (the trainer's). Returns
+        the v prediction, float32 [chunks * window, 3, H, W]."""
         dtype = self.compute_dtype
         m = self._modules
-        temb = _timestep_embedding(torch.full((1,), t, dtype=torch.float32, device=z.device),
-                                   4 * self.cfg.channels)
+        if isinstance(t, torch.Tensor):  # each chunk's t on each of its frames
+            t = t.to(device=z.device, dtype=torch.float32).repeat_interleave(z.shape[0] // chunks)
+        else:
+            t = torch.full((1,), t, dtype=torch.float32, device=z.device)
+        temb = _timestep_embedding(t, 4 * self.cfg.channels)
         temb = F.silu(m["Dense_0"](temb))
         x = conv_as(m[self.conv_in], torch.cat([z, cond], dim=1), dtype)
         skips = []
@@ -312,10 +324,12 @@ class DiffusionSRModel(ModelInterface):
     def model_id_names(self) -> list[str]:
         return [self.MODEL_ID]
 
-    def setup(self) -> None:
+    def setup(self, *, require_weights: bool = False) -> None:
+        """Build the denoiser and load its checkpoint (else the seeded init;
+        ``require_weights=True`` raises instead)."""
         with torch.device(self.device):
             self.net = DenoiserUNet(self.cfg).eval()
-        registry.load_module(self.net, self.MODEL_ID)
+        registry.load_module(self.net, self.MODEL_ID, require=require_weights)
         self._pipeline = DevicePipeline("sr/diffusion", self.upscale, device=self.device)
 
     def group_size(self, n_chunk: int, out_h: int, out_w: int) -> int:

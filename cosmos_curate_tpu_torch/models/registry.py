@@ -23,6 +23,11 @@ check raises ``WeightsIntegrityError``; it never falls back to the seeded
 init. Without a file, local or pulled, ``load_params`` falls back to the
 seeded init with a warning (or raises when the caller requires real
 weights).
+
+``save_params`` writes a checkpoint: a module's parameters through
+``convert_jax.state_dict_to_flax`` (or a flax tree as it is), serialized
+with ``msgpack`` alone into the bytes ``flax.serialization.to_bytes`` gives
+for the same tree (``flax_msgpack_bytes``), published atomically.
 """
 
 from __future__ import annotations
@@ -66,6 +71,29 @@ def register_model(model_id: str, description: str = "") -> None:
 
 def registered_models() -> list[str]:
     return sorted(_REGISTRY)
+
+
+# the reference registry's own ids (its module registers them on import,
+# so ``models list`` names them in a process that built no model)
+for _mid, _desc in (
+    ("transnetv2-tpu", "shot transition detector"),
+    ("clip-vit-l14-tpu", "CLIP ViT-L/14 image embedder"),
+    ("clip-vit-b16-tpu", "CLIP ViT-B/16 image embedder"),
+    ("aesthetics-mlp-tpu", "aesthetic score head over CLIP embeddings"),
+    ("video-embed-tpu", "temporal-transformer video embedder"),
+    ("internvideo2-1b-tpu", "InternVideo2-1B stage2 video embedder (converted checkpoint slot)"),
+    ("internvideo2-tiny-test", "InternVideo2 tiny test config"),
+    ("caption-vlm-tpu", "vision-language captioning model"),
+    ("caption-qwen2vl-2b-tpu", "Qwen2-VL-2B-class captioner (converted checkpoint slot)"),
+    ("caption-qwen25vl-7b-tpu", "Qwen2.5-VL-7B-class captioner (converted checkpoint slot)"),
+    ("caption-qwen3moe-a3b-tpu", "Qwen3-MoE-A3B-class chat LM (converted checkpoint slot)"),
+    ("caption-qwen3vl-moe-a3b-tpu", "Qwen3-VL-MoE-A3B captioner (converted checkpoint slot)"),
+    ("t5-encoder-tpu", "text encoder for caption embeddings"),
+    ("ocr-detector-tpu", "overlay-text region detector"),
+    ("ocr-recognizer-tpu", "text recognizer CRNN with CTC decoding"),
+    ("tracker-siamese-tpu", "learned single-object appearance tracker"),
+):
+    register_model(_mid, _desc)
 
 
 def weights_root() -> Path:
@@ -246,6 +274,81 @@ def weights_provenance(model_id: str) -> str:
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 _CHUNKED = "__msgpack_chunked_array__"
+# flax splits an array above this many bytes into flat chunks of at most
+# this many (msgpack's object limit is 2**31 - 1)
+MAX_CHUNK_SIZE = 2**30
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    import msgpack
+
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")), use_bin_type=True)
+
+
+def _ext_pack(x):
+    import msgpack
+
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(_EXT_NDARRAY, _ndarray_to_bytes(x))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(x)))
+    raise TypeError(f"cannot serialize {type(x).__name__} into a flax checkpoint")
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    return {_CHUNKED: True, "shape": {str(i): d for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): flat[j : j + size] for i, j in enumerate(range(0, flat.size, size))}}
+
+
+def _serializable(node):
+    """The tree as ``to_bytes`` packs it: every dict's keys sorted (flax's
+    ``jax.tree_util`` pass sorts them), leaves as numpy, oversized arrays
+    chunked."""
+    if isinstance(node, dict):
+        return {str(k): _serializable(node[k]) for k in sorted(node)}
+    if isinstance(node, np.generic):
+        return node
+    arr = np.asarray(node)
+    return _chunk(arr) if arr.size * arr.dtype.itemsize > MAX_CHUNK_SIZE else arr
+
+
+def flax_msgpack_bytes(tree: dict) -> bytes:
+    """``flax.serialization.to_bytes(tree)`` for a tree of dicts and numpy
+    arrays, with ``msgpack`` alone."""
+    import msgpack
+
+    return msgpack.packb(_serializable(tree), default=_ext_pack, strict_types=True)
+
+
+def save_params(model_id: str, params: Any, *, root: Path | str | None = None) -> Path:
+    """Write ``<root>/<model_id>/params.msgpack`` (``root`` defaults to the
+    staging directory) in the reference's format, publishing it atomically
+    (a temporary file renamed into place), and return its path.
+
+    ``params`` is a module (its parameters, named by their modules' types)
+    or a flax tree (nested dicts of arrays), written as it is. A flat
+    ``state_dict`` raises: its names alone do not give the flax names
+    (``convert_jax.state_dict_to_flax`` takes its module)."""
+    import torch
+
+    from cosmos_curate_tpu_torch.models.convert_jax import state_dict_to_flax
+
+    if isinstance(params, torch.nn.Module):
+        tree = state_dict_to_flax(params)
+    elif all(isinstance(v, dict) for v in params.values()):
+        tree = params
+    else:
+        raise TypeError("save_params takes a module or a flax tree; map a state_dict with "
+                        "convert_jax.state_dict_to_flax(module, state_dict) first")
+    base = Path(root) if root is not None else weights_root()
+    ckpt = base / model_id / "params.msgpack"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    tmp = ckpt.with_name(ckpt.name + ".tmp")
+    tmp.write_bytes(flax_msgpack_bytes(tree))
+    tmp.replace(ckpt)
+    return ckpt
 
 
 def _ndarray_from_bytes(data: bytes) -> np.ndarray:

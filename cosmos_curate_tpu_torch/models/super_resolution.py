@@ -150,10 +150,12 @@ class SuperResolutionModel(ModelInterface):
     def model_id_names(self) -> list[str]:
         return [self.MODEL_ID]
 
-    def setup(self) -> None:
+    def setup(self, *, require_weights: bool = False) -> None:
+        """Build the net and load its checkpoint (else the seeded init;
+        ``require_weights=True`` raises instead)."""
         with torch.device(self.device):
             self.net = SRNet(self.cfg).eval()
-        registry.load_module(self.net, self.MODEL_ID)
+        registry.load_module(self.net, self.MODEL_ID, require=require_weights)
         self._pipeline = DevicePipeline("sr/srnet", self._forward, device=self.device)
 
     def _forward(self, frames_u8: torch.Tensor) -> torch.Tensor:

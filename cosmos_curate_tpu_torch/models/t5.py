@@ -73,6 +73,10 @@ class T5LayerNorm(nn.Module):
     """RMS norm, weight only, computed in fp32 and cast back to the input's
     dtype."""
 
+    # the reference names this norm's parameter ``weight`` too, not ``scale``
+    # (models/convert_jax.py's inverse reads it)
+    FLAX_WEIGHT_NAME = "weight"
+
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
         self.eps = eps
@@ -102,6 +106,8 @@ def t5_relative_position_bucket(relative_position: torch.Tensor, *, num_buckets:
 
 class T5RelativeBias(nn.Module):
     """The bucket table ``[num_buckets, heads]`` (flax's ``embedding``)."""
+
+    FLAX_WEIGHT_NAME = "embedding"
 
     def __init__(self, cfg: T5Config):
         super().__init__()

@@ -150,10 +150,12 @@ class TransNetV2(ModelInterface):
     def model_id_names(self) -> list[str]:
         return [self.MODEL_ID]
 
-    def setup(self) -> None:
+    def setup(self, *, require_weights: bool = False) -> None:
+        """Build the model and fill it (``require_weights=True`` raises
+        without a checkpoint that matches, instead of the seeded init)."""
         with torch.device(self.device):
             model = TransNet(self.cfg)
-        registry.load_module(model, self.MODEL_ID, self.params)
+        registry.load_module(model, self.MODEL_ID, self.params, require=require_weights)
         self.model = model.eval().requires_grad_(False)
         self._pipeline = DevicePipeline("transnet", self._forward, device=self.device)
 

@@ -61,6 +61,7 @@ then dead-lettered: it never carries on on the CPU.
 from __future__ import annotations
 
 import asyncio
+import copy
 import functools
 import json
 import os
@@ -375,9 +376,13 @@ class ServiceState:
         self, rec: JobRecord, event: str, *, required: bool = False
     ) -> None:
         """:meth:`record_transition` off the event loop — what every
-        coroutine must use (the blocking-in-async lint rule enforces it)."""
+        coroutine must use (the blocking-in-async lint rule enforces it).
+        The journal thread gets a copy of the record as it stands now: the
+        loop may move the record on (a terminate right after a dispatch)
+        before that thread writes the line and counts the transition, which
+        must carry this transition's state."""
         await self.on_journal_thread(
-            self.record_transition, rec, event, required=required
+            self.record_transition, copy.copy(rec), event, required=required
         )
 
     def _export_states(self) -> None:

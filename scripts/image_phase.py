@@ -89,15 +89,16 @@ IMAGE_KINDS = (
 JPEG_QUALITY = 90
 BROKEN = ("zz_truncated.jpg", "zz_empty.png")  # sorted last: outside I2's and I3's first images
 AESTHETIC_THRESHOLD = 0.0  # the seeded head's scores sit around 0 (run C's did)
-SAMPLE = 16  # I1 images held against the CPU path
+SAMPLE = 8  # I1 images held against the CPU path (16 until the train phase joined the full call)
 # CPU vs card, max abs error: the embeddings at the canonical phase's bound
 # for `clip` embeddings; the scores at the aesthetic stage's bf16 bound
 # (tests/test_torch_clip.py STAGE_TOL)
 EMBED_BOUND = 3e-3
 SCORE_BOUND = 2e-2
-# I2 and I3's stills: 8 since the remote phase joined the call (16 before,
-# 32 before the engine phase; the full call's time, PERF.md §5)
-CAPTION_IMAGES = 8
+# I2 and I3's stills: 4 since the train phase joined the call (8 since the
+# remote phase did, 16 before, 32 before the engine phase; the full call's
+# time, PERF.md §5)
+CAPTION_IMAGES = 4
 EMBED_DIM = 512  # CLIP ViT-B/16's projection
 CLASSIFIER_LABELS = ("photo", "illustration", "screenshot", "document")
 API_PROMPT = "Describe this image in one detailed sentence."  # ImageApiCaptionStage's default

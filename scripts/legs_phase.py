@@ -64,11 +64,14 @@ STATIC_KINDS = ("static", "static_tex")
 # either package, at 240x320 as at 1280x720, under the default 0.004, so
 # the card is held to the CPU path's decision there, not to "kept"
 SMALL_OBJECT_KINDS = ("corner_box",)
-MOTION_CLIPS_PER_KIND = 8
+# 4 since the train phase joined the full call (8 before)
+MOTION_CLIPS_PER_KIND = 4
 MOTION_H, MOTION_W, MOTION_FRAMES = 720, 1280, 24
 MOTION_REL = 1e-5  # card vs CPU, relative, on each score
 MOTION_THRESHOLD = 0.004  # the stage's default
-TRACK_CLIPS = 32  # one-second clips of the first corpus videos
+# one-second clips of the first corpus videos: 16 since the train phase
+# joined the full call (32 before)
+TRACK_CLIPS = 16
 NCC_TOL = 1e-5  # rtol and atol of the NCC scores, card vs CPU
 SIAMESE_ATOL, SIAMESE_RTOL = 1e-4, 1e-3
 # 8 frames (2 chunks of the window): 16 before the av phase joined the call,

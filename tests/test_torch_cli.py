@@ -9,8 +9,9 @@
   ``export-lance`` and ``serve`` commands, action by action (option strings,
   dest, default, choices, required, nargs, type, const, action class); the
   only difference allowed is the port's ``--device``; the reference's
-  ``image`` / ``deploy``, ``lint`` and ``models`` are the only groups the
-  port lacks. ``local merge-summaries`` prints and writes what the
+  ``image`` / ``deploy`` and ``lint`` are the only groups the port lacks
+  (``models`` is walked here too; its actions in
+  ``tests/test_torch_models_cli.py``). ``local merge-summaries`` prints and writes what the
   JAX CLI's does on the same per-node summaries and sidecars.
 - ``main``'s exit codes (2 with no command or on ``FileNotFoundError``, 130
   on an interrupt) in both packages; every refusal raises
@@ -148,12 +149,12 @@ def _actions(parser: argparse.ArgumentParser) -> dict[str, tuple]:
 
 def test_parser_walk_matches_jax():
     jtop, ttop = _subcommands(jmain.build_parser()), _subcommands(tmain.build_parser())
-    assert sorted(ttop) == ["agent", "dlq", "export-lance", "index", "info", "local", "postgres", "report", "serve",
-                            "slurm", "top", "view"]
+    assert sorted(ttop) == ["agent", "dlq", "export-lance", "index", "info", "local", "models", "postgres", "report",
+                            "serve", "slurm", "top", "view"]
     assert set(ttop) <= set(jtop)
     # the reference's groups the port still lacks (ROADMAP queue A items 22
     # and 23; the reference's cli/image_cli.py registers image and deploy)
-    assert set(jtop) - set(ttop) == {"image", "deploy", "lint", "models"}
+    assert set(jtop) - set(ttop) == {"image", "deploy", "lint"}
     # registered in the reference's order
     assert list(ttop) == [c for c in jtop if c in ttop]
     assert _actions(tmain.build_parser()).keys() == _actions(jmain.build_parser()).keys() - {"<sub>"} | {"<sub>"}
@@ -166,7 +167,7 @@ def test_parser_walk_matches_jax():
     assert serve.pop("--device") == ("device", "cuda", ("cuda", "cpu"), False, None, None, None, "_StoreAction")
     assert serve == _actions(jtop["serve"])
     walked += len(serve)
-    for group in ("local", "postgres", "index", "dlq", "slurm"):
+    for group in ("local", "postgres", "index", "dlq", "slurm", "models"):
         jsub, tsub = _subcommands(jtop[group]), _subcommands(ttop[group])
         assert list(tsub) == list(jsub), group
         for name, jparser in jsub.items():

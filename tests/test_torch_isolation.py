@@ -28,6 +28,12 @@ SERVICE_MODULES = ("service.slo", "service.job_queue", "service.admission", "ser
                    "cli.serve_cli", "cli.view_cli", "cli.slurm_cli")
 
 
+# the trainers, the FLOPs accounting, the hub pull and the models command
+TRAINERS = ("models.tracker_train", "models.transnet_train", "models.ocr_train", "models.sr_train",
+            "models.diffusion_sr_train")
+TRAINING_MODULES = (*TRAINERS, "models.train_common", "models.flops", "models.hf_hub", "cli.models_cli")
+
+
 def test_port_imports_no_jax_flax_or_reference_package():
     script = textwrap.dedent(
         """
@@ -76,7 +82,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "data.lazy", "cli.report_cli", "cli.top_cli", "cli.dlq_cli",
                    "pipelines.video.stages.caption_prep", "parallel.distributed", "parallel.work_stealing",
                    "engine.lineage", "engine.object_channel", "engine.remote_plane", "engine.remote_agent",
-                   *SERVICE_MODULES, *STORAGE_MODULES, *SENSOR_MODULES):
+                   *SERVICE_MODULES, *STORAGE_MODULES, *SENSOR_MODULES, *TRAINING_MODULES):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -686,6 +692,48 @@ def test_split_leg_models_build_every_parameter_on_the_context_device(model):
     assert {p.device.type for p in module.state_dict().values()} == {"meta"}
 
 
+TRAIN_ENTRIES = {"tracker_train": "train", "transnet_train": "train", "ocr_train": "train_detector",
+                 "ocr_train.train_recognizer": "train_recognizer", "sr_train": "train", "diffusion_sr_train": "train"}
+
+
+@pytest.mark.parametrize("entry", sorted(TRAIN_ENTRIES))
+def test_trainers_default_to_the_gpu(entry):
+    """Each trainer asks for ``cuda`` unless told otherwise, and without a
+    card it raises before it trains: it never carries on on the CPU."""
+    import importlib
+    import inspect
+
+    import torch
+
+    module = importlib.import_module(f"cosmos_curate_tpu_torch.models.{entry.split('.')[0]}")
+    train = getattr(module, TRAIN_ENTRIES[entry])
+    assert inspect.signature(train).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(steps=1)
+
+
+@pytest.mark.parametrize("trainer", ["tracker_train", "transnet_train", "ocr_train", "sr_train",
+                                     "diffusion_sr_train"])
+def test_trainer_entry_points_default_to_the_gpu(trainer, tmp_path):
+    """``python -m cosmos_curate_tpu_torch.models.<trainer>`` takes
+    ``--device`` (``cuda`` by default) and, without a card, exits non-zero
+    naming the missing device, writing no checkpoint."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    steps = ["--det-steps", "1", "--rec-steps", "1"] if trainer == "ocr_train" else ["--steps", "1"]
+    out = subprocess.run([sys.executable, "-m", f"cosmos_curate_tpu_torch.models.{trainer}", *steps, "--out-dir",
+                          str(tmp_path)], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device is available" in out.stderr, out.stderr[-2000:]
+    assert not any(tmp_path.iterdir())
+    helped = subprocess.run([sys.executable, "-m", f"cosmos_curate_tpu_torch.models.{trainer}", "--help"], cwd=REPO,
+                            capture_output=True, text=True, timeout=120)
+    assert helped.returncode == 0 and "--device" in helped.stdout
+
+
 @pytest.mark.parametrize("option", [dict(sr=True), dict(motion_filter="enable"), dict(tracking=True),
                                     dict(per_event_captions=True)])
 def test_run_split_with_the_legs_defaults_to_the_gpu(option, tmp_path):
@@ -703,7 +751,7 @@ def test_run_split_with_the_legs_defaults_to_the_gpu(option, tmp_path):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/engine_phase.py", "scripts/observe_phase.py",
-                                    "scripts/service_phase.py", "scripts/sensors_phase.py"])
+                                    "scripts/service_phase.py", "scripts/sensors_phase.py", "scripts/train_phase.py"])
 def test_chip_scripts_import_neither_jax_nor_the_reference(script):
     """The card's scripts run the port alone: no import of jax, flax or the
     JAX package anywhere in them (the card's machine has no jax)."""

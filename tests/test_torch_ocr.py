@@ -230,11 +230,15 @@ def test_ocr_model_defaults_to_the_gpu():
 
 
 def test_chip_smoke_golden_fixtures_equal_the_jax_ones():
-    """``chip_smoke.py`` keeps its own copies of the golden fixture
-    generators (it imports nothing of the JAX package): the same pixels."""
+    """``chip_smoke.py`` takes the golden fixture generators from the port's
+    ``models/ocr_train.py`` (it imports nothing of the JAX package, and keeps
+    no copy of its own): the same pixels as the JAX package's."""
     import chip_smoke
 
-    for mine, theirs in zip(chip_smoke.golden_eval_frames(), golden_eval_frames(), strict=True):
+    from cosmos_curate_tpu_torch.models import ocr_train as tocr_train
+
+    assert not hasattr(chip_smoke, "golden_eval_frames") and not hasattr(chip_smoke, "golden_rec_sample")
+    for mine, theirs in zip(tocr_train.golden_eval_frames(), golden_eval_frames(), strict=True):
         np.testing.assert_array_equal(mine, theirs)
     for text in ("HELLO 42", "subscribe now!"):
-        np.testing.assert_array_equal(chip_smoke.golden_rec_sample(text), golden_rec_sample(text))
+        np.testing.assert_array_equal(tocr_train.golden_rec_sample(text), golden_rec_sample(text))

@@ -222,10 +222,18 @@ class TestAdmission:
             svc.wait_state(a, "done")
             svc.wait_state(b, "done")
             svc.close()
-            return svc.journal_events()
+            # each tenant's job's transitions in order; how the two jobs'
+            # lines interleave follows the dispatcher's timing against the
+            # second submission, in either package
+            events: dict[str, list] = {}
+            for line in (svc.work_root / "journal.ndjson").read_text().splitlines():
+                doc = json.loads(line)
+                tenant = {a: "a", b: "b"}[doc["record"]["job_id"]]
+                events.setdefault(tenant, []).append((doc["event"], doc["record"]["state"]))
+            return events
 
         events = both(tmp_path, scenario)
-        assert sorted(events) == sorted([("submit", "pending"), ("running", "running"), ("done", "done")] * 2)
+        assert events == {t: [("submit", "pending"), ("running", "running"), ("done", "done")] for t in "ab"}
 
 
 class TestRetryAndDeadLetter:
@@ -327,6 +335,35 @@ def _alive(pid: int) -> bool:
     return stat.rsplit(")", 1)[1].split()[0] != "Z"
 
 
+class TestTransitionRecord:
+    def test_journal_thread_records_the_state_at_the_transition(self, tmp_path):
+        """A transition handed to the journal thread is journaled and counted
+        with the record's state at the transition, even when the loop moves
+        the record on before that thread gets to it (a terminate right
+        after a dispatch). The port copies the record at the hand-over; the
+        reference hands the live record over and counts its later state."""
+        import threading
+
+        from cosmos_curate_tpu_torch.service.job_queue import JobRecord
+
+        svc = Service(PORT, tmp_path / "svc", config=config(PORT), runner_cmd=sleep_job(0.01))
+        rec = JobRecord(job_id="j-1", pipeline="split", args={}, state="running")
+        gate = threading.Event()
+        svc.state._journal_exec.submit(gate.wait, 10)  # the journal thread busy
+        before = service_series(PORT)
+        task = svc.loop.create_task(svc.state.record_transition_async(rec, "running"))
+        svc.loop.run_until_complete(asyncio.sleep(0.05))  # handed over, not yet written
+        rec.state = "terminated"
+        gate.set()
+        svc.loop.run_until_complete(task)
+        delta = series_delta(before, service_series(PORT))
+        events = svc.journal_events()
+        svc.close()
+        assert events[-1] == ("running", "running")
+        assert delta[("service_jobs_total", (("state", "running"), ("tenant", "default")))] == 1.0
+        assert ("service_jobs_total", (("state", "terminated"), ("tenant", "default"))) not in delta
+
+
 class TestTerminate:
     def test_terminate_kills_whole_process_group(self, tmp_path):
         def scenario(pkg, root):
@@ -338,6 +375,12 @@ class TestTerminate:
             pid_file = svc.state.work_dir(job_id) / "grandchild.pid"
             svc.wait(lambda: pid_file.exists() and pid_file.read_text().strip(), msg="grandchild spawned")
             grandchild = int(pid_file.read_text())
+            # the running transition journaled and counted first: the
+            # reference's journal thread reads the record's state when it
+            # gets to it, so a terminate that lands before then makes it
+            # count the running transition as terminated (the port's copies
+            # the record at the transition)
+            svc.wait_state(job_id, "running")
             _, doc, _ = svc.req("POST", f"/v1/terminate/{job_id}")
             svc.wait(lambda: not _alive(grandchild), timeout=10, msg="grandchild reaped")
             svc.wait(lambda: job_id not in svc.state.procs, msg="job reaped")

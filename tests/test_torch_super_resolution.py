@@ -275,6 +275,77 @@ def test_denoiser_unet_runs_chunks_independently(unet_pair):
     torch.testing.assert_close(both, alone, atol=1e-2, rtol=0)
 
 
+def _forward_with_one_t(net, z, cond, t: float, chunks: int = 1):
+    """``DenoiserUNet.forward`` as it was before it took a timestep a chunk:
+    one float ``t``, embedded once as a ``[1]`` tensor for every frame."""
+    import torch.nn.functional as F
+
+    dtype, m = net.compute_dtype, net._modules
+    temb = td._timestep_embedding(torch.full((1,), t, dtype=torch.float32, device=z.device), 4 * net.cfg.channels)
+    temb = F.silu(m["Dense_0"](temb))
+    x = td.conv_as(m[net.conv_in], torch.cat([z, cond], dim=1), dtype)
+    skips = []
+    for blocks, down in net.down:
+        for name in blocks:
+            x = m[name](x, temb, dtype)
+        skips.append(x)
+        x = td.conv_as(m[down], x, dtype)
+    for name in net.mid_a:
+        x = m[name](x, temb, dtype)
+    x = m[net.attn](x.to(torch.float32), chunks).to(dtype)
+    for name in net.mid_b:
+        x = m[name](x, temb, dtype)
+    for (up, blocks), skip in zip(net.up, reversed(skips)):
+        x = td.depth_to_space(td.conv_as(m[up], x, dtype), 2)
+        x = torch.cat([x, skip.to(dtype)], dim=1)
+        for name in blocks:
+            x = m[name](x, temb, dtype)
+    x = F.silu(td._group_norm(m[net.norm_out], x), inplace=True)
+    return td.conv_as(m[net.conv_out], x, torch.float32)
+
+
+@pytest.mark.parametrize("t", [1.0, 0.5, 0.125])
+def test_denoiser_unet_float_timestep_is_bit_equal_to_one_t_forward(unet_pair, t):
+    """Inference passes a float: the same bits as the forward before the
+    per-chunk timestep existed."""
+    _, _, tnet = unet_pair
+    rng = np.random.default_rng(12)
+    z, cond = _nchw(rng.standard_normal((4, 8, 8, 3)).astype(np.float32)), _nchw(rng.random((4, 8, 8, 3)).astype(
+        np.float32))
+    with torch.no_grad():
+        assert torch.equal(tnet(z, cond, t, chunks=2), _forward_with_one_t(tnet, z, cond, t, chunks=2))
+
+
+def test_denoiser_unet_timestep_per_chunk_equals_per_chunk_forwards(unet_pair):
+    """A ``[chunks]`` timestep tensor (the trainer's) gives what each chunk
+    gives alone with its own float t, within the chunking bound of
+    ``test_denoiser_unet_runs_chunks_independently`` (atol 1e-2: bf16 convs
+    over another batch round otherwise); and the JAX model on each chunk."""
+    net, params, tnet = unet_pair
+    rng = np.random.default_rng(13)
+    w = td.DIFF_SR_TINY_TEST.window
+    ts = [0.9, 0.3, 0.05]
+    z = rng.standard_normal((w * len(ts), 8, 8, 3)).astype(np.float32)
+    cond = rng.random((w * len(ts), 8, 8, 3)).astype(np.float32)
+    with torch.no_grad():
+        together = tnet(_nchw(z), _nchw(cond), torch.tensor(ts), chunks=len(ts))
+        alone = torch.cat([tnet(_nchw(z[i * w:(i + 1) * w]), _nchw(cond[i * w:(i + 1) * w]), t)
+                           for i, t in enumerate(ts)])
+    torch.testing.assert_close(together, alone, atol=1e-2, rtol=0)
+    for i, t in enumerate(ts):
+        want = np.asarray(net.apply(params, z[i * w:(i + 1) * w], cond[i * w:(i + 1) * w], jnp.float32(t)))
+        _assert_share(_nhwc(together[i * w:(i + 1) * w]), want)
+
+
+def test_cosine_alpha_sigma_tensor_matches_the_float_form():
+    ts = np.float32([0.0, 1e-3, 0.25, 0.5, 0.875, 1.0])
+    a, s = td.cosine_alpha_sigma_tensor(torch.from_numpy(ts))
+    for i, t in enumerate(ts):
+        ja, js_ = jd.cosine_alpha_sigma(jnp.float32(t))
+        assert (float(a[i]), float(s[i])) == td.cosine_alpha_sigma(float(t))
+        np.testing.assert_allclose([float(a[i]), float(s[i])], [float(ja), float(js_)], atol=1e-7, rtol=0)
+
+
 @pytest.mark.parametrize("t", [0.0, 0.25, 0.875, 1.0])
 def test_schedule_and_timestep_embedding_match_jax(t):
     a, s = jd.cosine_alpha_sigma(jnp.float32(t))
