@@ -10,7 +10,8 @@ and prints one JSON line per phase:
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA,
    which optional modules import (``cv2``, ``msgpack``, ``cloudpickle``,
    ``prometheus_client``, ``pyarrow``, ``regex``, ``boto3``,
-   ``google.cloud.storage``, ``yaml``, ``zstandard``, ``lance``), and which FFmpeg libraries and
+   ``google.cloud.storage``, ``yaml``, ``zstandard``, ``lance``, ``transformers``,
+   ``safetensors``), and which FFmpeg libraries and
    headers are installed;
 2. build: seconds to compile every kernel (one ``nvcc`` per source, in
    parallel), and the HGMMA / UTMALDG / FFMA counts of the tensor-core
@@ -325,6 +326,21 @@ and prints one JSON line per phase:
    memory, the mean loss of the first and last 10 steps (finite and
    falling); each checkpoint loaded by the port's inference class with
    ``require_weights=True`` and read back bit-equal.
+    convert (``scripts/convert_phase.py``, after train): seeded state dicts
+   under the public HF tensor names and shapes, converted by the port's
+   HF converters, staged with ``registry.save_params`` and served through
+   the models' entry points with their weights required: CLIP ViT-L/14 and
+   the aesthetic head through ``ClipEmbeddingStage(variant="clip",
+   clip_variant="clip-vit-l14-tpu")`` and ``AestheticFilterStage`` (flash
+   launched; the embeddings within ``EMBED_BOUND`` of the same tree on
+   flash's plain version), CLIP text L and T5 (t5-small's shapes) one encode
+   each, Qwen2-VL-2B at full width and depth captioning through
+   ``CaptionStage(model_flavor="qwen2vl-2b")`` (paged prefill and decode
+   launched; the staged checkpoint read back bit-equal), Qwen3-VL-30B-A3B
+   (2 LM layers, 2 tower blocks) and InternVideo2-1B (2 blocks) loaded and
+   run once; then ``lint --concurrency --schema`` over the port's package
+   in process (no finding). The seconds of each model's build,
+   conversion, staging and serve, and its launches.
 12. iv2: ``ClipEmbeddingStage(variant="iv2")`` at ``IV2_1B`` (1408 wide, 40
    blocks, 16 heads of 88, 8 frames at 224^2, 2049 tokens) on a seeded
    ``state_dict`` whose LayerScale is drawn uniform 0.05-0.2 (at its 1e-5
@@ -537,9 +553,12 @@ OCR_TIMED_CLIPS = 32
 # libavcodec, and writes parquet with pyarrow; the Qwen flavors' tokenizer
 # splits with regex; previews are WebP through PIL; a staged T5
 # tokenizer.json loads through tokenizers); the device phase reports which
-# are here
+# are here (transformers and safetensors: whether HF's own model classes
+# and checkpoint files could be read beside the converters, which need
+# neither)
 OPTIONAL_MODULES = ("cv2", "msgpack", "cloudpickle", "prometheus_client", "pyarrow", "regex", "PIL", "tokenizers",
-                    "boto3", "google.cloud.storage", "yaml", "aiohttp", "zstandard", "lance")
+                    "boto3", "google.cloud.storage", "yaml", "aiohttp", "zstandard", "lance", "transformers",
+                    "safetensors")
 FFMPEG_LIBRARIES = ("avcodec", "avformat", "avutil", "swscale", "x264")
 # embed phase: stage calls timed, clips per task (4 one-second clips of
 # bench.py's videos), so each call is one 32-clip dispatch
@@ -3402,6 +3421,7 @@ def _main(stack: contextlib.ExitStack) -> int:
     import observe_phase
     import remote_phase
     import sensors_phase
+    import convert_phase
     import service_phase
     import train_phase
 
@@ -3516,6 +3536,9 @@ def _main(stack: contextlib.ExitStack) -> int:
     sensors = sensors_phase.run(sys.modules[__name__], dev, root, corpus)
     # training: the five trainers on the card, a checkpoint each, no kernel launched
     train = train_phase.run(sys.modules[__name__], dev)
+    # HF checkpoints converted, staged and served: CLIP L/14 + the aesthetic head, CLIP text L, T5,
+    # Qwen2-VL-2B through the caption stage, Qwen3-VL-30B-A3B and InternVideo2 at cut depth; lint
+    convert = convert_phase.run(sys.modules[__name__], dev)
     emit({"phase": "iv2", **drive_iv2(dev)})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen-") as tmp:
@@ -3571,6 +3594,7 @@ def _main(stack: contextlib.ExitStack) -> int:
             service_launches={part: service["launches"][part][name] for part in ("job", "search")},
             sensors_launches=sensors["launches"][name],
             train_launches=train["launches"][name],
+            convert_launches=convert["launches"][name],
             cases=c.get("cases"),
         ))
     # each phase line's seconds from the start: where the call's time went

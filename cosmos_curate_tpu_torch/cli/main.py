@@ -12,12 +12,12 @@ list, stage, seeded checkpoints, hub pulls, ``cli/models_cli.py``),
 admin commands, ``cli/postgres_cli.py``), ``dlq`` (dead-lettered batches,
 ``cli/dlq_cli.py``), ``report`` (a run's flight recorder report,
 ``cli/report_cli.py``), ``top`` (live status, ``cli/top_cli.py``),
-``index`` (the corpus index, ``cli/index_cli.py``) and ``agent`` (join a
+``index`` (the corpus index, ``cli/index_cli.py``), ``lint`` (the static
+analysis passes over the port, ``cli/lint_cli.py``) and ``agent`` (join a
 driver's cross-node engine plane as a worker node,
-engine/remote_agent.py), registered in the reference's order. The other
-groups of the reference (``lint``, ``image``) wait for the layers they
-drive (ROADMAP queue A item 22; ``image`` also for the port's container
-image, item 23).
+engine/remote_agent.py), registered in the reference's order. The
+reference's ``image`` and ``deploy`` groups wait for the port's container
+image (ROADMAP queue A item 23).
 
 Run it as ``python -m cosmos_curate_tpu_torch.cli.main`` or through the
 ``cosmos-curate-tpu-torch`` console script. Every command that runs a model
@@ -33,6 +33,7 @@ from cosmos_curate_tpu_torch import __version__
 from cosmos_curate_tpu_torch.cli import (
     dlq_cli,
     index_cli,
+    lint_cli,
     local_cli,
     models_cli,
     postgres_cli,
@@ -70,6 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     view_cli.register(sub)
     slurm_cli.register(sub)
     models_cli.register(sub)
+    lint_cli.register(sub)
     postgres_cli.register(sub)
     dlq_cli.register(sub)
     report_cli.register(sub)
@@ -119,6 +121,8 @@ def _cmd_info(args: argparse.Namespace) -> int:
     print(f"python {platform.python_version()} on {platform.system().lower()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda or 'none (CPU build)'}")
     if torch.cuda.is_available():
+        # host inventory until the mesh layer owns device counts (ROADMAP queue A item 7)
+        # curate-lint: disable=hardcoded-device-count
         count = torch.cuda.device_count()
         print(f"{count} CUDA device(s): {', '.join(torch.cuda.get_device_name(i) for i in range(count))}")
     else:

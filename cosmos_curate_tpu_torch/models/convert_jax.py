@@ -47,6 +47,7 @@ every other leaf keeps its name. Path parts go back as ``layers.{i}`` ->
 from __future__ import annotations
 
 import re
+import warnings
 from collections.abc import Mapping
 
 import numpy as np
@@ -65,21 +66,25 @@ def _module_name(part: str) -> str:
     return f"{prefix}.{m.group(2)}" if prefix else m.group(2)
 
 
-def _leaf(name: str, value) -> tuple[str, np.ndarray]:
+# a flax kernel's axes in its torch weight's order, by rank
+_WEIGHT_FROM_KERNEL = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+
+
+def _leaf(name: str, value) -> tuple[str, torch.Tensor]:
+    """The torch name and value of one flax leaf: a new contiguous fp32
+    tensor, its transposes done by torch's multithreaded copy (the leaves of
+    a read checkpoint are read-only arrays over msgpack's bytes)."""
     arr = np.asarray(getattr(value, "value", value), dtype=np.float32)
+    if any(s < 0 for s in arr.strides):  # torch takes no negative strides
+        arr = arr.copy()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a read-only array: only read, into the copy below
+        t = torch.from_numpy(arr) if arr.ndim else torch.tensor(arr)
     if name == "kernel":
-        if arr.ndim == 2:
-            return "weight", arr.T
-        if arr.ndim == 3:
-            return "weight", arr.transpose(2, 1, 0)
-        if arr.ndim == 4:
-            return "weight", arr.transpose(3, 2, 0, 1)
-        if arr.ndim == 5:
-            return "weight", arr.transpose(4, 3, 0, 1, 2)
-        raise ValueError(f"kernel of rank {arr.ndim} has no torch layout here")
-    if name in ("embedding", "scale"):
-        return "weight", arr
-    return name, arr
+        if arr.ndim not in _WEIGHT_FROM_KERNEL:
+            raise ValueError(f"kernel of rank {arr.ndim} has no torch layout here")
+        return "weight", t.permute(_WEIGHT_FROM_KERNEL[arr.ndim]).clone(memory_format=torch.contiguous_format)
+    return ("weight" if name in ("embedding", "scale") else name), t.clone(memory_format=torch.contiguous_format)
 
 
 def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
@@ -94,9 +99,8 @@ def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, prefix + [_module_name(str(key))])
             else:
-                name, arr = _leaf(str(key), value)
-                path = ".".join(p for p in prefix + [name] if p)
-                out[path] = torch.tensor(np.ascontiguousarray(arr))
+                name, t = _leaf(str(key), value)
+                out[".".join(p for p in prefix + [name] if p)] = t
 
     walk(tree, [])
     return out

@@ -33,6 +33,7 @@ for the same tree (``flax_msgpack_bytes``), published atomically.
 from __future__ import annotations
 
 import hashlib
+import io
 import os
 import tempfile
 from pathlib import Path
@@ -314,12 +315,47 @@ def _serializable(node):
     return _chunk(arr) if arr.size * arr.dtype.itemsize > MAX_CHUNK_SIZE else arr
 
 
+# arrays of at least this many bytes go to the file straight from their
+# memory, their ext32 / bin32 headers written here, not through msgpack's
+# buffer (which would copy a large checkpoint several times over)
+_STREAM_MIN_BYTES = 1 << 16
+
+
+def _write_node(node, packer, write) -> None:
+    import msgpack
+
+    if isinstance(node, dict):
+        write(packer.pack_map_header(len(node)))
+        for key, value in node.items():
+            write(packer.pack(key))
+            _write_node(value, packer, write)
+    elif isinstance(node, np.ndarray) and node.nbytes >= _STREAM_MIN_BYTES:
+        # what _ext_pack packs: ext 1 of msgpack (shape, dtype name, bin)
+        arr = np.ascontiguousarray(node)
+        inner = b"\x93" + msgpack.packb(arr.shape) + msgpack.packb(arr.dtype.name) + b"\xc6" + arr.nbytes.to_bytes(4, "big")
+        size = len(inner) + arr.nbytes
+        write(b"\xc9" + size.to_bytes(4, "big") + _EXT_NDARRAY.to_bytes(1, "big") + inner)
+        write(memoryview(arr.reshape(-1)).cast("B"))
+    else:
+        write(packer.pack(node))
+
+
+def write_flax_msgpack(tree: dict, fh) -> None:
+    """Write ``flax.serialization.to_bytes(tree)`` for a tree of dicts and
+    numpy arrays to the binary file ``fh``, with ``msgpack`` alone, each
+    large array straight from its memory."""
+    import msgpack
+
+    packer = msgpack.Packer(default=_ext_pack, strict_types=True)
+    _write_node(_serializable(tree), packer, fh.write)
+
+
 def flax_msgpack_bytes(tree: dict) -> bytes:
     """``flax.serialization.to_bytes(tree)`` for a tree of dicts and numpy
     arrays, with ``msgpack`` alone."""
-    import msgpack
-
-    return msgpack.packb(_serializable(tree), default=_ext_pack, strict_types=True)
+    buf = io.BytesIO()
+    write_flax_msgpack(tree, buf)
+    return buf.getvalue()
 
 
 def save_params(model_id: str, params: Any, *, root: Path | str | None = None) -> Path:
@@ -346,7 +382,8 @@ def save_params(model_id: str, params: Any, *, root: Path | str | None = None) -
     ckpt = base / model_id / "params.msgpack"
     ckpt.parent.mkdir(parents=True, exist_ok=True)
     tmp = ckpt.with_name(ckpt.name + ".tmp")
-    tmp.write_bytes(flax_msgpack_bytes(tree))
+    with tmp.open("wb") as fh:
+        write_flax_msgpack(tree, fh)
     tmp.replace(ckpt)
     return ckpt
 

@@ -148,6 +148,9 @@ def load_native() -> ctypes.CDLL | None:
         return _native_lib
     with _lock:
         if _native_lib is None and _native_error is None:
+            # blocking under _lock is the point of this build-once lock: every
+            # concurrent load waits for the single compile (as the reference's)
+            # curate-lint: disable=lock-blocking
             _native_lib, _native_error = _load(NATIVE_SOURCE, _NATIVE_STEM, _NATIVE_LIBS, _configure_native,
                                                _NATIVE_COMPILER)
             if _native_error is not None:
@@ -168,6 +171,9 @@ def load_h264() -> ctypes.CDLL | None:
         return _lib
     with _lock:  # every concurrent caller waits here for the one build
         if _lib is None and _error is None:
+            # blocking under _lock is the point of this build-once lock: every
+            # concurrent load waits for the single compile (as the reference's)
+            # curate-lint: disable=lock-blocking
             _lib, _error = _load(SOURCE, _STEM, _LIBS, _configure_h264)
             if _error is not None:
                 logger.warning("%s unavailable (%s); falling back to cv2's negotiated codec", _STEM, _error)
@@ -187,6 +193,9 @@ def load_mv() -> ctypes.CDLL | None:
         return _mv_lib
     with _lock:
         if _mv_lib is None and _mv_error is None:
+            # blocking under _lock is the point of this build-once lock: every
+            # concurrent load waits for the single compile (as the reference's)
+            # curate-lint: disable=lock-blocking
             _mv_lib, _mv_error = _load(MV_SOURCE, _MV_STEM, _MV_LIBS, _configure_mv)
             if _mv_error is not None:
                 logger.warning("%s unavailable (%s); motion scores by frame difference", _MV_STEM, _mv_error)

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import Future
 from pathlib import Path
 
 import torch
@@ -31,7 +32,8 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.CDLL] = {}  # guarded by _lock
+_builds: dict[str, Future] = {}  # guarded by _lock: a name's build, running or done
 
 
 class KernelError(RuntimeError):
@@ -92,34 +94,59 @@ def _finish_build(out: Path, tmp: Path, proc: subprocess.Popen) -> None:
     os.replace(tmp, out)
 
 
+def _build(names: list[str]) -> None:
+    """Build the libraries of ``names`` not yet built, one ``nvcc`` per
+    source, all started at once. A name already building in another thread
+    is waited for, not built twice; ``nvcc`` runs outside ``_lock``. A
+    failed build is forgotten, so a later call tries it again."""
+    mine: list[tuple[str, Future]] = []
+    waits: list[Future] = []
+    with _lock:
+        for name in names:
+            fut = _builds.get(name)
+            if fut is None:
+                fut = _builds[name] = Future()
+                mine.append((name, fut))
+            waits.append(fut)
+    started = []
+    for name, fut in mine:
+        try:
+            started.append((name, fut, _start_build(name)))
+        except KernelError as e:
+            started.append((name, fut, e))
+    for name, fut, build in started:
+        try:
+            if isinstance(build, KernelError):
+                raise build
+            if build is not None:
+                _finish_build(*build)
+        except KernelError as e:
+            with _lock:
+                del _builds[name]
+            fut.set_exception(e)
+        else:
+            fut.set_result(None)
+    errors = [str(e) for e in (f.exception() for f in waits) if e is not None]
+    if errors:
+        raise KernelError("\n".join(errors))
+
+
 def build_all() -> None:
     """Compile every kernel library (one per ``csrc/*.cu``) in parallel; a
     no-op for those already built."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    with _lock:
-        started = [b for b in (_start_build(n) for n in names) if b is not None]
-        errors = []
-        for out, tmp, proc in started:
-            try:
-                _finish_build(out, tmp, proc)
-            except KernelError as e:
-                errors.append(str(e))
-        if errors:
-            raise KernelError("\n".join(errors))
+    _build(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>`` library, building it first if needed."""
     with _lock:
         lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        started = _start_build(name)
-        if started is not None:
-            _finish_build(*started)
-        lib = ctypes.CDLL(str(_library_path(name)))
-        _libs[name] = lib
+    if lib is not None:
         return lib
+    _build([name])
+    lib = ctypes.CDLL(str(_library_path(name)))  # the same handle in every thread
+    with _lock:
+        return _libs.setdefault(name, lib)
 
 
 class CudaKernel:

@@ -397,6 +397,8 @@ def run_split(
                 except Exception:
                     logger.exception("node stats sidecar failed (run output unaffected)")
     elapsed = time.monotonic() - t0
+    # host inventory until the mesh layer owns device counts (ROADMAP queue A item 7)
+    # curate-lint: disable=hardcoded-device-count
     num_chips = args.num_chips or max(1, torch.cuda.device_count())
     summary = build_summary(out, pipeline_run_time_s=elapsed, num_chips=num_chips, extra=index_extra or None)
     name = "summary.json" if rank == 0 else f"summary-node{rank}.json"

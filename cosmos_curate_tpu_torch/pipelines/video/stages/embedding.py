@@ -35,13 +35,16 @@ class ClipEmbeddingStage(Stage[SplitPipeTask, SplitPipeTask]):
     """Per-clip embeddings of every clip's extracted frames, on ``device``
     ("cuda" unless the caller asks for the CPU). ``params``: a ``state_dict``
     of the variant's model, else its staged checkpoint (``clip``, ``iv2``)
-    or its seeded init; ``iv2`` without either raises at setup."""
+    or its seeded init; ``iv2`` without either raises at setup.
+    ``clip_variant`` picks the ``clip`` variant's tower (a ``clip-vit-*``
+    registry id, ViT-B/16 by default)."""
 
     def __init__(
         self,
         *,
         variant: str = "video",
         video_cfg: VideoEmbedConfig | None = None,
+        clip_variant: str = "clip-vit-b16-tpu",
         extraction: FrameExtractionSignature = FrameExtractionSignature("fps", 2.0),
         params: dict[str, Any] | None = None,
         device: str | torch.device = "cuda",
@@ -53,7 +56,7 @@ class ClipEmbeddingStage(Stage[SplitPipeTask, SplitPipeTask]):
         self.extraction = extraction
         self._model: VideoEmbedder | IV2Embedder | CLIPImageEmbeddings
         if variant == "clip":
-            self._model = CLIPImageEmbeddings("clip-vit-b16-tpu", params=params, device=device)
+            self._model = CLIPImageEmbeddings(clip_variant, params=params, device=device)
         elif variant in IV2_VARIANTS:
             cfg, model_id, require = IV2_VARIANTS[variant]
             self._model = IV2Embedder(cfg, model_id=model_id, require_weights=require, params=params, device=device)

@@ -16,7 +16,12 @@ def _configure_root() -> None:
     if _CONFIGURED:
         return
     level = os.environ.get("CURATE_LOG_LEVEL", "INFO").upper()
-    if level not in logging.getLevelNamesMapping():
+    # logging.getLevelNamesMapping is 3.11+; the project floor is 3.10
+    if hasattr(logging, "getLevelNamesMapping"):
+        known_levels = set(logging.getLevelNamesMapping())
+    else:
+        known_levels = set(logging._nameToLevel)
+    if level not in known_levels:
         print(f"{_ROOT}: unknown CURATE_LOG_LEVEL={level!r}; using INFO", file=sys.stderr)
         level = "INFO"
     handler = logging.StreamHandler(sys.stderr)

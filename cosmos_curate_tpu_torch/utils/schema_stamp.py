@@ -76,6 +76,10 @@ def doc_version(doc: dict) -> int:
         return 1
 
 
+def has_migration(surface: str, from_version: int) -> bool:
+    return (surface, from_version) in MIGRATIONS
+
+
 def upgrade(doc: dict, surface: str, *, strict: bool = True) -> dict:
     """Carry ``doc`` forward to the surface's published version through the
     shim chain; a same-version document returns unchanged. A document newer
@@ -99,3 +103,12 @@ def upgrade(doc: dict, surface: str, *, strict: bool = True) -> dict:
         doc = shim(doc)
         v = doc_version(doc)
     return doc
+
+
+def describe() -> dict:
+    """Machine-readable summary of the versions and shims (the schema pass's
+    ``describe``)."""
+    return {
+        "versions": dict(SCHEMA_VERSIONS),
+        "migrations": sorted(f"{s}:v{v}->v{v + 1}" for s, v in MIGRATIONS),
+    }

@@ -149,12 +149,12 @@ def _actions(parser: argparse.ArgumentParser) -> dict[str, tuple]:
 
 def test_parser_walk_matches_jax():
     jtop, ttop = _subcommands(jmain.build_parser()), _subcommands(tmain.build_parser())
-    assert sorted(ttop) == ["agent", "dlq", "export-lance", "index", "info", "local", "models", "postgres", "report",
-                            "serve", "slurm", "top", "view"]
+    assert sorted(ttop) == ["agent", "dlq", "export-lance", "index", "info", "lint", "local", "models", "postgres",
+                            "report", "serve", "slurm", "top", "view"]
     assert set(ttop) <= set(jtop)
-    # the reference's groups the port still lacks (ROADMAP queue A items 22
-    # and 23; the reference's cli/image_cli.py registers image and deploy)
-    assert set(jtop) - set(ttop) == {"image", "deploy", "lint"}
+    # the reference's groups the port still lacks (ROADMAP queue A item 23;
+    # the reference's cli/image_cli.py registers image and deploy)
+    assert set(jtop) - set(ttop) == {"image", "deploy"}
     # registered in the reference's order
     assert list(ttop) == [c for c in jtop if c in ttop]
     assert _actions(tmain.build_parser()).keys() == _actions(jmain.build_parser()).keys() - {"<sub>"} | {"<sub>"}
@@ -162,6 +162,13 @@ def test_parser_walk_matches_jax():
     for command in ("report", "top", "agent", "view", "export-lance"):
         assert _actions(ttop[command]) == _actions(jtop[command]), command
         walked += len(_actions(ttop[command]))
+    # lint: the reference's flags; its targets default to the port's package
+    lint = _actions(ttop["lint"])
+    assert lint.pop("paths") == ("paths", ["cosmos_curate_tpu_torch"], None, False, "*", None, None, "_StoreAction")
+    want = _actions(jtop["lint"])
+    assert want.pop("paths")[1] == ["cosmos_curate_tpu"]
+    assert lint == want
+    walked += len(lint)
     # serve: the reference's flags and --device (where the search server runs)
     serve = _actions(ttop["serve"])
     assert serve.pop("--device") == ("device", "cuda", ("cuda", "cpu"), False, None, None, None, "_StoreAction")
@@ -239,6 +246,15 @@ def test_caption_model_choices_are_the_flavors():
 @pytest.mark.parametrize("argv", [[], ["local"], ["index"]], ids=["none", "local", "index"])
 def test_main_without_a_command_exits_2_like_jax(argv, capsys):
     assert tmain.main(argv) == jmain.main(argv) == 2
+
+
+def test_lint_shard_check_exits_2_naming_the_mesh_layer(capsys):
+    """``lint --shard-check`` checks sharded entry points against a JAX mesh;
+    the port has no mesh layer before ROADMAP A7, so it refuses (exit 2)
+    before linting anything, as the port refuses ``mesh=``."""
+    assert tmain.main(["lint", "--shard-check", "--mesh", "data=2,seq=2", "--hbm-gb", "16"]) == 2
+    err = capsys.readouterr().err
+    assert "ROADMAP queue A item 7" in err and "mesh" in err
 
 
 def test_main_exit_codes(tmp_path, monkeypatch, capsys):

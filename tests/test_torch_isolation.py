@@ -32,6 +32,13 @@ SERVICE_MODULES = ("service.slo", "service.job_queue", "service.admission", "ser
 TRAINERS = ("models.tracker_train", "models.transnet_train", "models.ocr_train", "models.sr_train",
             "models.diffusion_sr_train")
 TRAINING_MODULES = (*TRAINERS, "models.train_common", "models.flops", "models.hf_hub", "cli.models_cli")
+# the HF checkpoint converters, and the static analysis layer with its command
+CONVERTER_MODULES = ("models.convert_hf", "models.convert_qwen", "models.convert_iv2")
+ANALYSIS_MODULES = ("analysis.common", "analysis.ast_lint", "analysis.concurrency_check", "analysis.schema_check",
+                    "analysis.rules", "analysis.rules.ad_hoc_backoff", "analysis.rules.blocking_in_async",
+                    "analysis.rules.device_count", "analysis.rules.jit_transfer", "analysis.rules.lock_discipline",
+                    "analysis.rules.min_python", "analysis.rules.silent_swallow", "analysis.rules.sync_readback",
+                    "analysis.rules.thread_lifecycle", "cli.lint_cli")
 
 
 def test_port_imports_no_jax_flax_or_reference_package():
@@ -44,8 +51,8 @@ def test_port_imports_no_jax_flax_or_reference_package():
             importlib.import_module(name)
         bad = sorted(
             m for m in sys.modules
-            if m in ("jax", "flax", "cosmos_curate_tpu")
-            or m.startswith(("jax.", "flax.", "cosmos_curate_tpu."))
+            if m in ("jax", "flax", "cosmos_curate_tpu", "transformers", "safetensors")
+            or m.startswith(("jax.", "flax.", "cosmos_curate_tpu.", "transformers.", "safetensors."))
         )
         print(len(names), bad)
         print(" ".join(names))
@@ -58,7 +65,7 @@ def test_port_imports_no_jax_flax_or_reference_package():
     assert out.returncode == 0, out.stdout + out.stderr
     lines = out.stdout.splitlines()
     n_modules = int(lines[0].split()[0])
-    assert n_modules >= 148
+    assert n_modules >= 166
     names = set(lines[1].split())
     for module in ("models.clip", "models.internvideo2", "models.transnetv2", "pipelines.video.stages.aesthetic_filter",
                    "pipelines.video.stages.shot_detection", "models.vlm.vision_qwen", "models.vlm.chat",
@@ -82,7 +89,8 @@ def test_port_imports_no_jax_flax_or_reference_package():
                    "data.lazy", "cli.report_cli", "cli.top_cli", "cli.dlq_cli",
                    "pipelines.video.stages.caption_prep", "parallel.distributed", "parallel.work_stealing",
                    "engine.lineage", "engine.object_channel", "engine.remote_plane", "engine.remote_agent",
-                   *SERVICE_MODULES, *STORAGE_MODULES, *SENSOR_MODULES, *TRAINING_MODULES):
+                   *SERVICE_MODULES, *STORAGE_MODULES, *SENSOR_MODULES, *TRAINING_MODULES, *CONVERTER_MODULES,
+                   *ANALYSIS_MODULES):
         assert f"cosmos_curate_tpu_torch.{module}" in names, module
 
 
@@ -135,6 +143,41 @@ def test_node_agent_entry_points_import_neither_torch_nor_jax(entry):
     assert "--driver" in out.stdout and "--num-cpus" in out.stdout
     real = subprocess.run([sys.executable, *entry, "--help"], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert real.returncode == 0 and "--node-id" in real.stdout, real.stderr
+
+
+def test_analysis_layer_and_converters_stand_alone():
+    """The lint passes are host code, as the reference's are: importing the
+    analysis layer, its command and running every pass loads no torch, no
+    JAX, nothing of the JAX package and neither ``transformers`` nor
+    ``safetensors``; the converters load neither of the HF libraries. The
+    schema pass reads the port's own golden copies and the port's own
+    writers, never the reference's."""
+    script = textwrap.dedent(
+        f"""
+        import importlib, sys
+        for name in {ANALYSIS_MODULES!r}:
+            importlib.import_module("cosmos_curate_tpu_torch." + name)
+        from cosmos_curate_tpu_torch.analysis import schema_check
+        assert schema_check.run_schema_check() == []
+        surfaces = [s.file for s in schema_check.SURFACES]
+        golden = schema_check.GOLDEN_DIR
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("torch", "jax", "flax", "cosmos_curate_tpu", "transformers",
+                                            "safetensors"))
+        for name in {CONVERTER_MODULES!r}:
+            importlib.import_module("cosmos_curate_tpu_torch." + name)
+        hf = sorted(m for m in sys.modules if m.split(".")[0] in ("transformers", "safetensors", "jax", "flax"))
+        print(bad, hf, golden.relative_to(golden.parents[2]).as_posix(), surfaces)
+        sys.exit(1 if bad or hf else 0)
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "cosmos_curate_tpu_torch/analysis/schemas" in out.stdout
+    goldens = sorted(p.name for p in (REPO / "cosmos_curate_tpu_torch" / "analysis" / "schemas").glob("*.json"))
+    assert goldens == sorted(p.name for p in (REPO / "cosmos_curate_tpu" / "analysis" / "schemas").glob("*.json"))
+    for path in (REPO / "cosmos_curate_tpu_torch" / "analysis").rglob("*.py"):
+        assert "cosmos_curate_tpu/" not in path.read_text().replace("``cosmos_curate_tpu/", ""), path
 
 
 def test_storage_layer_imports_neither_torch_nor_jax():
@@ -751,7 +794,8 @@ def test_run_split_with_the_legs_defaults_to_the_gpu(option, tmp_path):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/engine_phase.py", "scripts/observe_phase.py",
-                                    "scripts/service_phase.py", "scripts/sensors_phase.py", "scripts/train_phase.py"])
+                                    "scripts/service_phase.py", "scripts/sensors_phase.py", "scripts/train_phase.py",
+                                    "scripts/convert_phase.py"])
 def test_chip_scripts_import_neither_jax_nor_the_reference(script):
     """The card's scripts run the port alone: no import of jax, flax or the
     JAX package anywhere in them (the card's machine has no jax)."""

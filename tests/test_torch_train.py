@@ -226,6 +226,66 @@ def test_save_params_chunks_large_arrays_as_flax_does(tmp_path, monkeypatch):
     assert_trees_equal(tregistry.read_flax_msgpack(got), tree)
 
 
+def test_save_params_streams_large_arrays_with_flax_bytes(tmp_path):
+    """Arrays of 64 KiB or more go to the file straight from their memory (a
+    transposed or reversed view through one C-order copy), with the bytes of
+    the JAX package's ``save_params``."""
+    rng = np.random.default_rng(2)
+    tree = {"params": {
+        "dense": {"kernel": rng.standard_normal((96, 256)).astype(np.float32).T,
+                  "bias": rng.standard_normal(96).astype(np.float32)},
+        "ids": np.arange(1 << 15, dtype=np.int64)[::-1],
+        "half": rng.standard_normal((128, 512)).astype(np.float16),
+    }}
+    want = jregistry.save_params("m", tree, root=tmp_path / "jax").read_bytes()
+    got = tregistry.save_params("m", tree, root=tmp_path / "port").read_bytes()
+    assert got == want
+    assert_trees_equal(tregistry.read_flax_msgpack(got), tree)
+
+
+def test_checkpoint_reader_matches_msgpack(tmp_path, monkeypatch):
+    """The reader gives the tree that flax's own msgpack restore gives:
+    large and small arrays, a bf16 leaf (widened to fp32: numpy has no
+    bfloat16), a numpy scalar and a chunked array."""
+    import flax.serialization
+
+    monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", 1 << 12)
+    rng = np.random.default_rng(3)
+    tree = {"params": {
+        "big": rng.standard_normal((64, 300)).astype(np.float32),
+        "chunked": rng.standard_normal(2000).astype(np.float32),
+        "bf16": jnp.asarray(rng.standard_normal((4, 8)), dtype=jnp.bfloat16),
+        "ids": np.arange(7, dtype=np.int32),
+        "scalar": np.float32(0.25),
+    }}
+    data = jregistry.save_params("m", tree, root=tmp_path).read_bytes()
+    want = jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32) if x.dtype == jnp.bfloat16 else np.asarray(x),
+        flax.serialization.msgpack_restore(data))
+    assert_trees_equal(tregistry.read_flax_msgpack(data), want)
+
+
+@pytest.mark.parametrize("shape", [(16, 1), (1, 8), (3, 1, 2, 4)])
+def test_flax_to_state_dict_returns_new_tensors(shape):
+    """Every leaf comes back as a new contiguous fp32 tensor, never a view
+    of the tree's memory: a kernel whose transpose is already contiguous
+    (a size-1 axis), a read-only leaf as a read checkpoint has, and a
+    reversed view."""
+    from cosmos_curate_tpu_torch.models.convert_jax import flax_to_state_dict
+
+    rng = np.random.default_rng(4)
+    kernel = rng.standard_normal(shape).astype(np.float32)
+    kernel.flags.writeable = False
+    bias = rng.standard_normal(shape[-1]).astype(np.float32)[::-1]
+    sd = flax_to_state_dict({"params": {"d": {"kernel": kernel, "bias": bias}}})
+    order = {2: (1, 0), 4: (3, 2, 0, 1)}[len(shape)]
+    np.testing.assert_array_equal(sd["d.weight"].numpy(), kernel.transpose(order))
+    np.testing.assert_array_equal(sd["d.bias"].numpy(), bias)
+    for t, src in ((sd["d.weight"], kernel), (sd["d.bias"], bias)):
+        assert t.dtype == torch.float32 and t.is_contiguous()
+        assert not np.shares_memory(t.numpy(), src)
+
+
 def test_save_params_needs_the_module_of_a_state_dict(tmp_path):
     """A flat ``state_dict`` is refused (its names do not give flax's); its
     module, or the tree ``state_dict_to_flax`` makes with it, writes."""
